@@ -1,0 +1,47 @@
+"""Architecture registry: ``get_config(name)`` / ``ARCHS``.
+
+A copy of the JAX package's registry holding the architectures the port
+serves so far: only ``llama3.2-1b``.  Each further family is registered
+here as its modules are ported (ROADMAP.md, queue 1).
+"""
+from __future__ import annotations
+
+import importlib
+from typing import Dict
+
+from repro_torch.configs.base import (
+    FULL_ATTENTION_ONLY,
+    SHAPES,
+    ModelConfig,
+    ShapeConfig,
+    cell_is_runnable,
+    reduced,
+)
+
+ARCHS = ("llama3.2-1b",)
+
+_MODULES = {a: a.replace("-", "_").replace(".", "_") for a in ARCHS}
+
+
+def get_config(name: str) -> ModelConfig:
+    if name not in _MODULES:
+        raise KeyError(f"unknown arch {name!r}; known: {sorted(_MODULES)}")
+    mod = importlib.import_module(f"repro_torch.configs.{_MODULES[name]}")
+    return mod.CONFIG
+
+
+def all_configs() -> Dict[str, ModelConfig]:
+    return {a: get_config(a) for a in ARCHS}
+
+
+__all__ = [
+    "ARCHS",
+    "SHAPES",
+    "FULL_ATTENTION_ONLY",
+    "ModelConfig",
+    "ShapeConfig",
+    "get_config",
+    "all_configs",
+    "cell_is_runnable",
+    "reduced",
+]

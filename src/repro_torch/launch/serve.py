@@ -1,0 +1,143 @@
+"""Serving entry point of the port: continuous batching, governor report.
+
+  # on the card, through the hand-written paged-decode kernel
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \\
+      --continuous --attn-kernel cuda --n-requests 16 --prompt-len 128 \\
+      --steps 32 --slots 8 --page-size 16
+
+  # a small model on the CPU, plain PyTorch attention
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \\
+      --reduced --continuous --device cpu --attn-kernel plain
+
+Only the ``--continuous`` path of ``repro.launch.serve`` is ported: the
+static batch, the fleet, the trace/telemetry outputs and the power cap
+come in later slices.  Weights are random, drawn from ``--seed``.  One
+warm-up generate runs before the clock starts (it also builds the CUDA
+kernel on first use); its time is reported as ``warmup_s``.  Each result
+line is one JSON object.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import time
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.configs import get_config, reduced
+from repro_torch.core.events import EventBus
+from repro_torch.core.governor import Governor
+from repro_torch.core.policies import policy_for_theta
+from repro_torch.device import resolve_device
+from repro_torch.models.transformer import init_params
+from repro_torch.serve.engine import ContinuousEngine
+from repro_torch.serve.scheduler import Request, poisson_arrivals
+from repro_torch.serve.slo import SLOTracker
+
+
+def _make_requests(args, cfg) -> List[Request]:
+    rng = np.random.default_rng(args.seed)
+    arrivals = poisson_arrivals(args.n_requests, args.arrival_rate, seed=args.seed,
+                                burst_every=max(args.slots, 2), burst_gap=0.05)
+    reqs = []
+    for i in range(args.n_requests):
+        prompt = rng.integers(0, cfg.vocab, size=args.prompt_len).astype(np.int32)
+        max_new = int(rng.integers(max(2, args.steps // 2), args.steps + 1))
+        reqs.append(Request(prompt=prompt, max_new=max_new, arrival=float(arrivals[i])))
+    return reqs
+
+
+def run_continuous(args) -> Dict[str, Any]:
+    """Serve ``args.n_requests`` Poisson requests; returns the run's numbers
+    together with the engine, governor and report under ``"objects"``."""
+    device = resolve_device(args.device)
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = reduced(cfg)
+    if args.kv_int8:
+        cfg = dataclasses.replace(cfg, kv_quant=True)
+    params = init_params(cfg, torch.Generator(device=device).manual_seed(args.seed), device)
+    max_len = args.prompt_len + args.steps + args.page_size
+    max_len += (-max_len) % args.page_size
+    eng = ContinuousEngine(cfg, params, n_slots=args.slots, max_len=max_len,
+                           page=args.page_size, attn_kernel=args.attn_kernel,
+                           device=device)
+    warm = np.random.default_rng(args.seed + 1).integers(
+        0, cfg.vocab, size=(1, args.prompt_len)).astype(np.int32)
+    t0 = time.time()
+    eng.generate({"tokens": warm}, n_steps=2)
+    t_warm = time.time() - t0
+
+    gov = Governor(policy=policy_for_theta(args.theta))
+    # the engine publishes decode phases onto a bus, not into a governor:
+    # the governor is just the first subscriber
+    bus = EventBus()
+    bus.subscribe(gov)
+    slo = SLOTracker()
+    reqs = _make_requests(args, cfg)
+    steps_before = eng.n_decode_steps
+    t0 = time.time()
+    done = eng.serve(reqs, governor=bus, slo=slo)
+    dt = time.time() - t0
+    rep = gov.finalize()
+    sess = eng._last_session
+    s = slo.summary()
+    n_tok = sum(len(r.out) for r in done)
+    return {
+        "arch": cfg.name, "device": str(device), "attn_kernel": args.attn_kernel,
+        "requests": len(done), "tokens": n_tok, "wall_s": dt,
+        "tok_per_s": n_tok / dt, "warmup_s": t_warm,
+        "decode_steps": eng.n_decode_steps - steps_before,
+        "step_ms_p50": float(np.percentile(sess.step_seconds, 50)) * 1e3,
+        "fill": eng._last_meter.fill_fraction,
+        "priced_slack_ms": rep.total_slack * 1e3, "phases": rep.n_calls,
+        "downshifts": rep.n_downshifts, "actuations": len(gov.actuation_log),
+        "energy_saving_pct": rep.energy_saving_pct,
+        "ttft_p95_ms": s["ttft"]["p95"] * 1e3, "tpot_p95_ms": s["tpot"]["p95"] * 1e3,
+        "completed": s["completed"],
+        "objects": {"engine": eng, "governor": gov, "report": rep, "requests": done},
+    }
+
+
+def parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(description=__doc__,
+                                 formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("--arch", default="llama3.2-1b")
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--continuous", action="store_true",
+                    help="continuous batching over the paged KV pool (the only "
+                         "mode ported so far)")
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--steps", type=int, default=16)
+    ap.add_argument("--kv-int8", action="store_true")
+    ap.add_argument("--n-requests", type=int, default=8)
+    ap.add_argument("--arrival-rate", type=float, default=40.0,
+                    help="Poisson arrival rate (req/s)")
+    ap.add_argument("--slots", type=int, default=4)
+    ap.add_argument("--page-size", type=int, default=8)
+    ap.add_argument("--attn-kernel", choices=["plain", "cuda"], default="cuda",
+                    help="decode attention: plain PyTorch or the hand-written "
+                         "CUDA paged kernel (CPU tensors always take the plain one)")
+    ap.add_argument("--theta", default="",
+                    help="governor timeout: seconds, 'auto' for the online "
+                         "ThetaTuner, empty = the policy default ('predictive' "
+                         "is not ported yet)")
+    ap.add_argument("--device", default=None, help="torch device (default: cuda)")
+    ap.add_argument("--seed", type=int, default=0)
+    return ap
+
+
+def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
+    args = parser().parse_args(argv)
+    if not args.continuous:
+        raise SystemExit("only --continuous serving is ported to repro_torch so far")
+    res = run_continuous(args)
+    print(json.dumps({k: v for k, v in res.items() if k != "objects"}))
+    return res
+
+
+if __name__ == "__main__":
+    main()

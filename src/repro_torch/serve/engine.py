@@ -1,0 +1,412 @@
+"""Serving engines: continuous batching over the paged KV pool + legacy API.
+
+Ported from ``repro.serve.engine``.  ``ContinuousEngine`` keeps a decode
+batch of ``n_slots`` continuously refilled: arrived requests **join on
+prefill** (``transformer.prefill``, scattered into pool pages), finished
+requests **evict on EOS**.  Each decode step runs every slot through one
+paged step (idle slots write the scratch page) and reports filled versus
+capacity, plus the idle gaps between arrivals, to the governor through
+:class:`~repro_torch.serve.slack.DecodeSlackMeter`.
+
+``attn_kernel`` picks the decode attention: ``"plain"`` (PyTorch, the
+reference's XLA branch) or ``"cuda"`` (the hand-written paged kernel, the
+counterpart of the reference's ``"pallas"``).  A step is timed from
+before its inputs go to the device until the device has finished it
+(``torch.cuda.synchronize``): the meter prices slack from those times,
+and a clock stopped at launch would price the wrong slack.
+
+Greedy decoding matches the reference token for token; the argmax runs on
+the device and only ``B`` tokens come back.  Sampling with a temperature
+draws from a ``torch.Generator`` per request and cannot reproduce the
+reference's ``jax.random`` draws; it is deterministic for a given seed.
+The prefix cache and the tracer hooks are not ported yet.
+"""
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass
+from typing import Any, Callable, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.models.transformer import decode_step as _decode
+from repro_torch.models.transformer import init_cache
+from repro_torch.models.transformer import prefill as _prefill
+from repro_torch.serve.kvcache import (
+    SCRATCH_PAGE,
+    PagedKVPool,
+    paged_attention_decode,
+    scatter_prefill_attn,
+)
+from repro_torch.serve.scheduler import Request, Scheduler
+from repro_torch.serve.slack import DecodeSlackMeter
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _sample(logits: torch.Tensor, temperature: float,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Greedy argmax (first index on a tie, as ``jnp.argmax``), or a draw
+    at ``temperature`` from ``generator`` when one is given."""
+    if temperature <= 0.0 or generator is None:
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+    probs = torch.softmax(logits.float() / temperature, dim=-1)
+    flat = probs.reshape(-1, probs.shape[-1])
+    draw = torch.multinomial(flat, 1, generator=generator)[:, 0]
+    return draw.reshape(probs.shape[:-1]).to(torch.int32)
+
+
+# --------------------------------------------------------------------------
+# legacy static-batch engine (dense cache)
+# --------------------------------------------------------------------------
+
+@dataclass
+class ServeEngine:
+    cfg: Any
+    params: Any
+    max_len: int
+    temperature: float = 0.0
+    device: Any = None
+
+    def __post_init__(self):
+        self.device = resolve_device(self.device)
+
+    @torch.no_grad()
+    def generate(self, batch: Dict[str, Any], n_steps: int,
+                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Greedy/sampled continuation of ``batch['tokens']`` (B,S) for n_steps."""
+        tokens = torch.as_tensor(np.asarray(batch["tokens"]), device=self.device)
+        b, s = tokens.shape
+        prompt_len = s + self.cfg.n_prefix
+        cache = init_cache(self.cfg, b, self.max_len, self.device)
+        logits, cache = _prefill(self.cfg, self.params, {"tokens": tokens}, cache)
+        tok = _sample(logits, self.temperature, generator)
+        out = [tok]
+        for i in range(1, n_steps):
+            logits, cache = _decode(self.cfg, self.params, tok, prompt_len + i - 1, cache)
+            tok = _sample(logits, self.temperature, generator)
+            out.append(tok)
+        return torch.stack(out, dim=1)                         # (B, n_steps)
+
+
+# --------------------------------------------------------------------------
+# paged step factories
+# --------------------------------------------------------------------------
+
+def make_paged_decode_step(cfg, attn_kernel: str = "plain",
+                           fused_sample: bool = False) -> Callable:
+    """decode(params, token (B,), pos (B,), table (B,M), blocks) -> (out, blocks).
+
+    Reuses ``transformer.decode_step`` and swaps only the attention for the
+    paged one (``attn_kernel``).  The pool blocks are updated in place.
+    With ``fused_sample`` the greedy argmax runs in the step and ``out`` is
+    the sampled (B,) int32 tokens on the device; otherwise the logits.
+    """
+
+    def step(params, token, pos, table, blocks):
+        def paged_attn(p_attn, h, bc):
+            return paged_attention_decode(cfg, p_attn, h, pos, table, bc,
+                                          kernel=attn_kernel)
+
+        logits, blocks = _decode(cfg, params, token, pos, blocks, attn_fn=paged_attn)
+        if fused_sample:
+            return torch.argmax(logits, dim=-1).to(torch.int32), blocks
+        return logits, blocks
+
+    return step
+
+
+def make_join_step(cfg) -> Callable:
+    """join(blocks, prefill_cache, page_ids (n_used,)) -> blocks: scatter a
+    batch-1 prefill cache into the slot's freshly allocated pages."""
+
+    def join(blocks, cache, page_ids):
+        for pb, cb in zip(blocks["layers"], cache["layers"]):
+            scatter_prefill_attn(pb, cb, page_ids)
+        return blocks
+
+    return join
+
+
+# --------------------------------------------------------------------------
+# continuous-batching engine
+# --------------------------------------------------------------------------
+
+@dataclass
+class ContinuousEngine:
+    """Continuous batching over a paged KV pool with governor-priced slack.
+
+    ``n_slots`` is the decode batch width, ``max_len`` the per-request
+    position budget (multiple of ``page``), ``num_pages`` optionally
+    shrinks the pool below full occupancy.  For windowed archs prompts
+    must fit inside the window (the pool stores positions linearly and
+    masks by window at read).  ``device`` is ``cuda`` unless the caller
+    names another; the params must already be there.
+    """
+
+    cfg: Any
+    params: Any
+    n_slots: int = 4
+    max_len: int = 128
+    page: int = 16
+    num_pages: Optional[int] = None
+    temperature: float = 0.0
+    attn_kernel: str = "plain"
+    device: Any = None
+
+    def __post_init__(self):
+        if self.attn_kernel not in ("plain", "cuda"):
+            raise ValueError(f"unknown attn_kernel {self.attn_kernel!r}")
+        self.device = resolve_device(self.device)
+        if self.params["embed"].device != self.device:
+            raise ValueError(f"params are on {self.params['embed'].device}, "
+                             f"the engine on {self.device}")
+        self.pool = PagedKVPool(self.cfg, self.n_slots, self.max_len, self.page,
+                                self.num_pages, device=self.device)
+        # greedy decoding samples inside the step; a temperature needs logits
+        self._fused_sample = self.temperature <= 0.0
+        self._decode = make_paged_decode_step(self.cfg, self.attn_kernel,
+                                              self._fused_sample)
+        self._join = make_join_step(self.cfg)
+        m = self.pool.max_pages_per_req
+        self._table = np.full((self.n_slots, m), SCRATCH_PAGE, np.int32)
+        self._lengths = np.zeros((self.n_slots,), np.int32)
+        self._tokens = np.zeros((self.n_slots,), np.int32)
+        self.n_decode_steps = 0                # every decode step this engine ran
+        self._last_meter: Optional[DecodeSlackMeter] = None
+        self._last_session: Optional["EngineSession"] = None
+
+    def _to_device(self, a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+    # ---- request lifecycle ----------------------------------------------
+    def _join_request(self, req: Request) -> None:
+        cfg = self.cfg
+        prompt = np.asarray(req.prompt, np.int32)
+        total = len(prompt) + cfg.n_prefix
+        n_used = self.pool.pages_needed(total)
+        lpad = n_used * self.pool.page
+        if cfg.attention in ("swa", "local") and cfg.window and lpad > cfg.window:
+            raise ValueError(
+                f"paged serving stores positions linearly: prompt pages {lpad} "
+                f"must fit the attention window {cfg.window}"
+            )
+        cache = init_cache(cfg, 1, lpad, self.device)
+        logits, cache = _prefill(cfg, self.params, {"tokens": self._to_device(prompt[None])},
+                                 cache)
+        req.pages = self.pool.alloc(req.rid, n_used)
+        slot = req.slot
+        self._table[slot] = SCRATCH_PAGE
+        self._table[slot, :n_used] = req.pages
+        self.pool.blocks = self._join(self.pool.blocks, cache,
+                                      self._to_device(np.asarray(req.pages, np.int32)))
+        tok = self._select_one(logits[0], req)
+        req.out.append(tok)
+        self._lengths[slot] = total
+        self._tokens[slot] = tok
+
+    def _select_one(self, logits: torch.Tensor, req: Request) -> int:
+        return int(_sample(logits, self.temperature, req.key))
+
+    def _grow_pages(self, req: Request) -> None:
+        pos = int(self._lengths[req.slot])
+        while pos // self.pool.page >= len(req.pages):
+            (pid,) = self.pool.alloc(req.rid, 1)
+            self._table[req.slot, len(req.pages)] = pid
+            req.pages.append(pid)
+
+    def _retire(self, req: Request, sched: Scheduler, slo, now: float) -> None:
+        if slo is not None:
+            slo.on_finish(req, now)
+        else:
+            req.t_done = now
+        self._table[req.slot] = SCRATCH_PAGE
+        self._tokens[req.slot] = 0
+        self._lengths[req.slot] = 0
+        sched.release(req)
+
+    # ---- driving loop ----------------------------------------------------
+    @torch.no_grad()
+    def serve(self, requests: List[Request], governor=None, slo=None,
+              max_steps: int = 100_000) -> List[Request]:
+        """Run all requests to completion; returns them with outputs filled.
+
+        Arrival offsets are honored against a wall clock started at call
+        time; idle waits and per-step underfill are published as phases to
+        ``governor`` (a :class:`~repro_torch.core.governor.Governor` or an
+        :class:`~repro_torch.core.events.EventBus`) when given.
+        """
+        sess = EngineSession(self, governor=governor, slo=slo)
+        for r in requests:
+            sess.submit(r)
+        steps = 0
+        while not sess.done:
+            sess.admit()
+            if sess.n_active == 0:
+                if not sess.sleep_until_next():
+                    break
+                continue
+            sess.decode_step()
+            steps += 1
+            if steps > max_steps:
+                raise RuntimeError(f"serve() exceeded {max_steps} decode steps")
+        return sess.finished
+
+    # ---- ServeEngine-compatible entry point ------------------------------
+    def generate(self, batch: Dict[str, Any], n_steps: int,
+                 seed: Optional[int] = None) -> torch.Tensor:
+        """Static-batch compatibility: all rows arrive at t=0, run to n_steps.
+
+        Greedy output matches ``ServeEngine.generate`` token for token.
+        With a temperature and a ``seed``, row ``i`` samples from its own
+        generator seeded ``seed + i``.
+        """
+        tokens = np.asarray(batch["tokens"])
+        b = tokens.shape[0]
+        if b > self.n_slots:
+            raise ValueError(f"batch {b} exceeds n_slots {self.n_slots}")
+        reqs = []
+        for i in range(b):
+            key = None
+            if seed is not None:
+                key = torch.Generator(device=self.device).manual_seed(seed + i)
+            reqs.append(Request(prompt=tokens[i], max_new=n_steps, arrival=0.0, key=key))
+        order = {r.rid: i for i, r in enumerate(reqs)}
+        done = sorted(self.serve(reqs), key=lambda r: order[r.rid])
+        return torch.as_tensor(np.stack([np.asarray(r.out[:n_steps], np.int32) for r in done]))
+
+
+# --------------------------------------------------------------------------
+# step-granular session
+# --------------------------------------------------------------------------
+
+class EngineSession:
+    """One engine's serving loop, exposed a step at a time.  All timestamps
+    are relative to ``t_start``.  ``step_seconds`` keeps every decode
+    step's synchronised duration."""
+
+    def __init__(self, engine: ContinuousEngine, governor=None, slo=None,
+                 t_start: Optional[float] = None):
+        self.engine = engine
+        self.slo = slo
+        self.sched = Scheduler(engine.pool, engine.n_slots, n_prefix=engine.cfg.n_prefix,
+                               slo=slo)
+        self.meter = DecodeSlackMeter(governor) if governor is not None else None
+        engine._last_meter = self.meter
+        engine._last_session = self
+        self.finished: List[Request] = []
+        self.t_start = time.monotonic() if t_start is None else t_start
+        self.steps = 0
+        self.step_seconds: List[float] = []
+
+    # ---- clock -----------------------------------------------------------
+    def now(self) -> float:
+        return time.monotonic() - self.t_start
+
+    # ---- queue state -----------------------------------------------------
+    @property
+    def done(self) -> bool:
+        return self.sched.done
+
+    @property
+    def n_active(self) -> int:
+        return self.sched.n_active
+
+    @property
+    def n_queued(self) -> int:
+        return self.sched.n_queued
+
+    def next_arrival(self) -> Optional[float]:
+        return self.sched.next_arrival()
+
+    def fill_fraction(self) -> float:
+        return self.sched.n_active / max(self.engine.n_slots, 1)
+
+    # ---- lifecycle -------------------------------------------------------
+    def submit(self, req: Request) -> None:
+        self.sched.submit(req)
+
+    def admit(self, now: Optional[float] = None) -> List[Request]:
+        """Join every arrived request that fits; returns the joins."""
+        eng = self.engine
+        joins = self.sched.admit(self.now() if now is None else now)
+        for req in joins:
+            eng._join_request(req)
+            tnow = self.now()
+            if self.slo is not None:
+                self.slo.on_first_token(req, tnow)
+            else:
+                req.t_first = req.t_prev = tnow
+            if not req.wants_more():
+                eng._retire(req, self.sched, self.slo, tnow)
+                self.finished.append(req)
+        return joins
+
+    def sleep_until_next(self) -> bool:
+        """Idle until the next arrival (metered); False when queue is empty."""
+        nxt = self.sched.next_arrival()
+        if nxt is None:
+            return False
+        t0 = time.monotonic()
+        wait = (self.t_start + nxt) - t0
+        if wait > 0:
+            time.sleep(wait)
+        t1 = time.monotonic()
+        self.note_idle(t0, t1)
+        return True
+
+    def note_idle(self, t0: float, t1: float) -> None:
+        if self.meter is not None and t1 > t0:
+            self.meter.idle(t0, t1)
+
+    def decode_step(self) -> None:
+        """One batched decode step over all active slots."""
+        eng = self.engine
+        sched = self.sched
+        for req in sched.active.values():
+            eng._grow_pages(req)
+        # clamp the table to the live pages: no request's K/V extends past
+        # ceil((max_pos + 1) / page) pages
+        max_pos = int(eng._lengths.max())
+        m_live = min(eng._table.shape[1], max_pos // eng.pool.page + 1)
+        t0 = time.monotonic()
+        out, blocks = eng._decode(
+            eng.params,
+            eng._to_device(eng._tokens),
+            eng._to_device(eng._lengths),
+            eng._to_device(eng._table[:, :m_live]),
+            eng.pool.blocks,
+        )
+        _sync(eng.device)                      # t1 is when the device is done
+        t1 = time.monotonic()
+        eng.pool.blocks = blocks
+        eng.n_decode_steps += 1
+        self.step_seconds.append(t1 - t0)
+        if self.meter is not None:
+            self.meter.step(t0, t1, sched.n_active, eng.n_slots)
+        greedy = out.cpu().numpy() if eng._fused_sample else None
+        tnow = self.now()
+        for slot, req in list(sched.active.items()):
+            eng._lengths[slot] += 1
+            tok = int(greedy[slot]) if greedy is not None else eng._select_one(out[slot], req)
+            first = not req.out
+            req.out.append(tok)
+            eng._tokens[slot] = tok
+            if self.slo is not None:
+                if first:
+                    self.slo.on_first_token(req, tnow)
+                else:
+                    self.slo.on_token(req, tnow)
+            else:
+                if first:
+                    req.t_first = tnow
+                req.t_prev = tnow
+            if not req.wants_more():
+                eng._retire(req, sched, self.slo, tnow)
+                self.finished.append(req)
+        self.steps += 1
