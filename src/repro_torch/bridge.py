@@ -1,10 +1,12 @@
 """Weights and caches between the JAX package's layout and the port's.
 
 The reference keeps every per-layer leaf stacked on a leading ``n_full``
-axis: ``{"stack": {"0": {...}}, "rem": {...}}`` (``stack_layout``).  The
-port walks its layers in a Python loop and keeps them **split**: a list
-``"layers"`` of per-layer dicts.  Only the dense family (pattern
-``("attn",)``, so ``n_full == n_layers`` and no ``rem``) is handled.
+axis: ``{"stack": {"0": {...}, ...}, "rem": {...}}`` (``stack_layout``).
+The port walks its layers in a Python loop and keeps them **split**: a
+list ``"layers"`` of per-layer dicts in layer order.  The dense family (pattern
+``("attn",)``, so ``n_full == n_layers`` and no ``rem``) and the hybrid
+family (recurrentgemma: periods of ``("rglru", "rglru", "attn")`` and, at
+26 layers, a remainder ``("rglru", "rglru")`` under ``"rem"``) are handled.
 
 Everything crosses as numpy arrays: a caller holding JAX arrays passes
 ``jax.tree.map(np.asarray, tree)``, and nothing here imports JAX.  bf16
@@ -13,12 +15,12 @@ read and written through its raw 16 bits, so the round trip is bit-exact.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch.models.transformer import check_dense
+from repro_torch.models.transformer import check_supported, stack_layout
 
 Params = Dict[str, Any]
 
@@ -47,30 +49,51 @@ def _map(tree, fn):
     return fn(tree)
 
 
-def layers_from_stack(stacked: Params, n_layers: int, device) -> List[Params]:
-    """``{"0": block with leaves (n_full, ...)}`` -> list of per-layer blocks."""
-    (block,) = stacked.values()
-    return [_map(block, lambda a, i=i: tensor_from_numpy(np.asarray(a)[i], device))
-            for i in range(n_layers)]
+def _layer_places(cfg) -> List[Tuple[str, str, Optional[int]]]:
+    """Where each layer, in order, sits in the reference's tree: period i's
+    block j at ``("stack", j, i)``, then remainder block j at ``("rem", j, None)``."""
+    n_full, rem_kinds = stack_layout(cfg)
+    plen = len(cfg.pattern)
+    return ([("stack", str(j), i) for i in range(n_full) for j in range(plen)]
+            + [("rem", str(j), None) for j in range(len(rem_kinds))])
 
 
-def stack_from_layers(layers: List[Params], bf16_dtype=None) -> Params:
-    """Inverse of :func:`layers_from_stack`."""
+def layers_from_tree(cfg, tree: Params, device) -> List[Params]:
+    """``{"stack": {j: leaves (n_full, ...)}, "rem": {j: ...}}`` -> list of
+    per-layer blocks in layer order."""
+    def take(a, i):
+        a = np.asarray(a)
+        return tensor_from_numpy(a if i is None else a[i], device)
+
+    return [_map(tree[group][j], lambda a, i=i: take(a, i))
+            for group, j, i in _layer_places(cfg)]
+
+
+def tree_from_layers(cfg, layers: List[Params], bf16_dtype=None) -> Params:
+    """Inverse of :func:`layers_from_tree`."""
     def walk(trees):
         if isinstance(trees[0], dict):
             return {k: walk([t[k] for t in trees]) for k in trees[0]}
         return np.stack([tensor_to_numpy(t, bf16_dtype) for t in trees])
 
-    return {"0": walk(layers)}
+    n_full, rem_kinds = stack_layout(cfg)
+    plen = len(cfg.pattern)
+    out: Params = {"stack": {str(j): walk([layers[i * plen + j] for i in range(n_full)])
+                             for j in range(plen)}}
+    if rem_kinds:
+        out["rem"] = {str(j): _map(layers[n_full * plen + j],
+                                   lambda t: tensor_to_numpy(t, bf16_dtype))
+                      for j in range(len(rem_kinds))}
+    return out
 
 
 def params_from_numpy(cfg, tree: Params, device) -> Params:
     """The reference's parameter tree (numpy leaves) -> the port's params."""
-    check_dense(cfg)
+    check_supported(cfg)
     out: Params = {
         "embed": tensor_from_numpy(tree["embed"], device),
         "final_norm": _map(tree["final_norm"], lambda a: tensor_from_numpy(a, device)),
-        "layers": layers_from_stack(tree["stack"], cfg.n_layers, device),
+        "layers": layers_from_tree(cfg, tree, device),
     }
     if "head" in tree:
         out["head"] = tensor_from_numpy(tree["head"], device)
@@ -79,11 +102,11 @@ def params_from_numpy(cfg, tree: Params, device) -> Params:
 
 def params_to_numpy(cfg, params: Params, bf16_dtype=None) -> Params:
     """The port's params -> the reference's stacked tree of numpy arrays."""
-    check_dense(cfg)
+    check_supported(cfg)
     out: Params = {
         "embed": tensor_to_numpy(params["embed"], bf16_dtype),
         "final_norm": _map(params["final_norm"], lambda t: tensor_to_numpy(t, bf16_dtype)),
-        "stack": stack_from_layers(params["layers"], bf16_dtype),
+        **tree_from_layers(cfg, params["layers"], bf16_dtype),
     }
     if "head" in params:
         out["head"] = tensor_to_numpy(params["head"], bf16_dtype)
@@ -91,6 +114,13 @@ def params_to_numpy(cfg, params: Params, bf16_dtype=None) -> Params:
 
 
 def blocks_from_numpy(cfg, tree: Params, device) -> Params:
-    """A reference cache or page-pool tree ``{"stack": ...}`` -> ``{"layers": [...]}``."""
-    check_dense(cfg)
-    return {"layers": layers_from_stack(tree["stack"], cfg.n_layers, device)}
+    """A reference cache or page-pool tree ``{"stack": ..., "rem": ...}`` ->
+    ``{"layers": [...]}``."""
+    check_supported(cfg)
+    return {"layers": layers_from_tree(cfg, tree, device)}
+
+
+def blocks_to_numpy(cfg, blocks: Params, bf16_dtype=None) -> Params:
+    """Inverse of :func:`blocks_from_numpy`."""
+    check_supported(cfg)
+    return tree_from_layers(cfg, blocks["layers"], bf16_dtype)

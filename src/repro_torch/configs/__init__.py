@@ -1,8 +1,9 @@
 """Architecture registry: ``get_config(name)`` / ``ARCHS``.
 
 A copy of the JAX package's registry holding the architectures the port
-serves so far: only ``llama3.2-1b``.  Each further family is registered
-here as its modules are ported (ROADMAP.md, queue 1).
+serves so far: ``llama3.2-1b`` (dense) and ``recurrentgemma-2b`` (hybrid).
+Each further family is registered here as its modules are ported
+(ROADMAP.md, queue 1).
 """
 from __future__ import annotations
 
@@ -18,7 +19,7 @@ from repro_torch.configs.base import (
     reduced,
 )
 
-ARCHS = ("llama3.2-1b",)
+ARCHS = ("llama3.2-1b", "recurrentgemma-2b")
 
 _MODULES = {a: a.replace("-", "_").replace(".", "_") for a in ARCHS}
 

@@ -23,3 +23,19 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
         if dev.index is None:          # name the card, as tensors on it do
             dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+KERNELS = ("plain", "cuda")
+
+
+def resolve_kernel(kernel: Optional[str], device: Union[str, torch.device]) -> str:
+    """The kernel choice (``attn_kernel``): plain PyTorch or the hand-written
+    kernels.  ``None`` follows the device: ``"cuda"`` on a CUDA device,
+    ``"plain"`` elsewhere.  An explicit ``"plain"`` on the card is allowed;
+    an explicit ``"cuda"`` reaches the kernel wrappers, which take their
+    plain versions for CPU tensors."""
+    if kernel is None:
+        return "cuda" if torch.device(device).type == "cuda" else "plain"
+    if kernel not in KERNELS:
+        raise ValueError(f"unknown attn_kernel {kernel!r}; expected one of {KERNELS} or None")
+    return kernel

@@ -26,19 +26,13 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-import os
-import subprocess
-from pathlib import Path
 from typing import Optional
 
 import torch
 
+from repro_torch.kernels import _build
 from repro_torch.models.layers import NEG_INF, _kv_dequantize
 
-REPO_ROOT = Path(__file__).resolve().parents[3]
-SOURCE = Path(__file__).resolve().parent / "csrc" / "paged_attention.cu"
-BUILD_DIR = REPO_ROOT / "build" / "torch_ext"
-NVCC_FLAGS = ["-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a"]
 MAX_SHARED_BYTES = 48 * 1024
 
 _PAGE_KINDS = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
@@ -100,32 +94,15 @@ def paged_attention_scatter_plain(
 
 @functools.lru_cache(maxsize=None)
 def build() -> ctypes.CDLL:
-    """Compile ``csrc/paged_attention.cu`` into ``build/torch_ext/`` (once per
-    process) and load it.  Uses ``torch.utils.cpp_extension.load`` when
-    ``ninja`` is present, else ``nvcc`` directly; either way the library has
-    a plain C interface."""
-    from torch.utils import cpp_extension
-
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    if cpp_extension.is_ninja_available():
-        path = cpp_extension.load(
-            name="repro_torch_paged_attention", sources=[str(SOURCE)],
-            build_directory=str(BUILD_DIR), extra_cuda_cflags=NVCC_FLAGS,
-            is_python_module=False, verbose=False)
-    else:
-        path = str(BUILD_DIR / "libpaged_attention.so")
-        nvcc = os.path.join(cpp_extension.CUDA_HOME or "/usr/local/cuda", "bin", "nvcc")
-        subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-Xcompiler", "-fPIC",
-                        "-o", path, str(SOURCE)], check=True)
-    lib = ctypes.CDLL(path)
+    """Build ``csrc/paged_attention.cu`` on first use (see
+    :mod:`repro_torch.kernels._build`) and declare its C interface."""
+    lib = _build.load("paged_attention")
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.repro_paged_attention_scatter.argtypes = (
         [i, i] + [p] * 14 + [i] * 8 + [ctypes.c_float, p])
     lib.repro_paged_attention_scatter.restype = i
     lib.repro_paged_attention_shared_bytes.argtypes = [i, i, i]
     lib.repro_paged_attention_shared_bytes.restype = ctypes.c_size_t
-    lib.repro_cuda_error_string.argtypes = [i]
-    lib.repro_cuda_error_string.restype = ctypes.c_char_p
     return lib
 
 
@@ -231,9 +208,7 @@ def paged_attention_scatter(
         ptr(k_scale_pages), ptr(v_scale_pages), ptr(table), ptr(pos), ptr(page_idx),
         ptr(off), ptr(out), b, n_pages, hkv, g, d, page, m, int(window), 1.0 / math.sqrt(d),
         torch.cuda.current_stream(q.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(
-            f"paged_attention_scatter launch failed: {lib.repro_cuda_error_string(rc).decode()}")
+    _build.check(lib, rc, "paged_attention_scatter")
     global launches
     launches += 1
     return out

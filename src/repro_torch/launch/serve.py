@@ -1,13 +1,19 @@
 """Serving entry point of the port: continuous batching, governor report.
 
-  # on the card, through the hand-written paged-decode kernel
+  # on the card, through the hand-written kernels (the default there)
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \\
-      --continuous --attn-kernel cuda --n-requests 16 --prompt-len 128 \\
-      --steps 32 --slots 8 --page-size 16
+      --continuous --n-requests 16 --prompt-len 128 --steps 32 --slots 8 \\
+      --page-size 16
 
-  # a small model on the CPU, plain PyTorch attention
+  # the hybrid family, with one more request whose 2032-token prompt
+  # decodes past the 2048-token attention window
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-2b \\
+      --continuous --n-requests 12 --prompt-len 128 --steps 32 --slots 8 \\
+      --page-size 16 --long-prompt 2032
+
+  # a small model on the CPU, plain PyTorch (the default there)
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \\
-      --reduced --continuous --device cpu --attn-kernel plain
+      --reduced --continuous --device cpu
 
 Only the ``--continuous`` path of ``repro.launch.serve`` is ported: the
 static batch, the fleet, the trace/telemetry outputs and the power cap
@@ -39,6 +45,10 @@ from repro_torch.serve.slo import SLOTracker
 
 
 def _make_requests(args, cfg) -> List[Request]:
+    """``--n-requests`` Poisson arrivals with ``--prompt-len`` prompts and
+    ``--steps // 2 .. --steps`` new tokens; with ``--long-prompt N``, one
+    more request of an N-token prompt and ``--steps`` new tokens, arriving
+    with the first."""
     rng = np.random.default_rng(args.seed)
     arrivals = poisson_arrivals(args.n_requests, args.arrival_rate, seed=args.seed,
                                 burst_every=max(args.slots, 2), burst_gap=0.05)
@@ -47,6 +57,9 @@ def _make_requests(args, cfg) -> List[Request]:
         prompt = rng.integers(0, cfg.vocab, size=args.prompt_len).astype(np.int32)
         max_new = int(rng.integers(max(2, args.steps // 2), args.steps + 1))
         reqs.append(Request(prompt=prompt, max_new=max_new, arrival=float(arrivals[i])))
+    if args.long_prompt:
+        prompt = rng.integers(0, cfg.vocab, size=args.long_prompt).astype(np.int32)
+        reqs.append(Request(prompt=prompt, max_new=args.steps, arrival=float(arrivals[0])))
     return reqs
 
 
@@ -60,7 +73,7 @@ def run_continuous(args) -> Dict[str, Any]:
     if args.kv_int8:
         cfg = dataclasses.replace(cfg, kv_quant=True)
     params = init_params(cfg, torch.Generator(device=device).manual_seed(args.seed), device)
-    max_len = args.prompt_len + args.steps + args.page_size
+    max_len = max(args.prompt_len, args.long_prompt) + args.steps + args.page_size
     max_len += (-max_len) % args.page_size
     eng = ContinuousEngine(cfg, params, n_slots=args.slots, max_len=max_len,
                            page=args.page_size, attn_kernel=args.attn_kernel,
@@ -78,7 +91,7 @@ def run_continuous(args) -> Dict[str, Any]:
     bus.subscribe(gov)
     slo = SLOTracker()
     reqs = _make_requests(args, cfg)
-    steps_before = eng.n_decode_steps
+    steps_before, joins_before = eng.n_decode_steps, eng.n_joins
     t0 = time.time()
     done = eng.serve(reqs, governor=bus, slo=slo)
     dt = time.time() - t0
@@ -87,10 +100,11 @@ def run_continuous(args) -> Dict[str, Any]:
     s = slo.summary()
     n_tok = sum(len(r.out) for r in done)
     return {
-        "arch": cfg.name, "device": str(device), "attn_kernel": args.attn_kernel,
+        "arch": cfg.name, "device": str(device), "attn_kernel": eng.attn_kernel,
         "requests": len(done), "tokens": n_tok, "wall_s": dt,
         "tok_per_s": n_tok / dt, "warmup_s": t_warm,
         "decode_steps": eng.n_decode_steps - steps_before,
+        "joins": eng.n_joins - joins_before,
         "step_ms_p50": float(np.percentile(sess.step_seconds, 50)) * 1e3,
         "fill": eng._last_meter.fill_fraction,
         "priced_slack_ms": rep.total_slack * 1e3, "phases": rep.n_calls,
@@ -111,6 +125,8 @@ def parser() -> argparse.ArgumentParser:
                     help="continuous batching over the paged KV pool (the only "
                          "mode ported so far)")
     ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--long-prompt", type=int, default=0,
+                    help="add one request with a prompt this long (0: none)")
     ap.add_argument("--steps", type=int, default=16)
     ap.add_argument("--kv-int8", action="store_true")
     ap.add_argument("--n-requests", type=int, default=8)
@@ -118,9 +134,10 @@ def parser() -> argparse.ArgumentParser:
                     help="Poisson arrival rate (req/s)")
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--page-size", type=int, default=8)
-    ap.add_argument("--attn-kernel", choices=["plain", "cuda"], default="cuda",
-                    help="decode attention: plain PyTorch or the hand-written "
-                         "CUDA paged kernel (CPU tensors always take the plain one)")
+    ap.add_argument("--attn-kernel", choices=["plain", "cuda"], default=None,
+                    help="plain PyTorch or the hand-written kernels (default: the "
+                         "kernels on a CUDA device, plain PyTorch on the CPU; CPU "
+                         "tensors always take the plain versions)")
     ap.add_argument("--theta", default="",
                     help="governor timeout: seconds, 'auto' for the online "
                          "ThetaTuner, empty = the policy default ('predictive' "

@@ -2,10 +2,14 @@
 
 Plain functions over explicit parameter dicts of tensors, in the JAX
 package's layouts (``x @ w`` with ``w`` stored ``(d_in, d_out)``), so the
-parity tests compare like with like.  Only the dense subset is here: the
-RMSNorm, RoPE, GQA attention (naive, chunked and banded, chosen as
-``attention_forward`` chooses), the linear/ring KV cache with its int8
-variant, and the SwiGLU MLP.
+parity tests compare like with like.  Only the subset the dense and hybrid
+families need is here: the RMSNorm, RoPE, GQA attention (naive, chunked
+and banded, chosen as ``attention_forward`` chooses), the linear/ring KV
+cache with its int8 variant, and the SwiGLU MLP.
+
+``kernel`` picks plain PyTorch (``"plain"``) or the hand-written kernels
+(``"cuda"``) for the RMSNorm and the prefill attention; the kernel
+wrappers take their plain versions for CPU tensors.
 
 **Dtypes follow JAX's promotion on purpose.**  JAX turns ``bf16 @ fp32``
 into an fp32 product and ``bf16 + fp32`` into fp32; ``torch.matmul``
@@ -22,6 +26,9 @@ from typing import Any, Dict, Optional
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.kernels import flash_attention as FA
+from repro_torch.kernels import rmsnorm as RN
 
 Params = Dict[str, Any]
 
@@ -69,13 +76,12 @@ def init_norm(cfg, d: int, dtype, device) -> Params:
     return {"scale": torch.ones((d,), dtype=dtype, device=device)}
 
 
-def apply_norm(cfg, p: Params, x: torch.Tensor) -> torch.Tensor:
+def apply_norm(cfg, p: Params, x: torch.Tensor, kernel: str = "plain") -> torch.Tensor:
     if cfg.norm != "rmsnorm":
         raise NotImplementedError(f"norm {cfg.norm!r} is not ported yet")
-    xf = x.float()
-    ms = torch.mean(torch.square(xf), dim=-1, keepdim=True)
-    y = xf * torch.rsqrt(ms + 1e-6) * p["scale"].float()
-    return y.to(x.dtype)
+    if kernel == "cuda":
+        return RN.rmsnorm(x.contiguous(), p["scale"])
+    return RN.rmsnorm_plain(x, p["scale"])
 
 
 # --------------------------------------------------------------------------
@@ -219,14 +225,30 @@ def _window(cfg) -> int:
     return cfg.window if cfg.attention in ("swa", "local") and cfg.window else 0
 
 
-def attention_forward(cfg, p, x, positions, *, impl: str = "auto"):
-    """Training / prefill attention over a full sequence.  x: (B,S,d)."""
+def _index(x: torch.Tensor) -> torch.Tensor:
+    return torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+
+
+def attention_forward(cfg, p, x, positions=None, *, impl: str = "auto",
+                      kernel: str = "plain"):
+    """Training / prefill attention over a full sequence.  x: (B,S,d);
+    positions: (S,), or None for 0..S-1.  ``kernel="cuda"`` runs the flash
+    kernel whatever ``impl`` says.  That kernel masks by index, so its
+    wrapper checks given positions against ``arange(S)`` (a host sync) and
+    refuses others; None needs no check."""
     b, s, _ = x.shape
+    given, positions = positions, _index(x) if positions is None else positions
     q, k, v = _project_qkv(cfg, p, x)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
-    qg = _gqa_reshape(q, cfg.n_kv_heads)
     window = _window(cfg)
+    if kernel == "cuda":
+        out = FA.flash_attention(
+            q.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous(),
+            v.transpose(1, 2).contiguous(), positions=given, window=window)
+        out = out.transpose(1, 2).reshape(b, s, cfg.n_heads * cfg.head_dim)
+        return matmul(out, p["wo"])
+    qg = _gqa_reshape(q, cfg.n_kv_heads)
     if impl == "auto":
         if window and s > cfg.window:
             impl = "banded"
@@ -278,10 +300,11 @@ def _kv_dequantize(q: torch.Tensor, scale: torch.Tensor, dtype) -> torch.Tensor:
     return (q.float() * scale[..., None]).to(dtype)
 
 
-def attention_prefill(cfg, p, x, positions, cache):
-    """Run full-sequence attention and fill ``cache`` in place.
-    Returns (out, cache)."""
-    out = attention_forward(cfg, p, x, positions)
+def attention_prefill(cfg, p, x, positions, cache, kernel: str = "plain"):
+    """Run full-sequence attention and fill ``cache`` in place; positions as
+    in :func:`attention_forward`.  Returns (out, cache)."""
+    out = attention_forward(cfg, p, x, positions, kernel=kernel)
+    positions = _index(x) if positions is None else positions
     _, k, v = _project_qkv(cfg, p, x)
     k = apply_rope(k, positions, cfg.rope_theta)
     rows = {"k": k, "v": v}

@@ -1,11 +1,18 @@
-"""Dense transformer assembly, ported from ``repro.models.transformer``.
+"""Model assembly for the dense and hybrid families, ported from ``repro.models.transformer``.
 
-The reference stacks the layers on a leading ``n_full`` axis and scans
-over them.  PyTorch runs eagerly, so the port walks the layers in a Python
+The reference stacks the layers on a leading ``n_full`` axis of periods of
+the config's block pattern (dense: ``("attn",)``; recurrentgemma:
+``("rglru", "rglru", "attn")``), scans over them, and unrolls a remainder
+``"rem"``.  PyTorch runs eagerly, so the port walks the layers in a Python
 loop and keeps them **split**: ``params["layers"]`` is a list of per-layer
-dicts, and caches and page pools are ``{"layers": [...]}`` trees of the
-same shape.  :mod:`repro_torch.bridge` converts to and from the stacked
-layout.  Only the dense family is ported (pattern ``("attn",)``).
+dicts in layer order (``cfg.layer_kinds()`` names each one's kind), and
+caches and page pools are ``{"layers": [...]}`` trees of the same shape.
+:mod:`repro_torch.bridge` converts to and from the stacked layout.  Caches
+are updated in place.
+
+``kernel`` picks plain PyTorch or the hand-written kernels (RMSNorm, flash
+prefill attention, RG-LRU scan); ``None`` follows the device of the tokens
+(:func:`repro_torch.device.resolve_kernel`).
 
 Public API:
     init_params(cfg, generator, device)          -> params
@@ -16,46 +23,67 @@ Public API:
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.device import resolve_kernel
 from repro_torch.models import layers as L
+from repro_torch.models import rglru as R
 
 Params = Dict[str, Any]
 
+BLOCK_KINDS = ("attn", "rglru")
 
-def check_dense(cfg) -> None:
-    if cfg.pattern != ("attn",) or cfg.is_moe or cfg.n_prefix:
+
+def check_supported(cfg) -> None:
+    """Admit the families the port serves: dense (``("attn",)``) and hybrid
+    (attention and RG-LRU blocks); refuse MoE, SSM and frontend prefixes."""
+    ok = cfg.family in ("dense", "hybrid") and set(cfg.pattern) <= set(BLOCK_KINDS)
+    if cfg.family == "dense":
+        ok = ok and cfg.pattern == ("attn",)
+    if not ok or cfg.is_moe or cfg.n_prefix:
         raise NotImplementedError(
-            f"arch {cfg.name!r} is not a dense transformer; only the dense "
-            "family is ported (ROADMAP.md, queue 1: other families)")
+            f"arch {cfg.name!r} (family {cfg.family!r}, pattern {cfg.pattern}) is not "
+            "ported; only the dense and the attention/RG-LRU hybrid families are "
+            "(ROADMAP.md, queue 1: other families)")
+
+
+def stack_layout(cfg) -> Tuple[int, Tuple[str, ...]]:
+    """(n_full periods, remainder block kinds), as the reference stacks them."""
+    plen = len(cfg.pattern)
+    return cfg.n_layers // plen, cfg.pattern[:cfg.n_layers % plen]
 
 
 # --------------------------------------------------------------------------
 # init
 # --------------------------------------------------------------------------
 
+def _init_block(cfg, kind: str, gen, dtype, device) -> Params:
+    d = cfg.d_model
+    p = {"ln1": L.init_norm(cfg, d, dtype, device)}
+    if kind == "attn":
+        p["attn"] = L.init_attention(cfg, gen, dtype, device)
+    else:
+        p["rglru"] = R.init_rglru(cfg, gen, dtype, device)
+    p["ln2"] = L.init_norm(cfg, d, dtype, device)
+    p["ffn"] = L.init_mlp(cfg, gen, dtype, device)
+    return p
+
+
 def init_params(cfg, generator: torch.Generator, device) -> Params:
     """Random weights with the reference's initializers and layout (split
     per layer), drawn from ``generator`` on ``device``.  Different draws
     from JAX's: use :func:`repro_torch.bridge.params_from_numpy` to load the
     reference's weights."""
-    check_dense(cfg)
+    check_supported(cfg)
     dtype = L.dtype_of(cfg.param_dtype)
     d = cfg.d_model
     params: Params = {
         "embed": L.embed_init(generator, cfg.padded_vocab, d, dtype, device),
         "final_norm": L.init_norm(cfg, d, dtype, device),
-        "layers": [
-            {
-                "ln1": L.init_norm(cfg, d, dtype, device),
-                "attn": L.init_attention(cfg, generator, dtype, device),
-                "ln2": L.init_norm(cfg, d, dtype, device),
-                "ffn": L.init_mlp(cfg, generator, dtype, device),
-            }
-            for _ in range(cfg.n_layers)
-        ],
+        "layers": [_init_block(cfg, kind, generator, dtype, device)
+                   for kind in cfg.layer_kinds()],
     }
     if not cfg.tie_embeddings:
         params["head"] = L.dense_init(generator, d, cfg.padded_vocab, dtype, device)
@@ -88,52 +116,69 @@ def logits_fn(cfg, params, hidden) -> torch.Tensor:
 # --------------------------------------------------------------------------
 
 def init_cache(cfg, batch: int, max_len: int, device) -> Params:
-    check_dense(cfg)
+    """Per layer: a ring/linear KV cache for attention, the recurrent state
+    (conv window, h) for RG-LRU."""
+    check_supported(cfg)
     dtype = L.dtype_of(cfg.compute_dtype)
-    return {"layers": [L.init_kv_cache(cfg, batch, max_len, dtype, device)
-                       for _ in range(cfg.n_layers)]}
+    return {"layers": [
+        L.init_kv_cache(cfg, batch, max_len, dtype, device) if kind == "attn"
+        else R.init_rglru_state(cfg, batch, dtype, device)
+        for kind in cfg.layer_kinds()]}
 
 
-def _block_prefill(cfg, p, x, positions, bc):
-    h = L.apply_norm(cfg, p["ln1"], x)
-    y, bc = L.attention_prefill(cfg, p["attn"], h, positions, bc)
+def _block_prefill(cfg, kind, p, x, bc, kernel):
+    """One block over the whole prompt, at positions 0..S-1."""
+    h = L.apply_norm(cfg, p["ln1"], x, kernel)
+    if kind == "attn":
+        y, bc = L.attention_prefill(cfg, p["attn"], h, None, bc, kernel)
+    else:
+        y, state = R.rglru_forward(cfg, p["rglru"], h, bc, kernel)
+        bc.update(state)
     x = x + y
-    h = L.apply_norm(cfg, p["ln2"], x)
+    h = L.apply_norm(cfg, p["ln2"], x, kernel)
     return x + L.mlp_forward(cfg, p["ffn"], h), bc
 
 
-def _block_decode(cfg, p, x, pos, bc, attn_fn=None):
+def _block_decode(cfg, kind, p, x, pos, bc, attn_fn, kernel):
     """One block's single-token step.  ``attn_fn(p_attn, h, bc) -> (y, bc)``
     overrides the dense-cache attention (the paged serving engine passes a
-    page-table closure); everything else is shared."""
-    h = L.apply_norm(cfg, p["ln1"], x)
-    if attn_fn is None:
+    page-table closure); RG-LRU state is updated in place in ``bc``."""
+    h = L.apply_norm(cfg, p["ln1"], x, kernel)
+    if kind == "rglru":
+        y, state = R.rglru_decode(cfg, p["rglru"], h, bc)
+        bc.update(state)
+    elif attn_fn is None:
         y, bc = L.attention_decode(cfg, p["attn"], h, pos, bc)
     else:
         y, bc = attn_fn(p["attn"], h, bc)
     x = x + y
-    h = L.apply_norm(cfg, p["ln2"], x)
+    h = L.apply_norm(cfg, p["ln2"], x, kernel)
     return x + L.mlp_forward(cfg, p["ffn"], h), bc
 
 
-def prefill(cfg, params, batch, cache) -> Tuple[torch.Tensor, Params]:
+def prefill(cfg, params, batch, cache, *, kernel: Optional[str] = None
+            ) -> Tuple[torch.Tensor, Params]:
     """Full-sequence prefill of ``batch["tokens"]`` (B,S).  Fills ``cache``
     in place; returns (last-token logits (B,V), cache)."""
-    x = _embed_inputs(cfg, params, batch["tokens"])
-    positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
-    for p, bc in zip(params["layers"], cache["layers"]):
-        x, _ = _block_prefill(cfg, p, x, positions, bc)
-    x = L.apply_norm(cfg, params["final_norm"], x)
+    tokens = batch["tokens"]
+    kernel = resolve_kernel(kernel, tokens.device)
+    x = _embed_inputs(cfg, params, tokens)
+    for kind, p, bc in zip(cfg.layer_kinds(), params["layers"], cache["layers"]):
+        x, _ = _block_prefill(cfg, kind, p, x, bc, kernel)
+    x = L.apply_norm(cfg, params["final_norm"], x, kernel)
     return logits_fn(cfg, params, x[:, -1:])[:, 0], cache
 
 
-def decode_step(cfg, params, token, pos, cache, *, attn_fn=None) -> Tuple[torch.Tensor, Params]:
+def decode_step(cfg, params, token, pos, cache, *, attn_fn=None,
+                kernel: Optional[str] = None) -> Tuple[torch.Tensor, Params]:
     """One decode step.  token: (B,) int; pos: int position (or (B,)
     per-request positions when ``attn_fn`` handles them).  ``cache`` is the
     dense cache of :func:`init_cache` or any ``{"layers": [...]}`` tree
-    whose entries ``attn_fn`` consumes (see ``repro_torch.serve.engine``)."""
+    whose attention entries ``attn_fn`` consumes (see
+    ``repro_torch.serve.engine``)."""
+    kernel = resolve_kernel(kernel, token.device)
     x = _embed_inputs(cfg, params, token[:, None])
-    for p, bc in zip(params["layers"], cache["layers"]):
-        x, _ = _block_decode(cfg, p, x, pos, bc, attn_fn)
-    x = L.apply_norm(cfg, params["final_norm"], x)
+    for kind, p, bc in zip(cfg.layer_kinds(), params["layers"], cache["layers"]):
+        x, _ = _block_decode(cfg, kind, p, x, pos, bc, attn_fn, kernel)
+    x = L.apply_norm(cfg, params["final_norm"], x, kernel)
     return logits_fn(cfg, params, x)[:, 0], cache

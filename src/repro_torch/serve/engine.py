@@ -2,16 +2,19 @@
 
 Ported from ``repro.serve.engine``.  ``ContinuousEngine`` keeps a decode
 batch of ``n_slots`` continuously refilled: arrived requests **join on
-prefill** (``transformer.prefill``, scattered into pool pages), finished
-requests **evict on EOS**.  Each decode step runs every slot through one
-paged step (idle slots write the scratch page) and reports filled versus
-capacity, plus the idle gaps between arrivals, to the governor through
+prefill** (``transformer.prefill``; attention K/V scattered into pool
+pages, RG-LRU state into the slot's row), finished requests **evict on
+EOS**.  Each decode step runs every slot through one paged step (idle
+slots write the scratch page) and reports filled versus capacity, plus the
+idle gaps between arrivals, to the governor through
 :class:`~repro_torch.serve.slack.DecodeSlackMeter`.
 
-``attn_kernel`` picks the decode attention: ``"plain"`` (PyTorch, the
-reference's XLA branch) or ``"cuda"`` (the hand-written paged kernel, the
-counterpart of the reference's ``"pallas"``).  A step is timed from
-before its inputs go to the device until the device has finished it
+``attn_kernel`` picks plain PyTorch (``"plain"``, the reference's XLA
+branches) or the hand-written kernels (``"cuda"``, the counterpart of the
+reference's ``"pallas"``: paged decode attention, RMSNorm, flash prefill
+attention, RG-LRU scan).  ``None``, the default, follows the device:
+the kernels on a CUDA device, plain PyTorch on the CPU.  A step is timed
+from before its inputs go to the device until the device has finished it
 (``torch.cuda.synchronize``): the meter prices slack from those times,
 and a clock stopped at launch would price the wrong slack.
 
@@ -30,7 +33,7 @@ from typing import Any, Callable, Dict, List, Optional
 import numpy as np
 import torch
 
-from repro_torch.device import resolve_device
+from repro_torch.device import resolve_device, resolve_kernel
 from repro_torch.models.transformer import decode_step as _decode
 from repro_torch.models.transformer import init_cache
 from repro_torch.models.transformer import prefill as _prefill
@@ -98,22 +101,27 @@ class ServeEngine:
 # paged step factories
 # --------------------------------------------------------------------------
 
-def make_paged_decode_step(cfg, attn_kernel: str = "plain",
+def make_paged_decode_step(cfg, attn_kernel: Optional[str] = None,
                            fused_sample: bool = False) -> Callable:
     """decode(params, token (B,), pos (B,), table (B,M), blocks) -> (out, blocks).
 
     Reuses ``transformer.decode_step`` and swaps only the attention for the
-    paged one (``attn_kernel``).  The pool blocks are updated in place.
-    With ``fused_sample`` the greedy argmax runs in the step and ``out`` is
-    the sampled (B,) int32 tokens on the device; otherwise the logits.
+    paged one; RG-LRU layers step every slot's row of the pool's state.
+    ``attn_kernel`` (None: follow the tokens' device) picks plain PyTorch
+    or the kernels.  The pool blocks are updated in place.  With
+    ``fused_sample`` the greedy argmax runs in the step and ``out`` is the
+    sampled (B,) int32 tokens on the device; otherwise the logits.
     """
+    resolve_kernel(attn_kernel, "cpu")            # refuse an unknown name now
 
     def step(params, token, pos, table, blocks):
-        def paged_attn(p_attn, h, bc):
-            return paged_attention_decode(cfg, p_attn, h, pos, table, bc,
-                                          kernel=attn_kernel)
+        kernel = resolve_kernel(attn_kernel, token.device)
 
-        logits, blocks = _decode(cfg, params, token, pos, blocks, attn_fn=paged_attn)
+        def paged_attn(p_attn, h, bc):
+            return paged_attention_decode(cfg, p_attn, h, pos, table, bc, kernel=kernel)
+
+        logits, blocks = _decode(cfg, params, token, pos, blocks, attn_fn=paged_attn,
+                                 kernel=kernel)
         if fused_sample:
             return torch.argmax(logits, dim=-1).to(torch.int32), blocks
         return logits, blocks
@@ -122,12 +130,18 @@ def make_paged_decode_step(cfg, attn_kernel: str = "plain",
 
 
 def make_join_step(cfg) -> Callable:
-    """join(blocks, prefill_cache, page_ids (n_used,)) -> blocks: scatter a
-    batch-1 prefill cache into the slot's freshly allocated pages."""
+    """join(blocks, prefill_cache, page_ids (n_used,), slot) -> blocks:
+    scatter a batch-1 prefill cache into the pool, in place: attention K/V
+    into the slot's freshly allocated pages, recurrent state into the
+    slot's row (cast to the pool's dtype, as the reference's ``.set``)."""
 
-    def join(blocks, cache, page_ids):
-        for pb, cb in zip(blocks["layers"], cache["layers"]):
-            scatter_prefill_attn(pb, cb, page_ids)
+    def join(blocks, cache, page_ids, slot: int):
+        for kind, pb, cb in zip(cfg.layer_kinds(), blocks["layers"], cache["layers"]):
+            if kind == "attn":
+                scatter_prefill_attn(pb, cb, page_ids)
+            else:
+                for name, big in pb.items():
+                    big[slot] = cb[name][0].to(big.dtype)
         return blocks
 
     return join
@@ -156,13 +170,12 @@ class ContinuousEngine:
     page: int = 16
     num_pages: Optional[int] = None
     temperature: float = 0.0
-    attn_kernel: str = "plain"
+    attn_kernel: Optional[str] = None
     device: Any = None
 
     def __post_init__(self):
-        if self.attn_kernel not in ("plain", "cuda"):
-            raise ValueError(f"unknown attn_kernel {self.attn_kernel!r}")
         self.device = resolve_device(self.device)
+        self.attn_kernel = resolve_kernel(self.attn_kernel, self.device)
         if self.params["embed"].device != self.device:
             raise ValueError(f"params are on {self.params['embed'].device}, "
                              f"the engine on {self.device}")
@@ -178,6 +191,7 @@ class ContinuousEngine:
         self._lengths = np.zeros((self.n_slots,), np.int32)
         self._tokens = np.zeros((self.n_slots,), np.int32)
         self.n_decode_steps = 0                # every decode step this engine ran
+        self.n_joins = 0                       # every prefill this engine ran
         self._last_meter: Optional[DecodeSlackMeter] = None
         self._last_session: Optional["EngineSession"] = None
 
@@ -198,13 +212,14 @@ class ContinuousEngine:
             )
         cache = init_cache(cfg, 1, lpad, self.device)
         logits, cache = _prefill(cfg, self.params, {"tokens": self._to_device(prompt[None])},
-                                 cache)
+                                 cache, kernel=self.attn_kernel)
+        self.n_joins += 1
         req.pages = self.pool.alloc(req.rid, n_used)
         slot = req.slot
         self._table[slot] = SCRATCH_PAGE
         self._table[slot, :n_used] = req.pages
         self.pool.blocks = self._join(self.pool.blocks, cache,
-                                      self._to_device(np.asarray(req.pages, np.int32)))
+                                      self._to_device(np.asarray(req.pages, np.int32)), slot)
         tok = self._select_one(logits[0], req)
         req.out.append(tok)
         self._lengths[slot] = total

@@ -4,15 +4,19 @@ Ported from ``repro.serve.kvcache``:
 
 * :class:`PagedKVPool` — the host-side free list, admission reservations
   and refcounts are copied verbatim; the device blocks are torch tensors,
-  one ``{"k_pages", "v_pages"[, "k_scale_pages", "v_scale_pages"]}`` dict
-  per layer (``(n_pages, page, Hkv, D)``, int8 with fp32 scale pages under
-  ``cfg.kv_quant``).  Page id 0 is the scratch page: idle decode slots
-  write into it and nothing live reads it.
+  one dict per layer: for an attention layer
+  ``{"k_pages", "v_pages"[, "k_scale_pages", "v_scale_pages"]}``
+  (``(n_pages, page, Hkv, D)``, int8 with fp32 scale pages under
+  ``cfg.kv_quant``); for an RG-LRU layer the per-slot recurrent state
+  ``{"conv": (n_slots, K-1, W), "h": (n_slots, W)}``, which is O(1) per
+  request and not paged.  Page id 0 is the scratch page: idle decode
+  slots write into it and nothing live reads it.
 * :func:`paged_attention_decode` — single-token decode attention over the
-  pool.  ``kernel="plain"`` runs the reference's XLA branch in PyTorch;
-  ``kernel="cuda"`` is the counterpart of ``"pallas"`` and goes through
-  the kernel wrapper of :mod:`repro_torch.kernels.paged_attention`.  Both
-  quantise (or round to the page dtype) the new K/V rows first, so the
+  pool, with the sliding window of ``attention="local"``/``"swa"``
+  applied at read.  ``kernel="plain"`` runs the reference's XLA branch in
+  PyTorch; ``kernel="cuda"`` is the counterpart of ``"pallas"`` and goes
+  through the kernel wrapper of :mod:`repro_torch.kernels.paged_attention`.
+  Both quantise (or round to the page dtype) the new K/V rows first, so the
   stored pages are bit-identical, and both update the pages **in place**.
 
 The prefix cache's copy-on-write page clone (``make_clone_pages``) is not
@@ -24,10 +28,11 @@ from typing import Any, Dict, List, Optional
 
 import torch
 
-from repro_torch.device import resolve_device
+from repro_torch.device import resolve_device, resolve_kernel
 from repro_torch.kernels import paged_attention as PA
 from repro_torch.models import layers as L
-from repro_torch.models.transformer import check_dense
+from repro_torch.models import rglru as R
+from repro_torch.models.transformer import check_supported
 
 Params = Dict[str, Any]
 
@@ -59,27 +64,29 @@ def _attn_page_block(cfg, num_pages: int, page: int, dtype, device) -> Params:
     return block
 
 
-def init_pool_blocks(cfg, num_pages: int, page: int, device) -> Params:
-    """``{"layers": [page block per layer]}``, pages in the compute dtype."""
-    check_dense(cfg)
+def init_pool_blocks(cfg, num_pages: int, page: int, n_slots: int, device) -> Params:
+    """``{"layers": [...]}``: a page block per attention layer (pages in the
+    compute dtype), the per-slot recurrent state per RG-LRU layer."""
+    check_supported(cfg)
     dtype = L.dtype_of(cfg.compute_dtype)
-    return {"layers": [_attn_page_block(cfg, num_pages, page, dtype, device)
-                       for _ in range(cfg.n_layers)]}
+    return {"layers": [
+        _attn_page_block(cfg, num_pages, page, dtype, device) if kind == "attn"
+        else R.init_rglru_state(cfg, n_slots, dtype, device)
+        for kind in cfg.layer_kinds()]}
 
 
 # --------------------------------------------------------------------------
 # paged decode attention
 # --------------------------------------------------------------------------
 
-def paged_attention_decode(cfg, p, x, pos, table, block, kernel: str = "plain"):
+def paged_attention_decode(cfg, p, x, pos, table, block, kernel: Optional[str] = None):
     """Single-token attention over paged KV.
 
     x: (B,1,d); pos: (B,) int32 write positions; table: (B, M) int32 page
     table (0 = scratch); block: one layer's page block, updated in place.
-    Returns (out (B,1,d), block).
+    ``kernel`` None follows x's device.  Returns (out (B,1,d), block).
     """
-    if kernel not in ("plain", "cuda"):
-        raise ValueError(f"unknown attention kernel {kernel!r}")
+    kernel = resolve_kernel(kernel, x.device)
     b = x.shape[0]
     page = block["k_pages"].shape[1]
     m = table.shape[1]
@@ -179,7 +186,7 @@ class PagedKVPool:
         # asked to free >= n resident pages; returns how many it freed
         self.on_pressure: Optional[Any] = None
         self.blocks = (
-            init_pool_blocks(cfg, self.num_pages, page, resolve_device(device))
+            init_pool_blocks(cfg, self.num_pages, page, n_slots, resolve_device(device))
             if materialize else None
         )
 

@@ -1,4 +1,7 @@
-"""The port's CUDA kernel on the card: skipped where there is no NVIDIA GPU.
+"""The port's CUDA kernels on the card: skipped where there is no NVIDIA GPU.
+
+Each kernel is held to its plain version on the same inputs (fp32 atol
+2e-5 / rtol 2e-4, bf16 3e-2) and must refuse what it does not take.
 
 Run them on a machine with one (an H100 for the ``sm_90a`` build):
 
@@ -16,7 +19,10 @@ import pytest
 import torch
 
 from repro_torch.configs import get_config, reduced
+from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import paged_attention as PA
+from repro_torch.kernels import rglru_scan as RS
+from repro_torch.kernels import rmsnorm as RN
 from repro_torch.models.transformer import init_params
 from repro_torch.serve.engine import ContinuousEngine
 
@@ -26,7 +32,8 @@ pytestmark = pytest.mark.cuda
 @pytest.fixture
 def card():
     if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False     # plain versions in full fp32
     return torch.device("cuda")
 
 
@@ -114,3 +121,130 @@ def test_engine_launches_the_kernel_every_layer_every_step(card):
     PA.launches = 0
     eng.generate({"tokens": np.arange(16, dtype=np.int32).reshape(2, 8)}, n_steps=5)
     assert PA.launches == eng.n_decode_steps * cfg.n_layers > 0
+
+
+def test_paged_kernel_at_recurrentgemma_shapes(card):
+    """B 8, Hkv 1, G 10, D 256, page 16 (320 threads, 43,712 bytes of shared
+    memory), bf16 pages and an fp32 query, with a window that cuts pages."""
+    ins = case(card, torch.bfloat16, b=8, hkv=1, g=10, d=256, page=16, m=12, seed=3)
+    assert PA.build().repro_paged_attention_shared_bytes(10, 256, 16) == 43712
+    plain = {k: v.clone() for k, v in ins.items()}
+    got = PA.paged_attention_scatter(**ins, window=40)
+    want = PA.paged_attention_scatter_plain(**plain, window=40)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, atol=3e-2, rtol=3e-2)
+    assert torch.equal(ins["k_pages"][1:], plain["k_pages"][1:])
+
+
+def randn(card, *shape, dtype=torch.float32, seed=0, mean=0.0, std=1.0):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.normal(mean, std, shape).astype(np.float32)).to(card, dtype)
+
+
+@pytest.mark.parametrize("shape", [(8, 2560), (2032, 2560), (3, 5, 320), (8, 2048)])
+@pytest.mark.parametrize("dtype,scale_dtype", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+    (torch.bfloat16, torch.float32), (torch.float32, torch.bfloat16)])
+def test_rmsnorm_kernel_matches_plain_on_card(card, shape, dtype, scale_dtype):
+    x = randn(card, *shape, dtype=dtype, std=2.0)
+    scale = randn(card, shape[-1], dtype=scale_dtype, seed=1, mean=1.0, std=0.2)
+    before = RN.launches
+    got = RN.rmsnorm(x, scale)
+    want = RN.rmsnorm_plain(x, scale)
+    torch.cuda.synchronize()
+    assert RN.launches == before + 1 and got.dtype == dtype
+    tol = dict(atol=2e-5, rtol=2e-4) if dtype == torch.float32 else dict(atol=3e-2, rtol=3e-2)
+    torch.testing.assert_close(got, want, **tol)
+
+
+def test_rmsnorm_refuses_what_the_kernel_does_not_take(card):
+    x = randn(card, 4, 64)
+    scale = randn(card, 64, seed=1)
+    with pytest.raises(ValueError, match="contiguous"):
+        RN.rmsnorm(x.T, randn(card, 4))
+    with pytest.raises(ValueError, match="scale must be"):
+        RN.rmsnorm(x, scale[:32])
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        RN.rmsnorm(x.half(), scale)
+
+
+@pytest.mark.parametrize("b,s,w,with_h0", [(1, 2032, 2560, True), (2, 37, 100, False)])
+def test_rglru_scan_kernel_matches_plain_on_card(card, b, s, w, with_h0):
+    a = torch.from_numpy(np.random.default_rng(2).uniform(0.3, 0.999, (b, s, w))
+                         .astype(np.float32)).to(card)
+    bb = randn(card, b, s, w, seed=3, std=0.3)
+    h0 = randn(card, b, w, seed=4) if with_h0 else None
+    before = RS.launches
+    got = RS.rglru_scan(a, bb, h0)
+    want = RS.linear_scan(a, bb, h0)[0]
+    torch.cuda.synchronize()
+    assert RS.launches == before + 1
+    torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-4)
+
+
+def test_rglru_scan_refuses_what_the_kernel_does_not_take(card):
+    a = randn(card, 1, 8, 32)
+    with pytest.raises(ValueError, match="float32"):
+        RS.rglru_scan(a.bfloat16(), a.bfloat16())
+    with pytest.raises(ValueError, match="contiguous"):
+        RS.rglru_scan(a.transpose(1, 2), a.transpose(1, 2))
+    with pytest.raises(ValueError, match="h0 must be"):
+        RS.rglru_scan(a, a, randn(card, 1, 16))
+
+
+@pytest.mark.parametrize("b,hq,hkv,s,d,window,dtype", [
+    (1, 10, 1, 2032, 256, 2048, torch.float32),    # recurrentgemma-2b prefill
+    (1, 10, 1, 2304, 256, 2048, torch.float32),    # longer than the window
+    (1, 32, 8, 128, 64, 0, torch.float32),         # llama3.2-1b prefill
+    (2, 4, 2, 45, 32, 16, torch.float32),          # ragged tiles, window < tile
+    (1, 8, 2, 100, 64, 0, torch.bfloat16),
+])
+def test_flash_kernel_matches_plain_on_card(card, b, hq, hkv, s, d, window, dtype):
+    q = randn(card, b, hq, s, d, dtype=dtype, seed=5)
+    k = randn(card, b, hkv, s, d, dtype=dtype, seed=6)
+    v = randn(card, b, hkv, s, d, dtype=dtype, seed=7)
+    before = FA.launches
+    got = FA.flash_attention(q, k, v, positions=torch.arange(s, device=card), window=window)
+    want = FA.flash_attention_plain(q, k, v, window=window)
+    torch.cuda.synchronize()
+    assert FA.launches == before + 1 and got.dtype == dtype
+    tol = dict(atol=2e-5, rtol=2e-4) if dtype == torch.float32 else dict(atol=3e-2, rtol=3e-2)
+    torch.testing.assert_close(got, want, **tol)
+
+
+def test_flash_refuses_what_the_kernel_does_not_take(card):
+    q = randn(card, 1, 4, 16, 32)
+    k = randn(card, 1, 2, 16, 32, seed=1)
+    with pytest.raises(ValueError, match="arange"):
+        FA.flash_attention(q, k, k, positions=torch.arange(16, device=card) + 1)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        FA.flash_attention(q[..., :30].contiguous(), k[..., :30].contiguous(),
+                           k[..., :30].contiguous())
+    with pytest.raises(ValueError, match="multiple of Hkv"):
+        FA.flash_attention(q, randn(card, 1, 3, 16, 32), randn(card, 1, 3, 16, 32))
+    with pytest.raises(ValueError, match="bfloat16"):
+        FA.flash_attention(q, k.bfloat16(), k.bfloat16())
+    big = randn(card, 1, 1, 4, 260)
+    with pytest.raises(ValueError, match="head dim"):
+        FA.flash_attention(big, big, big)
+
+
+def test_hybrid_engine_launches_every_kernel_by_default(card):
+    """Reduced recurrentgemma-2b on the card with no kernel named: RMSNorm
+    2 * layers + 1 times a join and a step, flash and the scan once per
+    attention / RG-LRU layer a join, the paged kernel once per attention
+    layer a step."""
+    cfg = reduced(get_config("recurrentgemma-2b"), n_layers=8)
+    params = init_params(cfg, torch.Generator(device=card).manual_seed(0), card)
+    eng = ContinuousEngine(cfg, params, n_slots=2, max_len=32, page=8, device=card)
+    assert eng.attn_kernel == "cuda"
+    for mod in (RN, FA, RS, PA):
+        mod.launches = 0
+    eng.generate({"tokens": np.arange(16, dtype=np.int32).reshape(2, 8)}, n_steps=5)
+    kinds = cfg.layer_kinds()
+    joins, steps = eng.n_joins, eng.n_decode_steps
+    assert (joins, steps) == (2, 4)
+    assert RN.launches == (joins + steps) * (2 * len(kinds) + 1)
+    assert FA.launches == joins * kinds.count("attn")
+    assert RS.launches == joins * kinds.count("rglru")
+    assert PA.launches == steps * kinds.count("attn")

@@ -156,7 +156,7 @@ def test_bf16_compute_logits_under_teacher_forcing():
         jpool = jjoin(jpool, jc, jnp.asarray(table[slot, :2]), jnp.int32(slot))
         tc = TT.init_cache(tcfg, 1, 16, "cpu")
         tl, tc = TT.prefill(tcfg, tp, {"tokens": torch.from_numpy(toks[slot:slot + 1])}, tc)
-        tpool = tjoin(tpool, tc, torch.from_numpy(table[slot, :2]))
+        tpool = tjoin(tpool, tc, torch.from_numpy(table[slot, :2]), slot)
         assert tl.dtype == torch.float32
         np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=3e-2, rtol=3e-2)
     lengths = np.array([12, 12], np.int32)

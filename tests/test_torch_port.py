@@ -96,8 +96,10 @@ def test_copied_config_equals_reference():
     for mods in ({}, {"kv_quant": True}):
         jcfg, tcfg = cfgs(**mods)
         assert dataclasses.asdict(jcfg) == dataclasses.asdict(tcfg)
-    assert dataclasses.asdict(jget_config("llama3.2-1b")) == \
-        dataclasses.asdict(get_config("llama3.2-1b"))
+    for arch in ("llama3.2-1b", "recurrentgemma-2b"):
+        assert dataclasses.asdict(jget_config(arch)) == dataclasses.asdict(get_config(arch))
+        assert dataclasses.asdict(jreduced(jget_config(arch), n_layers=8)) == \
+            dataclasses.asdict(reduced(get_config(arch), n_layers=8))
     with pytest.raises(KeyError):
         get_config("mamba2-130m")                     # not ported yet
 
