@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py            # one NVIDIA H100; exits 0 only if all phases pass
 
-Builds the four hand-written kernels from the sources in this checkout (one
+Builds the hand-written kernels from the five sources in this checkout (one
 ``nvcc`` per source, all at once) and runs:
 
 1. **kernels against their plain versions** on the same inputs, at the
@@ -19,10 +19,22 @@ Builds the four hand-written kernels from the sources in this checkout (one
    - flash prefill attention: recurrentgemma-2b's (Hq 10, Hkv 1, D 256,
      window 2048) at S 2032 and at S 2304 > window, llama3.2-1b's (Hq 32,
      Hkv 8, D 64) at S 128.
+   - SSD chunked scan: mamba2-130m's prefill (B 1, H 24, P 64, N 128,
+     chunk 128, fp32) at S 2000 (the last chunk ragged) and 2048, from a
+     zero and from a random state; y and the final state to the
+     reference's SSD bar, atol 2e-4 / rtol 2e-3.
    Each kernel is timed beside its plain version, its bound and, where one
    PyTorch call computes the same function, that call (``F.rms_norm``,
    ``scaled_dot_product_attention``; yardsticks only, the port never calls
    them).
+1b. **the ``kernels.ops`` surface**: the unfused paged attention and the
+   paged scatter driven through ``repro_torch.kernels.ops`` at llama's
+   and recurrentgemma's decode shapes (bf16, fp32 and int8 pages), the
+   fused step bit-equal to scatter then attention (outputs and every page,
+   quant off/on, window 0/12, as the reference's
+   ``test_paged_attention_scatter_fuses_bit_equal``); then each unfused
+   kernel against its plain version (attention at the fused kernel's bars,
+   scatter bit-equal, a case of duplicate destinations included).
 2. **llama3.2-1b serving**: ``repro_torch.launch.serve.run_continuous``
    drives full-width llama3.2-1b (random weights from a seed) over 16
    Poisson requests (prompt 128, 16-32 new tokens, 8 slots, page 16)
@@ -41,14 +53,28 @@ Builds the four hand-written kernels from the sources in this checkout (one
    tokens equal.
 7. **reduced recurrentgemma (fp32, 8 layers) against the CPU**: greedy
    tokens through the kernels on the card equal the plain path's on the CPU.
+8. **mamba2-130m serving**: full width (24 SSM layers, d 768, state 128,
+   random weights from a seed, fp32 params and bf16 compute), no kernel
+   named, 12 Poisson requests (prompt 128, 16-32 new tokens) plus one of a
+   2000-token prompt (16 chunks, the last ragged) and 32 new tokens.
+9. **one mamba2 join and decode step, kernels against plain**: the long
+   slot's state after the join at the SSD bar in every layer, then one
+   decode step from one pool state: logits to 3e-2, greedy tokens equal.
+10. **reduced mamba2 (fp32, 4 layers, chunk 16, a 37-token prompt) against
+   the CPU**: greedy tokens equal.
 
-In phases 2 and 5 every kernel count is set to 0 just before the run and
-read just after; each must equal the launches the path needs (RMSNorm
-2 * layers + 1 a join and a step, flash and the RG-LRU scan once per
-attention / RG-LRU layer a join, the paged kernel once per attention layer
-a step).  Prints the card's name and power limit, then one JSON line of
-kernel numbers, and last ``{"ok": true, "device": {...}}``.  Needs CUDA and
-this repository's ``src/``; without either it fails before printing a result.
+In phases 1b, 2, 5 and 8 every kernel count is set to 0 just before the run
+and read just after; each must equal the launches the path needs (RMSNorm
+once per norm a join and a step: 2 a layer with an MLP, 1 an SSM layer,
+plus the final norm; flash, the RG-LRU scan and the SSD scan once per
+attention / RG-LRU / SSM layer a join; the fused paged kernel once per
+attention layer a step; the unfused paged kernels only on the ops path).
+Prints the card's name and power limit, then one JSON line of kernel
+numbers (each kernel's launches from its own path: the ops surface for the
+unfused paged kernels, mamba2's for RMSNorm and the SSD scan,
+recurrentgemma's for the rest), and last ``{"ok": true, "device": {...}}``.
+Needs CUDA and this repository's ``src/``; without either it fails before
+printing a result.
 """
 from __future__ import annotations
 
@@ -67,7 +93,22 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 FP32_FLOPS_PER_S = 67e12      # H100 SXM fp32 outside the tensor cores
-KERNEL_SOURCES = ("paged_attention", "rmsnorm", "rglru_scan", "flash_attention")
+KERNEL_SOURCES = ("paged_attention", "rmsnorm", "rglru_scan", "flash_attention", "ssd")
+SSD_TOL = dict(atol=2e-4, rtol=2e-3)   # the reference's fp32 SSD bar (test_kernels.py)
+# each kernel: (its wrapper's module, the count's name, its source, the TPU kernel it replaces)
+KERNELS = {
+    "paged_attention_scatter": ("PA", "launches", "paged_attention",
+                                "src/repro/kernels/paged_attention.py:232"),
+    "paged_attention": ("PA", "attention_launches", "paged_attention",
+                        "src/repro/kernels/paged_attention.py:143"),
+    "paged_scatter": ("PA", "scatter_launches", "paged_attention",
+                      "src/repro/kernels/paged_attention.py:307"),
+    "flash_attention": ("FA", "launches", "flash_attention",
+                        "src/repro/kernels/flash_attention.py:68"),
+    "rmsnorm": ("RN", "launches", "rmsnorm", "src/repro/kernels/rmsnorm.py:24"),
+    "ssd_scan": ("SSD", "launches", "ssd", "src/repro/kernels/ssd.py:61"),
+    "rglru_scan": ("RS", "launches", "rglru_scan", "src/repro/kernels/rglru_scan.py:39"),
+}
 F32_TOL = dict(atol=2e-5, rtol=2e-4)
 BF16_TOL = dict(atol=3e-2, rtol=3e-2)
 SLOT_REL_TOL = 2e-2           # paged, bf16 pages: a slot's max error over its output RMS
@@ -180,18 +221,26 @@ def paged_case(torch, rng, page_dtype, q_dtype, b, hkv, g, d, page, m, pos_lo):
     return case, pos
 
 
-def paged_bound(case, pos, window):
-    """Each needed K/V row (and scale) read once, q and the new rows read
-    once, out and the new rows written once."""
+def paged_bound(case, pos, window, scatter=True):
+    """Each needed K/V row (and scale) read once, q read once, out written
+    once; with ``scatter``, the new rows read once and written once too."""
     b, hkv, g, d = case["q"].shape
     elem = case["k_pages"].element_size()
     keys = int(sum(min(p + 1, window) if window else p + 1 for p in pos))
     row = hkv * (d * elem + (4 if "k_scale_pages" in case else 0))
     nbytes = (2 * keys * row                                # K and V rows (+ scales)
               + 2 * case["q"].numel() * case["q"].element_size()   # q in, out
-              + 2 * 2 * b * hkv * d * elem                  # new rows in, written
-              + 4 * (case["table"].numel() + 3 * b))
+              + 4 * (case["table"].numel() + b))
+    if scatter:
+        nbytes += 2 * 2 * b * row + 4 * 2 * b               # new rows in, written; dests
     return bound(nbytes, 4 * keys * hkv * g * d)            # Q.K and P.V, fp32
+
+
+def slot_ratio(got, want) -> float:
+    """The worst slot's max error over that slot's output RMS."""
+    slot_err = (got.float() - want.float()).abs().flatten(1).amax(1)
+    slot_rms = want.float().pow(2).flatten(1).mean(1).sqrt()
+    return float((slot_err / slot_rms).max())
 
 
 def paged_sdpa_ms(torch, case, window):
@@ -246,9 +295,7 @@ def phase_paged(torch, PA):
             # probabilities to bf16, as the reference does, which moves each
             # slot's outputs by under 1 % of their RMS.  The 3e-2 above is of
             # the order of those outputs, so hold each slot to its own scale.
-            slot_err = (got.float() - want.float()).abs().flatten(1).amax(1)
-            slot_rms = want.float().pow(2).flatten(1).mean(1).sqrt()
-            ratio = float((slot_err / slot_rms).max())
+            ratio = slot_ratio(got, want)
             require(ratio <= SLOT_REL_TOL, f"paged {name} bf16 pages: a slot's error is "
                     f"{ratio:.3g} of its RMS, over {SLOT_REL_TOL}")
             log(f"paged {name} bf16 pages: worst slot error / slot RMS {ratio:.3g} "
@@ -344,13 +391,205 @@ def phase_flash(torch, FA):
     return record
 
 
+def ssd_bound(b, s, h, p, n, chunk, with_init):
+    """x read and y written once, b, c, dt, a_log and the states once; the
+    operations the function needs at the least: C.B^T once per batch and
+    chunk (shared by the heads) over its causal half, then per head the
+    causal (C.B^T . decay) x.dt, the carried state's C.S and its update."""
+    q = min(chunk, s)
+    rows = [min(q, s - c0) for c0 in range(0, s, q)]
+    pairs = sum(r * (r + 1) // 2 for r in rows)
+    flops = b * (2 * n * pairs + h * (2 * p * pairs + 4 * s * n * p))
+    nbytes = 4 * (b * (2 * s * h * p + 2 * s * n + s * h + (2 if with_init else 1) * h * p * n)
+                  + h)
+    return bound(nbytes, flops)
+
+
+def phase_ssd(torch, SSD):
+    """mamba2-130m's prefill scan: y and the final state against
+    ``ssd_chunked``, S ragged and even, from zeros and from a state."""
+    rng = np.random.default_rng(4)
+    b, h, p, n, chunk = 1, 24, 64, 128, 128
+    record = None
+    for s in (2000, 2048):
+        x = randn(torch, rng, b, s, h, p)
+        # softplus(dt + dt_bias) with dt_bias in [-4, -1]; A = -exp(A_log), A_log in [0, log 16]
+        dt = torch.from_numpy(rng.uniform(0.001, 0.2, (b, s, h)).astype(np.float32)).to("cuda")
+        a_log = torch.from_numpy(-rng.uniform(1.0, 16.0, h).astype(np.float32)).to("cuda")
+        bb = randn(torch, rng, b, s, n)
+        cc = randn(torch, rng, b, s, n)
+        for h0 in (None, randn(torch, rng, b, h, p, n, std=0.1)):
+            y, state = SSD.ssd_scan(x, dt, a_log, bb, cc, chunk=chunk, init_state=h0)
+            want_y, want_state = SSD.ssd_chunked(x, dt, a_log, bb, cc, chunk, h0)
+            what = f"ssd B {b} S {s} H {h} P {p} N {n} chunk {chunk} " + (
+                "zero state" if h0 is None else "random state")
+            err = max(compare(torch, y, want_y, SSD_TOL, what + ": y"),
+                      compare(torch, state, want_state, SSD_TOL, what + ": final state"))
+        if s == 2048:      # the serving prefill passes its cache's (zero) state: time with one
+            b_ms, b_by = ssd_bound(b, s, h, p, n, chunk, True)
+            record = dict(
+                max_abs_err=err,
+                ms=time_ms(torch, lambda: SSD.ssd_scan(x, dt, a_log, bb, cc, chunk=chunk,
+                                                       init_state=h0), reps=20),
+                plain_ms=time_ms(torch, lambda: SSD.ssd_chunked(x, dt, a_log, bb, cc, chunk,
+                                                                h0), reps=10),
+                bound_ms=b_ms, bound_by=b_by, library_ms=None)
+            log(f"ssd timing, B {b} S {s} H {h} P {p} N {n} chunk {chunk}: "
+                + json.dumps(record))
+    # the common join, a 128-token prompt: one chunk a head
+    s = 128
+    x = randn(torch, rng, b, s, h, p)
+    bb, cc = randn(torch, rng, b, s, n), randn(torch, rng, b, s, n)
+    dt = torch.from_numpy(rng.uniform(0.001, 0.2, (b, s, h)).astype(np.float32)).to("cuda")
+    h0 = randn(torch, rng, b, h, p, n, std=0.1)
+    compare(torch, SSD.ssd_scan(x, dt, a_log, bb, cc, chunk=chunk, init_state=h0)[0],
+            SSD.ssd_chunked(x, dt, a_log, bb, cc, chunk, h0)[0], SSD_TOL, f"ssd S {s}: y")
+    log(f"ssd timing, S {s}: " + json.dumps(dict(
+        ms=time_ms(torch, lambda: SSD.ssd_scan(x, dt, a_log, bb, cc, chunk=chunk,
+                                               init_state=h0)),
+        plain_ms=time_ms(torch, lambda: SSD.ssd_chunked(x, dt, a_log, bb, cc, chunk, h0)),
+        bound_ms=ssd_bound(b, s, h, p, n, chunk, True)[0])))
+    return record
+
+
+def phase_ops(torch, mods):
+    """The ``kernels.ops`` surface: scatter then attention through the
+    unfused kernels, held bit-equal to the fused step, with every count set
+    to 0 before and read after; then each unfused kernel against its plain
+    version.  Returns (counts, records)."""
+    from repro_torch.kernels import ops
+
+    PA = mods["PA"]
+    rng = np.random.default_rng(5)
+    bf16, f32, i8 = torch.bfloat16, torch.float32, torch.int8
+    small = dict(b=3, hkv=2, g=2, d=32, page=8, m=4, pos_lo=0)       # the reference's test
+    llama = dict(b=8, hkv=8, g=4, d=64, page=16, m=11, pos_lo=128)
+    rgemma = dict(b=8, hkv=1, g=10, d=256, page=16, m=144, pos_lo=2000)
+    pools_of = ("k_pages", "v_pages", "k_scale_pages", "v_scale_pages")
+    rows_of = ("k_new", "v_new", "k_scale_new", "v_scale_new")
+    cases = [(small, f32, 0), (small, f32, 12), (small, i8, 0), (small, i8, 12),
+             (llama, bf16, 0), (llama, f32, 12), (llama, i8, 12),
+             (rgemma, bf16, 2048), (rgemma, f32, 2048)]
+    made = [paged_case(torch, rng, page_dtype, f32, **shape)[0]
+            for shape, page_dtype, _ in cases]
+    torch.cuda.synchronize()
+    reset(mods)
+    for (shape, page_dtype, window), case in zip(cases, made):
+        fused = {k: v.clone() for k, v in case.items()}
+        split = {k: v.clone() for k, v in case.items()}
+        quant = page_dtype == i8
+        names = pools_of if quant else pools_of[:2]
+        rows = rows_of if quant else rows_of[:2]
+        sched = [split[k] for k in ("table", "pos")]
+        if quant:
+            out, _ = ops.paged_attention_scatter_quant(
+                fused["q"], *(fused[k] for k in rows), *(fused[k] for k in names),
+                fused["table"], fused["pos"], fused["page_idx"], fused["off"], window=window)
+            pools = ops.paged_scatter_quant(*(split[k] for k in names),
+                                            *(split[k] for k in rows),
+                                            split["page_idx"], split["off"])
+            want = ops.paged_attention_quant(split["q"], *pools, *sched, window=window)
+        else:
+            out, _ = ops.paged_attention_scatter(
+                fused["q"], *(fused[k] for k in rows), *(fused[k] for k in names),
+                fused["table"], fused["pos"], fused["page_idx"], fused["off"], window=window)
+            pools = ops.paged_scatter(*(split[k] for k in names), *(split[k] for k in rows),
+                                      split["page_idx"], split["off"])
+            want = ops.paged_attention(split["q"], *pools, *sched, window=window)
+        torch.cuda.synchronize()
+        require(torch.equal(out, want), f"fused != scatter then attention: {shape} "
+                f"{page_dtype} window {window}")
+        for k in names:
+            require(torch.equal(fused[k], split[k]), f"fused pools != scattered: {k}")
+    counts = counts_of(mods)
+    n = len(cases)
+    want = dict({k: 0 for k in KERNELS}, paged_attention_scatter=n, paged_attention=n,
+                paged_scatter=n)
+    require(counts == want, f"ops path: launches {counts}, want {want}")
+    log(f"ops path: fused == scatter then attention, bit for bit, outputs and pools, "
+        f"in {n} cases (quant off/on, window 0/12 at the reference's shapes; llama and "
+        f"recurrentgemma decode shapes); launches {counts}")
+
+    records = {}
+    for shape, page_dtype, window in ((llama, bf16, 0), (llama, f32, 0), (llama, i8, 64),
+                                      (rgemma, f32, 2048), (rgemma, bf16, 2048)):
+        case, pos = paged_case(torch, rng, page_dtype, f32, **shape)
+        pool = {k: case[k] for k in pools_of if k in case}
+        name = "llama3.2-1b" if shape is llama else "recurrentgemma-2b"
+
+        def kern():
+            return PA.paged_attention(case["q"], **pool, table=case["table"], pos=case["pos"],
+                                      window=window)
+
+        def plain():
+            return PA.paged_attention_plain(case["q"], **pool, table=case["table"],
+                                            pos=case["pos"], window=window)
+
+        got, want = kern(), plain()
+        what = f"paged_attention {name} pages {page_dtype} window {window}"
+        err = compare(torch, got, want, BF16_TOL if page_dtype == bf16 else F32_TOL, what)
+        if page_dtype == bf16:
+            ratio = slot_ratio(got, want)
+            require(ratio <= SLOT_REL_TOL, f"{what}: a slot's error is {ratio:.3g} of its RMS")
+            log(f"{what}: worst slot error / slot RMS {ratio:.3g} (limit {SLOT_REL_TOL})")
+        if (shape, page_dtype) == (rgemma, bf16):
+            b_ms, b_by = paged_bound(case, pos, window, scatter=False)
+            records["paged_attention"] = dict(
+                max_abs_err=err, ms=time_ms(torch, kern), plain_ms=time_ms(torch, plain),
+                bound_ms=b_ms, bound_by=b_by, library_ms=paged_sdpa_ms(torch, case, window))
+            log(f"paged_attention timing, {name}: " + json.dumps(records["paged_attention"]))
+
+    for shape, page_dtype, dup in ((llama, bf16, False), (llama, i8, False), (llama, f32, True),
+                                   (rgemma, bf16, False)):
+        case, _ = paged_case(torch, rng, page_dtype, f32, **shape)
+        if dup:                           # three slots on one destination: the last wins
+            case["page_idx"][:3] = case["page_idx"][0]
+            case["off"][:3] = case["off"][0]
+        names = [k for k in pools_of if k in case]
+        rows = [k for k in rows_of if k in case]
+        kern_in = {k: v.clone() for k, v in case.items()}
+        plain_in = {k: v.clone() for k, v in case.items()}
+
+        def kern():
+            return PA.paged_scatter([kern_in[k] for k in names], [kern_in[k] for k in rows],
+                                    kern_in["page_idx"], kern_in["off"])
+
+        def plain():
+            return PA.paged_scatter_plain([plain_in[k] for k in names],
+                                          [plain_in[k] for k in rows],
+                                          plain_in["page_idx"], plain_in["off"])
+
+        kern()
+        plain()
+        torch.cuda.synchronize()
+        for k in names:
+            require(torch.equal(kern_in[k], plain_in[k]), f"paged_scatter {k} != plain")
+        if dup:
+            pi, of = int(case["page_idx"][0]), int(case["off"][0])
+            require(torch.equal(kern_in["k_pages"][pi, of], case["k_new"][2]), "last row wins")
+        log(f"kernel ok: paged_scatter {shape['b']} rows of ({shape['hkv']}, {shape['d']}) "
+            f"{page_dtype}{' with duplicate destinations' if dup else ''}: bit-equal to plain")
+        if (shape, page_dtype) == (rgemma, bf16):
+            b_rows = 2 * case["k_new"].numel() * case["k_new"].element_size()
+            b_ms, b_by = bound(2 * b_rows + 4 * 2 * shape["b"], 0)
+            records["paged_scatter"] = dict(
+                max_abs_err=0.0, ms=time_ms(torch, kern), plain_ms=time_ms(torch, plain),
+                bound_ms=b_ms, bound_by=b_by, library_ms=None)
+            log("paged_scatter timing, recurrentgemma-2b: " + json.dumps(records["paged_scatter"]))
+    return counts, records
+
+
 # --------------------------------------------------------------------------
 # serving, step checks, reduced models
 # --------------------------------------------------------------------------
 
 def reset(mods) -> None:
-    for m in mods.values():
-        m.launches = 0
+    for mod, count, _, _ in KERNELS.values():
+        setattr(mods[mod], count, 0)
+
+
+def counts_of(mods):
+    return {name: getattr(mods[mod], count) for name, (mod, count, _, _) in KERNELS.items()}
 
 
 def phase_serving(torch, mods, argv, want_dims):
@@ -361,7 +600,7 @@ def phase_serving(torch, mods, argv, want_dims):
     args = serve.parser().parse_args(argv)
     reset(mods)
     res = serve.run_continuous(args)
-    counts = {name: m.launches for name, m in mods.items()}
+    counts = counts_of(mods)
     objs = res.pop("objects")
     eng = objs["engine"]
     cfg = eng.cfg
@@ -370,9 +609,12 @@ def phase_serving(torch, mods, argv, want_dims):
     require(eng.attn_kernel == "cuda", eng.attn_kernel)
     kinds = cfg.layer_kinds()
     joins, steps = eng.n_joins, eng.n_decode_steps      # the warm-up's included
-    want = dict(paged_attention=steps * kinds.count("attn"),
-                rmsnorm=(joins + steps) * (2 * len(kinds) + 1),
+    norms = sum(1 if k == "ssm" else 2 for k in kinds) + 1
+    want = dict(paged_attention_scatter=steps * kinds.count("attn"),
+                paged_attention=0, paged_scatter=0,
                 flash_attention=joins * kinds.count("attn"),
+                rmsnorm=(joins + steps) * norms,
+                ssd_scan=joins * kinds.count("ssm"),
                 rglru_scan=joins * kinds.count("rglru"))
     require(counts == want, f"{cfg.name}: launches {counts}, want {want}")
     require(res["priced_slack_ms"] > 0, res)
@@ -384,15 +626,16 @@ def phase_serving(torch, mods, argv, want_dims):
     return counts, eng, res
 
 
-def step_args(eng, prompts, n_steps: int):
+def step_args(eng, prompts, n_steps: int, attn_kernel=None):
     """Join ``prompts`` into a fresh engine on ``eng``'s weights, run
-    ``n_steps`` decode steps through the kernels, and return the next step's
-    inputs (params, tokens, positions, live table) and the engine."""
+    ``n_steps`` decode steps through the kernels (or ``attn_kernel``), and
+    return the next step's inputs (params, tokens, positions, live table)
+    and the engine."""
     from repro_torch.serve.engine import ContinuousEngine, EngineSession
     from repro_torch.serve.scheduler import Request
 
     fresh = ContinuousEngine(eng.cfg, eng.params, n_slots=8, max_len=eng.max_len, page=16,
-                             device="cuda")
+                             attn_kernel=attn_kernel, device="cuda")
     sess = EngineSession(fresh)
     for p in prompts:
         sess.submit(Request(prompt=p, max_new=n_steps + 8, arrival=0.0))
@@ -407,13 +650,37 @@ def step_args(eng, prompts, n_steps: int):
     return args, fresh
 
 
-def phase_step_check(torch, eng, prompts, n_steps: int = 0, want_greedy: bool = False):
-    """One full-width decode step, kernels against plain, from one pool state."""
+def phase_join_check(torch, eng, prompts, fresh):
+    """The joins of ``prompts`` through the kernels (``fresh``) against the
+    plain path's: the longest slot's SSM state at the SSD bar, every layer."""
+    cfg = eng.cfg
+    with torch.no_grad():
+        _, plain = step_args(eng, prompts, 0, attn_kernel="plain")
+    torch.cuda.synchronize()
+    slot = int(np.argmax(fresh._lengths))
+    errs = []
+    for kind, lk, lp in zip(cfg.layer_kinds(), fresh.pool.blocks["layers"],
+                            plain.pool.blocks["layers"]):
+        if kind == "ssm":
+            torch.testing.assert_close(lk["h"][slot], lp["h"][slot], **SSD_TOL)
+            errs.append(float((lk["h"][slot] - lp["h"][slot]).abs().max()))
+    require(len(errs) == cfg.layer_kinds().count("ssm") > 0, "no SSM layer")
+    log(f"join check {cfg.name}: the {int(fresh._lengths[slot])}-token slot's state in "
+        f"{len(errs)} layers, kernels against plain: max_abs_err {max(errs):.3g} ({SSD_TOL})")
+
+
+def phase_step_check(torch, eng, prompts, n_steps: int = 0, want_greedy: bool = False,
+                     join_check: bool = False):
+    """One full-width decode step, kernels against plain, from one pool
+    state; with ``join_check``, the joins that made it against plain too."""
     from repro_torch.serve.engine import make_paged_decode_step
 
     cfg = eng.cfg
     with torch.no_grad():
         args, fresh = step_args(eng, prompts, n_steps)
+    if join_check:
+        phase_join_check(torch, eng, prompts, fresh)
+    with torch.no_grad():
         blocks_plain = copy.deepcopy(fresh.pool.blocks)
         plain, _ = make_paged_decode_step(cfg, "plain")(*args, blocks_plain)
         kern, _ = make_paged_decode_step(cfg, "cuda")(*args, fresh.pool.blocks)
@@ -459,10 +726,10 @@ def profile_step(torch, cfg, step, args, blocks, n: int = 5):
                      reverse=True)
     busy = sum(k[0] for k in kernels)
     ours = {name: sum(k[0] for k in kernels if name in k[2])
-            for name in ("paged_attention_scatter_kernel", "rmsnorm_kernel")}
+            for name in ("paged_attention_kernel", "rmsnorm_kernel")}
     log(f"decode step {cfg.name} (8 slots, full width): wall {wall:.3f} ms, device busy "
         f"{busy:.3f} ms ({100 * busy / wall:.1f} %), paged kernel "
-        f"{ours['paged_attention_scatter_kernel']:.4f} ms, rmsnorm kernel "
+        f"{ours['paged_attention_kernel']:.4f} ms, rmsnorm kernel "
         f"{ours['rmsnorm_kernel']:.4f} ms, {sum(k[1] for k in kernels)} launches")
     for ms, count, key in kernels[:10]:
         log(f"  {ms:.4f} ms in {count} launches: {key[:110]}")
@@ -511,8 +778,9 @@ def main() -> int:
     from repro_torch.kernels import paged_attention as PA
     from repro_torch.kernels import rglru_scan as RS
     from repro_torch.kernels import rmsnorm as RN
+    from repro_torch.kernels import ssd as SSD
 
-    mods = dict(paged_attention=PA, rmsnorm=RN, rglru_scan=RS, flash_attention=FA)
+    mods = dict(PA=PA, RN=RN, RS=RS, FA=FA, SSD=SSD)
     torch.backends.cuda.matmul.allow_tf32 = False   # fp32 products in full fp32
     torch.backends.cudnn.allow_tf32 = False
     card = gpu_line()
@@ -522,10 +790,11 @@ def main() -> int:
     log(f"built the kernels in {time.time() - t0:.1f} s (one nvcc each, in parallel): "
         + json.dumps({k: round(v, 1) for k, v in built.items()}))
 
-    recs = phase_paged(torch, PA)
-    recs_rmsnorm = phase_rmsnorm(torch, RN)
-    recs_scan = phase_scan(torch, RS)
-    recs_flash = phase_flash(torch, FA)
+    timing = dict(paged_attention_scatter=phase_paged(torch, PA)["recurrentgemma-2b"],
+                  rmsnorm=phase_rmsnorm(torch, RN), rglru_scan=phase_scan(torch, RS),
+                  flash_attention=phase_flash(torch, FA), ssd_scan=phase_ssd(torch, SSD))
+    ops_counts, ops_records = phase_ops(torch, mods)
+    timing.update(ops_records)
 
     rng = np.random.default_rng(7)
     llama_counts, eng, _ = phase_serving(torch, mods, [
@@ -544,7 +813,8 @@ def main() -> int:
         "--n-requests", "12", "--prompt-len", "128", "--steps", "32", "--long-prompt", "2032",
         "--slots", "8", "--page-size", "16", "--arrival-rate", "40", "--seed", "0"],
         (26, 2560, 10, 1, 256000))
-    require(all(n > 0 for n in rg_counts.values()), rg_counts)
+    require(all(rg_counts[k] > 0 for k in ("paged_attention_scatter", "rmsnorm",
+                                           "flash_attention", "rglru_scan")), rg_counts)
     # the long request decodes to position 2063: its first page is past the window
     long_prompt = rng.integers(0, eng.cfg.vocab, 2032).astype(np.int32)
     phase_step_check(torch, eng, [long_prompt] + [
@@ -554,20 +824,37 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_small_model(torch, "recurrentgemma-2b", 8, 40, 30, 80)
 
-    timing = dict(paged_attention=recs["recurrentgemma-2b"], rmsnorm=recs_rmsnorm,
-                  rglru_scan=recs_scan, flash_attention=recs_flash)
-    replaces = dict(paged_attention="src/repro/kernels/paged_attention.py:232",
-                    rmsnorm="src/repro/kernels/rmsnorm.py:24",
-                    rglru_scan="src/repro/kernels/rglru_scan.py:39",
-                    flash_attention="src/repro/kernels/flash_attention.py:68")
-    names = dict(paged_attention="paged_attention_scatter")
+    mamba_counts, eng, _ = phase_serving(torch, mods, [
+        "--arch", "mamba2-130m", "--continuous",
+        "--n-requests", "12", "--prompt-len", "128", "--steps", "32", "--long-prompt", "2000",
+        "--slots", "8", "--page-size", "16", "--arrival-rate", "40", "--seed", "0"],
+        (24, 768, 0, 0, 50280))
+    require(mamba_counts["ssd_scan"] > 0 and mamba_counts["rmsnorm"] > 0, mamba_counts)
+    # one 2000-token prompt (16 chunks, the last ragged) beside 7 of 128
+    long_prompt = rng.integers(0, eng.cfg.vocab, 2000).astype(np.int32)
+    phase_step_check(torch, eng, [long_prompt] + [
+        rng.integers(0, eng.cfg.vocab, 128).astype(np.int32) for _ in range(7)],
+        want_greedy=True, join_check=True)
+    del eng
+    torch.cuda.empty_cache()
+    phase_small_model(torch, "mamba2-130m", 4, 37, 12, 64)
+
+    # each kernel's launches on its own path: the ops surface for the unfused
+    # paged kernels, mamba2's for RMSNorm and the SSD scan, recurrentgemma's
+    # for the rest
+    paths = dict(paged_attention_scatter=rg_counts, paged_attention=ops_counts,
+                 paged_scatter=ops_counts, flash_attention=rg_counts, rmsnorm=mamba_counts,
+                 ssd_scan=mamba_counts, rglru_scan=rg_counts)
+    require(all(paths[k][k] > 0 for k in KERNELS), paths)
     log("launches on the llama3.2-1b path " + json.dumps(llama_counts)
-        + "; on the recurrentgemma-2b path " + json.dumps(rg_counts))
+        + "; on the recurrentgemma-2b path " + json.dumps(rg_counts)
+        + "; on the mamba2-130m path " + json.dumps(mamba_counts)
+        + "; on the kernels.ops path " + json.dumps(ops_counts))
     print(card)
     print(json.dumps({"kernels": [dict(
-        name=names.get(k, k), route="cuda",
-        source=f"src/repro_torch/kernels/csrc/{k}.cu", replaces=replaces[k],
-        launches=rg_counts[k], **timing[k]) for k in KERNEL_SOURCES]}))
+        name=k, route="cuda", source=f"src/repro_torch/kernels/csrc/{src}.cu",
+        replaces=replaces, launches=paths[k][k], **timing[k])
+        for k, (_, _, src, replaces) in KERNELS.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

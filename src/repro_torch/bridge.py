@@ -4,9 +4,10 @@ The reference keeps every per-layer leaf stacked on a leading ``n_full``
 axis: ``{"stack": {"0": {...}, ...}, "rem": {...}}`` (``stack_layout``).
 The port walks its layers in a Python loop and keeps them **split**: a
 list ``"layers"`` of per-layer dicts in layer order.  The dense family (pattern
-``("attn",)``, so ``n_full == n_layers`` and no ``rem``) and the hybrid
-family (recurrentgemma: periods of ``("rglru", "rglru", "attn")`` and, at
-26 layers, a remainder ``("rglru", "rglru")`` under ``"rem"``) are handled.
+``("attn",)``, so ``n_full == n_layers`` and no ``rem``), the SSM family
+(mamba2: ``("ssm",)``, likewise homogeneous) and the hybrid family
+(recurrentgemma: periods of ``("rglru", "rglru", "attn")`` and, at 26
+layers, a remainder ``("rglru", "rglru")`` under ``"rem"``) are handled.
 
 Everything crosses as numpy arrays: a caller holding JAX arrays passes
 ``jax.tree.map(np.asarray, tree)``, and nothing here imports JAX.  bf16

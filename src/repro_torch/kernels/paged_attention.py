@@ -1,32 +1,45 @@
-"""Paged-decode attention with the fused K/V scatter: CUDA kernel + plain version.
+"""Paged-decode attention, its K/V scatter, and the fused step: CUDA kernels + plain versions.
 
-The port of ``repro.kernels.paged_attention.paged_attention_scatter_pallas``
-(both its bf16/fp32 and its int8 variant).  One decode step: every slot's
-new K/V row lands in its page, then each slot attends over the pages of its
-page-table row.
+The port of the three TPU kernels of ``repro.kernels.paged_attention``:
 
-* :func:`paged_attention_scatter` is the wrapper.  For CUDA tensors it
-  launches the hand-written kernel in ``csrc/paged_attention.cu`` (built for
-  ``sm_90a`` on first use) or raises; it takes the plain version only for
-  tensors that lie on the CPU.  It counts its launches in :data:`launches`.
-* :func:`paged_attention_scatter_plain` is the plain PyTorch version, a copy
-  of the reference's XLA branch (``repro/serve/kvcache.py``: scatter, gather
-  the whole table row, masked softmax).  The CPU tests run it, and
-  ``chip_smoke.py`` holds the kernel against it on the card.
+* :func:`paged_attention_scatter` (``paged_attention_scatter_pallas``, its
+  bf16/fp32 and its int8 variant): one decode step, every slot's new K/V
+  row lands in its page, then each slot attends over the pages of its
+  page-table row.  The serving engine runs it.
+* :func:`paged_attention` (``paged_attention_pallas``): the same walk,
+  without the write.
+* :func:`paged_scatter` (``paged_scatter_pallas``): the write alone, into 2
+  or 4 pools.  Of several rows with one destination the last wins, as on
+  the TPU's sequential grid.
 
-Both update the page pools **in place** and return the attention output.
-They differ in one rounding, as the reference's two branches do: the plain
-version casts the softmax probabilities to the page dtype before P.V (the
-XLA branch), the kernel keeps them fp32 (the Pallas walk).  With bf16
-pages they agree to bf16 tolerance; with fp32 or int8 pages and an fp32
-query, to fp32 tolerance.
+The reference reaches the last two through ``repro.kernels.ops`` (ported as
+:mod:`repro_torch.kernels.ops`) and holds the fused step bit-equal to
+scatter followed by attention.  The three kernels in
+``csrc/paged_attention.cu`` share the row write and the walk, and the
+plain fused step is the plain scatter followed by the plain attention, so
+both hold that by construction.
+
+Each wrapper launches its kernel for CUDA tensors (built for ``sm_90a`` on
+first use) or raises, and takes its plain version only for tensors that lie
+on the CPU; each counts its launches (:data:`launches` for the fused step,
+:data:`attention_launches`, :data:`scatter_launches`).  The plain versions
+are copies of the reference's XLA branch (``repro/serve/kvcache.py``:
+scatter, gather the whole table row, masked softmax); the CPU tests run
+them, and ``chip_smoke.py`` holds the kernels against them on the card.
+
+Pools are updated **in place**.  The attention's two versions differ in
+one rounding, as the reference's two branches do: the plain version casts
+the softmax probabilities to the page dtype before P.V (the XLA branch),
+the kernel keeps them fp32 (the Pallas walk).  With bf16 pages they agree
+to bf16 tolerance; with fp32 or int8 pages and an fp32 query, to fp32
+tolerance.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
 import math
-from typing import Optional
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -38,42 +51,49 @@ MAX_SHARED_BYTES = 48 * 1024
 _PAGE_KINDS = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _Q_KINDS = {torch.float32: 0, torch.bfloat16: 1}
 
-# kernel launches since the count was last set to 0 (the plain path never counts)
-launches = 0
+# kernel launches since each count was last set to 0 (the plain paths never count)
+launches = 0                  # the fused step
+attention_launches = 0
+scatter_launches = 0
 
 
 # --------------------------------------------------------------------------
-# plain version (the reference's XLA branch)
+# plain versions (the reference's XLA branch)
 # --------------------------------------------------------------------------
 
-def paged_attention_scatter_plain(
-    q, k_new, v_new, k_pages, v_pages, table, pos, page_idx, off, *,
-    k_scale_new=None, v_scale_new=None, k_scale_pages=None, v_scale_pages=None,
+def paged_scatter_plain(pages: Sequence[torch.Tensor], new_rows: Sequence[torch.Tensor],
+                        page_idx: torch.Tensor, off: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """pages[i]: (P, page, ...) pools; new_rows[i]: (B, ...) rows;
+    page_idx/off: (B,) int32 destinations.  Writes in place and returns the
+    pools.  Every row aimed at one destination writes the last such row, so
+    one indexed assignment gives the TPU's sequential grid's result, bit for
+    bit, whatever order it meets duplicates in (and with no host sync)."""
+    pi, of = page_idx.long(), off.long()
+    dest = pi * pages[0].shape[1] + of
+    rank = torch.arange(dest.shape[0], device=dest.device)
+    last = torch.where(dest[:, None] == dest[None, :], rank[None, :], -1).amax(dim=1)
+    for pool, rows in zip(pages, new_rows):
+        pool[pi, of] = rows[last]
+    return tuple(pages)
+
+
+def paged_attention_plain(
+    q, k_pages, v_pages, table, pos, *, k_scale_pages=None, v_scale_pages=None,
     window: int = 0, dequant_dtype: Optional[torch.dtype] = None,
 ) -> torch.Tensor:
-    """q: (B,Hkv,G,D) post-RoPE queries; k_new/v_new: (B,Hkv,D) in the page
-    dtype; pages: (P,page,Hkv,D), int8 with (P,page,Hkv) fp32 scale pages
-    when quantised; table: (B,M); pos/page_idx/off: (B,) int32.  Updates
-    the pools in place; returns (B,Hkv,G,D) in q's dtype.  ``dequant_dtype``
-    is what int8 pages dequantise into (the XLA branch uses the layer
-    input's dtype); q's dtype by default."""
+    """q: (B,Hkv,G,D) post-RoPE queries; pages: (P,page,Hkv,D), int8 with
+    (P,page,Hkv) fp32 scale pages when quantised; table: (B,M); pos: (B,)
+    int32.  Returns (B,Hkv,G,D) in q's dtype.  ``dequant_dtype`` is what
+    int8 pages dequantise into (the XLA branch uses the layer input's
+    dtype); q's dtype by default."""
     b, hkv, g, d = q.shape
     page = k_pages.shape[1]
     m = table.shape[1]
-    pi, of = page_idx.long(), off.long()
-    quant = k_scale_pages is not None
-    if quant:
-        k_scale_pages[pi, of] = k_scale_new
-        v_scale_pages[pi, of] = v_scale_new
-    # idle slots may write the same scratch row: no defined winner, never read
-    k_pages[pi, of] = k_new
-    v_pages[pi, of] = v_new
-
     t = m * page
     rows = table.long()
     ck = k_pages[rows].reshape(b, t, hkv, d)
     cv = v_pages[rows].reshape(b, t, hkv, d)
-    if quant:
+    if k_scale_pages is not None:
         dt = dequant_dtype or q.dtype
         ck = _kv_dequantize(ck, k_scale_pages[rows].reshape(b, t, hkv), dt)
         cv = _kv_dequantize(cv, v_scale_pages[rows].reshape(b, t, hkv), dt)
@@ -88,6 +108,32 @@ def paged_attention_scatter_plain(
     return out.to(q.dtype)
 
 
+def _pools(k_pages, v_pages, k_scale_pages, v_scale_pages, k_new, v_new, k_scale_new,
+           v_scale_new):
+    """The (pools, rows) pairs a scatter writes: K and V, and their scale
+    pools when quantised."""
+    if k_scale_pages is None:
+        return (k_pages, v_pages), (k_new, v_new)
+    return ((k_pages, v_pages, k_scale_pages, v_scale_pages),
+            (k_new, v_new, k_scale_new, v_scale_new))
+
+
+def paged_attention_scatter_plain(
+    q, k_new, v_new, k_pages, v_pages, table, pos, page_idx, off, *,
+    k_scale_new=None, v_scale_new=None, k_scale_pages=None, v_scale_pages=None,
+    window: int = 0, dequant_dtype: Optional[torch.dtype] = None,
+) -> torch.Tensor:
+    """The fused step's plain version: :func:`paged_scatter_plain` then
+    :func:`paged_attention_plain`.  k_new/v_new: (B,Hkv,D) in the page dtype
+    (with (B,Hkv) fp32 scales when quantised); page_idx/off: (B,) int32.
+    Updates the pools in place; returns (B,Hkv,G,D) in q's dtype."""
+    paged_scatter_plain(*_pools(k_pages, v_pages, k_scale_pages, v_scale_pages, k_new,
+                                v_new, k_scale_new, v_scale_new), page_idx, off)
+    return paged_attention_plain(q, k_pages, v_pages, table, pos,
+                                 k_scale_pages=k_scale_pages, v_scale_pages=v_scale_pages,
+                                 window=window, dequant_dtype=dequant_dtype)
+
+
 # --------------------------------------------------------------------------
 # build
 # --------------------------------------------------------------------------
@@ -97,76 +143,131 @@ def build() -> ctypes.CDLL:
     """Build ``csrc/paged_attention.cu`` on first use (see
     :mod:`repro_torch.kernels._build`) and declare its C interface."""
     lib = _build.load("paged_attention")
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.repro_paged_attention_scatter.argtypes = (
-        [i, i] + [p] * 14 + [i] * 8 + [ctypes.c_float, p])
-    lib.repro_paged_attention_scatter.restype = i
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.repro_paged_attention_scatter.argtypes = [i, i] + [p] * 14 + [i] * 8 + [f, p]
+    lib.repro_paged_attention.argtypes = [i, i] + [p] * 8 + [i] * 8 + [f, p]
+    lib.repro_paged_scatter.argtypes = [i] + [p] * 10 + [i] * 5 + [p]
+    for fn in (lib.repro_paged_attention_scatter, lib.repro_paged_attention,
+               lib.repro_paged_scatter):
+        fn.restype = i
     lib.repro_paged_attention_shared_bytes.argtypes = [i, i, i]
     lib.repro_paged_attention_shared_bytes.restype = ctypes.c_size_t
     return lib
 
 
 # --------------------------------------------------------------------------
-# wrapper
+# argument checks (every launch runs them: messages are formatted only on failure)
 # --------------------------------------------------------------------------
 
-def _fail(msg: str):
-    raise ValueError(f"paged_attention_scatter: {msg}")
+def _fail(fn: str, msg: str):
+    raise ValueError(f"{fn}: {msg}")
 
 
-def _check_args(q, k_new, v_new, k_pages, v_pages, table, pos, page_idx, off,
-                k_scale_new, v_scale_new, k_scale_pages, v_scale_pages) -> None:
-    # every launch runs these, so messages are formatted only on failure
-    quant = k_scale_pages is not None
-    named = dict(q=q, k_new=k_new, v_new=v_new, k_pages=k_pages, v_pages=v_pages,
-                 table=table, pos=pos, page_idx=page_idx, off=off)
-    if quant:
-        named.update(k_scale_new=k_scale_new, v_scale_new=v_scale_new,
-                     k_scale_pages=k_scale_pages, v_scale_pages=v_scale_pages)
+def _check_placed(fn: str, device: torch.device, **named) -> None:
     for name, t in named.items():
         if t is None:
-            _fail(f"{name} is missing")
-        if t.device != q.device:
-            _fail(f"{name} is on {t.device}, q on {q.device}")
+            _fail(fn, f"{name} is missing")
+        if t.device != device:
+            _fail(fn, f"{name} is on {t.device}, expected {device}")
         if not t.is_contiguous():
-            _fail(f"{name} is not contiguous")
-    if q.dim() != 4:
-        _fail(f"q must be (B,Hkv,G,D), got {tuple(q.shape)}")
-    b, hkv, g, d = q.shape
-    if q.dtype not in _Q_KINDS:
-        _fail(f"q dtype {q.dtype} not in {list(_Q_KINDS)}")
+            _fail(fn, f"{name} is not contiguous")
+
+
+def _check_pools(fn: str, k_pages, v_pages, k_scale_pages, v_scale_pages) -> None:
+    """(P,page,Hkv,D) pools of one page dtype; (P,page,Hkv) fp32 scale
+    pools exactly when the pages are int8."""
+    quant = k_scale_pages is not None
     if k_pages.dtype not in _PAGE_KINDS:
-        _fail(f"page dtype {k_pages.dtype} not in {list(_PAGE_KINDS)}")
-    if (k_pages.dtype == torch.int8) != quant:
-        _fail("int8 pages need scale pages, and only they")
-    if k_pages.dim() != 4 or k_pages.shape[2:] != (hkv, d):
-        _fail(f"pages must be (P,page,{hkv},{d}), got {tuple(k_pages.shape)}")
-    n_pages, page = k_pages.shape[:2]
+        _fail(fn, f"page dtype {k_pages.dtype} not in {list(_PAGE_KINDS)}")
+    if (k_pages.dtype == torch.int8) != quant or (v_scale_pages is None) == quant:
+        _fail(fn, "int8 pages need scale pages, and only they")
+    if k_pages.dim() != 4:
+        _fail(fn, f"pages must be (P,page,Hkv,D), got {tuple(k_pages.shape)}")
     if v_pages.shape != k_pages.shape or v_pages.dtype != k_pages.dtype:
-        _fail("k_pages and v_pages differ")
-    for name, t in (("k_new", k_new), ("v_new", v_new)):
-        if t.shape != (b, hkv, d) or t.dtype != k_pages.dtype:
-            _fail(f"{name} must be ({b},{hkv},{d}) {k_pages.dtype}, "
-                  f"got {tuple(t.shape)} {t.dtype}")
+        _fail(fn, "k_pages and v_pages differ")
     if quant:
         for name, t in (("k_scale_pages", k_scale_pages), ("v_scale_pages", v_scale_pages)):
-            if t.shape != (n_pages, page, hkv) or t.dtype != torch.float32:
-                _fail(f"{name} must be ({n_pages},{page},{hkv}) float32")
+            if t.shape != k_pages.shape[:3] or t.dtype != torch.float32:
+                _fail(fn, f"{name} must be {tuple(k_pages.shape[:3])} float32")
+    if not 1 <= k_pages.shape[3] <= 256:
+        _fail(fn, f"head dim {k_pages.shape[3]} not in [1, 256]")
+
+
+def _check_int32(fn: str, b: int, **named) -> None:
+    for name, t in named.items():
+        if t.dtype != torch.int32:
+            _fail(fn, f"{name} must be int32, got {t.dtype}")
+        if name != "table" and t.shape != (b,):
+            _fail(fn, f"{name} must be ({b},), got {tuple(t.shape)}")
+
+
+def _check_attention(fn, q, k_pages, v_pages, table, pos, k_scale_pages, v_scale_pages):
+    _check_placed(fn, q.device, q=q, k_pages=k_pages, v_pages=v_pages, table=table, pos=pos,
+                  **({} if k_scale_pages is None else dict(k_scale_pages=k_scale_pages,
+                                                           v_scale_pages=v_scale_pages)))
+    if q.dim() != 4:
+        _fail(fn, f"q must be (B,Hkv,G,D), got {tuple(q.shape)}")
+    b, hkv, g, d = q.shape
+    if q.dtype not in _Q_KINDS:
+        _fail(fn, f"q dtype {q.dtype} not in {list(_Q_KINDS)}")
+    _check_pools(fn, k_pages, v_pages, k_scale_pages, v_scale_pages)
+    if k_pages.shape[2:] != (hkv, d):
+        _fail(fn, f"pages must be (P,page,{hkv},{d}), got {tuple(k_pages.shape)}")
+    if table.dim() != 2 or table.shape[0] != b or table.shape[1] < 1:
+        _fail(fn, f"table must be ({b}, M>=1), got {tuple(table.shape)}")
+    _check_int32(fn, b, table=table, pos=pos)
+    if b < 1 or not 1 <= g <= 32:
+        _fail(fn, f"need B >= 1 and 1 <= G <= 32, got B={b} G={g}")
+
+
+def _check_scatter(fn, k_pages, v_pages, k_scale_pages, v_scale_pages, k_new, v_new,
+                   k_scale_new, v_scale_new, page_idx, off):
+    quant = k_scale_pages is not None
+    named = dict(k_pages=k_pages, v_pages=v_pages, k_new=k_new, v_new=v_new,
+                 page_idx=page_idx, off=off)
+    if quant:
+        named.update(k_scale_pages=k_scale_pages, v_scale_pages=v_scale_pages,
+                     k_scale_new=k_scale_new, v_scale_new=v_scale_new)
+    _check_placed(fn, k_pages.device, **named)
+    _check_pools(fn, k_pages, v_pages, k_scale_pages, v_scale_pages)
+    b = k_new.shape[0] if k_new.dim() else 0
+    hkv, d = k_pages.shape[2:]
+    for name, t in (("k_new", k_new), ("v_new", v_new)):
+        if t.shape != (b, hkv, d) or t.dtype != k_pages.dtype:
+            _fail(fn, f"{name} must be ({b},{hkv},{d}) {k_pages.dtype}, "
+                      f"got {tuple(t.shape)} {t.dtype}")
+    if quant:
         for name, t in (("k_scale_new", k_scale_new), ("v_scale_new", v_scale_new)):
             if t.shape != (b, hkv) or t.dtype != torch.float32:
-                _fail(f"{name} must be ({b},{hkv}) float32")
-    if table.dim() != 2 or table.shape[0] != b or table.shape[1] < 1:
-        _fail(f"table must be ({b}, M>=1), got {tuple(table.shape)}")
-    for name, t in (("table", table), ("pos", pos), ("page_idx", page_idx), ("off", off)):
-        if t.dtype != torch.int32:
-            _fail(f"{name} must be int32, got {t.dtype}")
-    for name, t in (("pos", pos), ("page_idx", page_idx), ("off", off)):
-        if t.shape != (b,):
-            _fail(f"{name} must be ({b},), got {tuple(t.shape)}")
-    if b < 1 or not 1 <= g <= 32:
-        _fail(f"need B >= 1 and 1 <= G <= 32, got B={b} G={g}")
-    if not 1 <= d <= 256:
-        _fail(f"head dim {d} not in [1, 256]")
+                _fail(fn, f"{name} must be ({b},{hkv}) float32")
+    _check_int32(fn, b, page_idx=page_idx, off=off)
+    if b < 1:
+        _fail(fn, "need at least one row")
+
+
+# --------------------------------------------------------------------------
+# wrappers
+# --------------------------------------------------------------------------
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _lib_for_attention(fn: str, q, k_pages) -> ctypes.CDLL:
+    lib = build()
+    smem = lib.repro_paged_attention_shared_bytes(q.shape[2], q.shape[3], k_pages.shape[1])
+    if smem > MAX_SHARED_BYTES:
+        _fail(fn, f"{smem} bytes of shared memory > {MAX_SHARED_BYTES}")
+    return lib
+
+
+def _on_cuda(fn: str, t: torch.Tensor) -> None:
+    if t.device.type != "cuda":
+        _fail(fn, f"no kernel for device {t.device}")
 
 
 def paged_attention_scatter(
@@ -179,36 +280,95 @@ def paged_attention_scatter(
     Shapes as :func:`paged_attention_scatter_plain`.  The pools are updated
     **in place**; returns the (B,Hkv,G,D) output in q's dtype.  CUDA tensors
     go to the kernel (launched on the current stream, not synchronised),
-    CPU tensors to the plain version; anything else raises.
+    CPU tensors to the plain version; anything else raises.  In the kernel
+    each slot writes its row and then reads its own pages, so two slots
+    with one destination (idle slots on the scratch page) leave no defined
+    winner there; :func:`paged_scatter` defines one.
     """
+    fn = "paged_attention_scatter"
     if q.device.type == "cpu":
         return paged_attention_scatter_plain(
             q, k_new, v_new, k_pages, v_pages, table, pos, page_idx, off,
             k_scale_new=k_scale_new, v_scale_new=v_scale_new,
             k_scale_pages=k_scale_pages, v_scale_pages=v_scale_pages, window=window)
-    if q.device.type != "cuda":
-        _fail(f"no kernel for device {q.device}")
-    _check_args(q, k_new, v_new, k_pages, v_pages, table, pos, page_idx, off,
-                k_scale_new, v_scale_new, k_scale_pages, v_scale_pages)
-    lib = build()
+    _on_cuda(fn, q)
+    _check_attention(fn, q, k_pages, v_pages, table, pos, k_scale_pages, v_scale_pages)
+    _check_scatter(fn, k_pages, v_pages, k_scale_pages, v_scale_pages, k_new, v_new,
+                   k_scale_new, v_scale_new, page_idx, off)
+    if k_new.shape[0] != q.shape[0]:
+        _fail(fn, f"{k_new.shape[0]} new rows for {q.shape[0]} slots")
+    lib = _lib_for_attention(fn, q, k_pages)
     b, hkv, g, d = q.shape
     n_pages, page = k_pages.shape[:2]
-    m = table.shape[1]
-    smem = lib.repro_paged_attention_shared_bytes(g, d, page)
-    if smem > MAX_SHARED_BYTES:
-        _fail(f"{smem} bytes of shared memory > {MAX_SHARED_BYTES}")
     out = torch.empty_like(q)
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
     rc = lib.repro_paged_attention_scatter(
-        _PAGE_KINDS[k_pages.dtype], _Q_KINDS[q.dtype], ptr(q), ptr(k_new), ptr(v_new),
-        ptr(k_scale_new), ptr(v_scale_new), ptr(k_pages), ptr(v_pages),
-        ptr(k_scale_pages), ptr(v_scale_pages), ptr(table), ptr(pos), ptr(page_idx),
-        ptr(off), ptr(out), b, n_pages, hkv, g, d, page, m, int(window), 1.0 / math.sqrt(d),
-        torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(lib, rc, "paged_attention_scatter")
+        _PAGE_KINDS[k_pages.dtype], _Q_KINDS[q.dtype], _ptr(q), _ptr(k_new), _ptr(v_new),
+        _ptr(k_scale_new), _ptr(v_scale_new), _ptr(k_pages), _ptr(v_pages),
+        _ptr(k_scale_pages), _ptr(v_scale_pages), _ptr(table), _ptr(pos), _ptr(page_idx),
+        _ptr(off), _ptr(out), b, n_pages, hkv, g, d, page, table.shape[1], int(window),
+        1.0 / math.sqrt(d), _stream(q))
+    _build.check(lib, rc, fn)
     global launches
     launches += 1
     return out
+
+
+def paged_attention(q, k_pages, v_pages, table, pos, *, k_scale_pages=None,
+                    v_scale_pages=None, window: int = 0) -> torch.Tensor:
+    """Decode attention over the pages as they are (read only).  Shapes as
+    :func:`paged_attention_plain`; returns (B,Hkv,G,D) in q's dtype.  CUDA
+    tensors go to the kernel (launched on the current stream, not
+    synchronised), CPU tensors to the plain version; anything else raises."""
+    fn = "paged_attention"
+    if q.device.type == "cpu":
+        return paged_attention_plain(q, k_pages, v_pages, table, pos,
+                                     k_scale_pages=k_scale_pages,
+                                     v_scale_pages=v_scale_pages, window=window)
+    _on_cuda(fn, q)
+    _check_attention(fn, q, k_pages, v_pages, table, pos, k_scale_pages, v_scale_pages)
+    lib = _lib_for_attention(fn, q, k_pages)
+    b, hkv, g, d = q.shape
+    n_pages, page = k_pages.shape[:2]
+    out = torch.empty_like(q)
+    rc = lib.repro_paged_attention(
+        _PAGE_KINDS[k_pages.dtype], _Q_KINDS[q.dtype], _ptr(q), _ptr(k_pages), _ptr(v_pages),
+        _ptr(k_scale_pages), _ptr(v_scale_pages), _ptr(table), _ptr(pos), _ptr(out),
+        b, n_pages, hkv, g, d, page, table.shape[1], int(window), 1.0 / math.sqrt(d),
+        _stream(q))
+    _build.check(lib, rc, fn)
+    global attention_launches
+    attention_launches += 1
+    return out
+
+
+def paged_scatter(pages: Sequence[torch.Tensor], new_rows: Sequence[torch.Tensor],
+                  page_idx: torch.Tensor, off: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """Write each slot's new row into its page, in place, and return the
+    pools.  ``pages`` is (k_pages, v_pages) or, for int8 pages, (k_pages,
+    v_pages, k_scale_pages, v_scale_pages); ``new_rows`` the matching (B,
+    ...) rows; page_idx/off: (B,) int32 destinations.  Of several rows with
+    one destination the last wins.  CUDA tensors go to the kernel (launched
+    on the current stream, not synchronised), CPU tensors to the plain
+    version; anything else raises."""
+    fn = "paged_scatter"
+    if len(pages) not in (2, 4) or len(new_rows) != len(pages):
+        _fail(fn, f"need 2 or 4 pools and as many row sets, got {len(pages)} and "
+                  f"{len(new_rows)}")
+    if pages[0].device.type == "cpu":
+        return paged_scatter_plain(pages, new_rows, page_idx, off)
+    _on_cuda(fn, pages[0])
+    k_pages, v_pages, k_scale_pages, v_scale_pages = (*pages, None, None)[:4]
+    k_new, v_new, k_scale_new, v_scale_new = (*new_rows, None, None)[:4]
+    _check_scatter(fn, k_pages, v_pages, k_scale_pages, v_scale_pages, k_new, v_new,
+                   k_scale_new, v_scale_new, page_idx, off)
+    lib = build()
+    n_pages, page, hkv, d = k_pages.shape
+    rc = lib.repro_paged_scatter(
+        _PAGE_KINDS[k_pages.dtype], _ptr(k_new), _ptr(v_new), _ptr(k_scale_new),
+        _ptr(v_scale_new), _ptr(k_pages), _ptr(v_pages), _ptr(k_scale_pages),
+        _ptr(v_scale_pages), _ptr(page_idx), _ptr(off), k_new.shape[0], n_pages, hkv, d,
+        page, _stream(k_pages))
+    _build.check(lib, rc, fn)
+    global scatter_launches
+    scatter_launches += 1
+    return tuple(pages)

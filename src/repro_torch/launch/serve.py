@@ -11,6 +11,12 @@
       --continuous --n-requests 12 --prompt-len 128 --steps 32 --slots 8 \\
       --page-size 16 --long-prompt 2032
 
+  # the SSM family (attention-free mamba2-130m), with one 2000-token
+  # prompt that the SSD scan takes in 16 chunks, the last one ragged
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-130m \\
+      --continuous --n-requests 12 --prompt-len 128 --steps 32 --slots 8 \\
+      --page-size 16 --long-prompt 2000
+
   # a small model on the CPU, plain PyTorch (the default there)
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \\
       --reduced --continuous --device cpu
@@ -119,7 +125,8 @@ def run_continuous(args) -> Dict[str, Any]:
 def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument("--arch", default="llama3.2-1b")
+    ap.add_argument("--arch", default="llama3.2-1b",
+                    help="llama3.2-1b, recurrentgemma-2b or mamba2-130m")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--continuous", action="store_true",
                     help="continuous batching over the paged KV pool (the only "

@@ -51,6 +51,20 @@ def scale_by(x: torch.Tensor, c: float) -> torch.Tensor:
     return x * torch.tensor(c, dtype=x.dtype, device=x.device)
 
 
+def concat(xs) -> torch.Tensor:
+    """``jnp.concatenate`` along axis 1: promote, then join."""
+    dt = xs[0].dtype
+    for x in xs[1:]:
+        dt = torch.promote_types(dt, x.dtype)
+    return torch.cat([x.to(dt) for x in xs], dim=1)
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``: ``logaddexp(x, 0)`` everywhere (``F.softplus``
+    turns linear above its threshold)."""
+    return torch.logaddexp(x, torch.zeros_like(x))
+
+
 # --------------------------------------------------------------------------
 # initializers
 # --------------------------------------------------------------------------

@@ -11,9 +11,9 @@ time in order.  Decode is a single-step update.
 
 Where JAX and PyTorch differ by default, the port follows JAX:
 ``jax.nn.gelu`` is the tanh approximation, and ``jax.nn.softplus`` is
-``logaddexp(x, 0)`` everywhere (``F.softplus`` turns linear above its
-threshold).  Mixed dtypes promote through :func:`layers.matmul`, as JAX
-promotes ``bf16 @ fp32``.
+``logaddexp(x, 0)`` everywhere (:func:`layers.softplus`).  Mixed dtypes
+promote through :func:`layers.matmul` and :func:`layers.concat`, as JAX
+promotes ``bf16 @ fp32`` and a mixed ``jnp.concatenate``.
 """
 from __future__ import annotations
 
@@ -56,26 +56,14 @@ def _gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")          # jax.nn.gelu's default
 
 
-def _softplus(x: torch.Tensor) -> torch.Tensor:
-    return torch.logaddexp(x, torch.zeros_like(x))  # jax.nn.softplus, no threshold
-
-
 def _gates(cfg, p, u):
     r = torch.sigmoid(L.matmul(u, p["w_r"]))
     i = torch.sigmoid(L.matmul(u, p["w_i"]))
-    log_a = -cfg.rglru_c * _softplus(p["lam"]) * r.float()
+    log_a = -cfg.rglru_c * L.softplus(p["lam"]) * r.float()
     a = torch.exp(log_a)
     beta = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12))
     b = beta * (i.float() * u.float())
     return a, b
-
-
-def _cat(xs):
-    """``jnp.concatenate``: promote, then join along axis 1."""
-    dt = xs[0].dtype
-    for x in xs[1:]:
-        dt = torch.promote_types(dt, x.dtype)
-    return torch.cat([x.to(dt) for x in xs], dim=1)
 
 
 def rglru_forward(cfg, p: Params, x: torch.Tensor, state: Optional[Params] = None,
@@ -86,7 +74,7 @@ def rglru_forward(cfg, p: Params, x: torch.Tensor, state: Optional[Params] = Non
     g = _gelu(L.matmul(x, p["w_gelu"]))
     u = L.matmul(x, p["w_in"])
     if state is not None:
-        u_full = _cat([state["conv"].to(u.dtype), u])
+        u_full = L.concat([state["conv"].to(u.dtype), u])
         u_conv = causal_depthwise_conv(u_full, p["conv_w"])[:, cfg.ssm_conv - 1:]
     else:
         u_conv = causal_depthwise_conv(u, p["conv_w"])
@@ -101,7 +89,7 @@ def rglru_forward(cfg, p: Params, x: torch.Tensor, state: Optional[Params] = Non
     out = L.matmul((g.float() * h).to(x.dtype), p["w_out"])
     if state is None:
         return out, None
-    new_conv = _cat([state["conv"], u])[:, -(cfg.ssm_conv - 1):]
+    new_conv = L.concat([state["conv"], u])[:, -(cfg.ssm_conv - 1):]
     return out, {"conv": new_conv, "h": h_last}
 
 
@@ -117,7 +105,7 @@ def rglru_decode(cfg, p: Params, x: torch.Tensor, state: Params):
     """Single-token step.  x: (B,1,d) -> (out (B,1,d), new state)."""
     g = _gelu(L.matmul(x[:, 0], p["w_gelu"]))                 # (B,W)
     u = L.matmul(x[:, 0], p["w_in"])
-    window = _cat([state["conv"].to(u.dtype), u[:, None]])    # (B,K,W)
+    window = L.concat([state["conv"].to(u.dtype), u[:, None]])    # (B,K,W)
     dt = torch.promote_types(window.dtype, p["conv_w"].dtype)
     u_conv = torch.einsum("bkc,kc->bc", window.to(dt), p["conv_w"].to(dt))
     a, b = _gates(cfg, p, u_conv)

@@ -1,9 +1,9 @@
-"""Model assembly for the dense and hybrid families, ported from ``repro.models.transformer``.
+"""Model assembly for the dense, hybrid and SSM families, ported from ``repro.models.transformer``.
 
 The reference stacks the layers on a leading ``n_full`` axis of periods of
-the config's block pattern (dense: ``("attn",)``; recurrentgemma:
-``("rglru", "rglru", "attn")``), scans over them, and unrolls a remainder
-``"rem"``.  PyTorch runs eagerly, so the port walks the layers in a Python
+the config's block pattern (dense: ``("attn",)``; mamba2: ``("ssm",)``;
+recurrentgemma: ``("rglru", "rglru", "attn")``), scans over them, and
+unrolls a remainder ``"rem"``.  PyTorch runs eagerly, so the port walks the layers in a Python
 loop and keeps them **split**: ``params["layers"]`` is a list of per-layer
 dicts in layer order (``cfg.layer_kinds()`` names each one's kind), and
 caches and page pools are ``{"layers": [...]}`` trees of the same shape.
@@ -11,8 +11,8 @@ caches and page pools are ``{"layers": [...]}`` trees of the same shape.
 are updated in place.
 
 ``kernel`` picks plain PyTorch or the hand-written kernels (RMSNorm, flash
-prefill attention, RG-LRU scan); ``None`` follows the device of the tokens
-(:func:`repro_torch.device.resolve_kernel`).
+prefill attention, RG-LRU scan, SSD scan); ``None`` follows the device of
+the tokens (:func:`repro_torch.device.resolve_kernel`).
 
 Public API:
     init_params(cfg, generator, device)          -> params
@@ -30,23 +30,29 @@ import torch
 from repro_torch.device import resolve_kernel
 from repro_torch.models import layers as L
 from repro_torch.models import rglru as R
+from repro_torch.models import ssm as S
 
 Params = Dict[str, Any]
 
-BLOCK_KINDS = ("attn", "rglru")
+BLOCK_KINDS = ("attn", "rglru", "ssm")
 
 
 def check_supported(cfg) -> None:
-    """Admit the families the port serves: dense (``("attn",)``) and hybrid
-    (attention and RG-LRU blocks); refuse MoE, SSM and frontend prefixes."""
-    ok = cfg.family in ("dense", "hybrid") and set(cfg.pattern) <= set(BLOCK_KINDS)
+    """Admit the families the port serves: dense (``("attn",)``), SSM
+    (``("ssm",)``) and hybrid (attention and RG-LRU blocks); refuse MoE and
+    frontend prefixes."""
+    ok = cfg.family in ("dense", "hybrid", "ssm") and set(cfg.pattern) <= set(BLOCK_KINDS)
     if cfg.family == "dense":
         ok = ok and cfg.pattern == ("attn",)
+    elif cfg.family == "ssm":
+        ok = ok and cfg.pattern == ("ssm",)
+    else:
+        ok = ok and "ssm" not in cfg.pattern
     if not ok or cfg.is_moe or cfg.n_prefix:
         raise NotImplementedError(
             f"arch {cfg.name!r} (family {cfg.family!r}, pattern {cfg.pattern}) is not "
-            "ported; only the dense and the attention/RG-LRU hybrid families are "
-            "(ROADMAP.md, queue 1: other families)")
+            "ported; only the dense, the SSM and the attention/RG-LRU hybrid families "
+            "are (ROADMAP.md, queue 1: other families)")
 
 
 def stack_layout(cfg) -> Tuple[int, Tuple[str, ...]]:
@@ -60,8 +66,13 @@ def stack_layout(cfg) -> Tuple[int, Tuple[str, ...]]:
 # --------------------------------------------------------------------------
 
 def _init_block(cfg, kind: str, gen, dtype, device) -> Params:
+    """An SSM block has ``ln1`` only; the others a norm and an MLP after
+    their mixer."""
     d = cfg.d_model
     p = {"ln1": L.init_norm(cfg, d, dtype, device)}
+    if kind == "ssm":
+        p["ssm"] = S.init_ssm(cfg, gen, dtype, device)
+        return p
     if kind == "attn":
         p["attn"] = L.init_attention(cfg, gen, dtype, device)
     else:
@@ -115,20 +126,31 @@ def logits_fn(cfg, params, hidden) -> torch.Tensor:
 # cache / prefill / decode
 # --------------------------------------------------------------------------
 
+def init_recurrent_state(cfg, kind: str, batch: int, dtype, device) -> Params:
+    """The per-row recurrent state of an RG-LRU or SSM layer (conv window, h)."""
+    if kind == "ssm":
+        return S.init_ssm_state(cfg, batch, dtype, device)
+    return R.init_rglru_state(cfg, batch, dtype, device)
+
+
 def init_cache(cfg, batch: int, max_len: int, device) -> Params:
     """Per layer: a ring/linear KV cache for attention, the recurrent state
-    (conv window, h) for RG-LRU."""
+    (conv window, h) for RG-LRU and SSM layers."""
     check_supported(cfg)
     dtype = L.dtype_of(cfg.compute_dtype)
     return {"layers": [
         L.init_kv_cache(cfg, batch, max_len, dtype, device) if kind == "attn"
-        else R.init_rglru_state(cfg, batch, dtype, device)
+        else init_recurrent_state(cfg, kind, batch, dtype, device)
         for kind in cfg.layer_kinds()]}
 
 
 def _block_prefill(cfg, kind, p, x, bc, kernel):
     """One block over the whole prompt, at positions 0..S-1."""
     h = L.apply_norm(cfg, p["ln1"], x, kernel)
+    if kind == "ssm":
+        y, state = S.ssm_forward(cfg, p["ssm"], h, bc, kernel)
+        bc.update(state)
+        return x + y, bc
     if kind == "attn":
         y, bc = L.attention_prefill(cfg, p["attn"], h, None, bc, kernel)
     else:
@@ -142,8 +164,12 @@ def _block_prefill(cfg, kind, p, x, bc, kernel):
 def _block_decode(cfg, kind, p, x, pos, bc, attn_fn, kernel):
     """One block's single-token step.  ``attn_fn(p_attn, h, bc) -> (y, bc)``
     overrides the dense-cache attention (the paged serving engine passes a
-    page-table closure); RG-LRU state is updated in place in ``bc``."""
+    page-table closure); RG-LRU and SSM state is updated in place in ``bc``."""
     h = L.apply_norm(cfg, p["ln1"], x, kernel)
+    if kind == "ssm":
+        y, state = S.ssm_decode(cfg, p["ssm"], h, bc)
+        bc.update(state)
+        return x + y, bc
     if kind == "rglru":
         y, state = R.rglru_decode(cfg, p["rglru"], h, bc)
         bc.update(state)

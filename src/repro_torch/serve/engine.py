@@ -3,8 +3,8 @@
 Ported from ``repro.serve.engine``.  ``ContinuousEngine`` keeps a decode
 batch of ``n_slots`` continuously refilled: arrived requests **join on
 prefill** (``transformer.prefill``; attention K/V scattered into pool
-pages, RG-LRU state into the slot's row), finished requests **evict on
-EOS**.  Each decode step runs every slot through one paged step (idle
+pages, RG-LRU and SSM state into the slot's row), finished requests
+**evict on EOS**.  Each decode step runs every slot through one paged step (idle
 slots write the scratch page) and reports filled versus capacity, plus the
 idle gaps between arrivals, to the governor through
 :class:`~repro_torch.serve.slack.DecodeSlackMeter`.
@@ -12,7 +12,8 @@ idle gaps between arrivals, to the governor through
 ``attn_kernel`` picks plain PyTorch (``"plain"``, the reference's XLA
 branches) or the hand-written kernels (``"cuda"``, the counterpart of the
 reference's ``"pallas"``: paged decode attention, RMSNorm, flash prefill
-attention, RG-LRU scan).  ``None``, the default, follows the device:
+attention, RG-LRU scan, SSD scan).  An attention-free arch (mamba2)
+launches no paged kernel.  ``None``, the default, follows the device:
 the kernels on a CUDA device, plain PyTorch on the CPU.  A step is timed
 from before its inputs go to the device until the device has finished it
 (``torch.cuda.synchronize``): the meter prices slack from those times,
@@ -106,7 +107,8 @@ def make_paged_decode_step(cfg, attn_kernel: Optional[str] = None,
     """decode(params, token (B,), pos (B,), table (B,M), blocks) -> (out, blocks).
 
     Reuses ``transformer.decode_step`` and swaps only the attention for the
-    paged one; RG-LRU layers step every slot's row of the pool's state.
+    paged one; RG-LRU and SSM layers step every slot's row of the pool's
+    state.
     ``attn_kernel`` (None: follow the tokens' device) picks plain PyTorch
     or the kernels.  The pool blocks are updated in place.  With
     ``fused_sample`` the greedy argmax runs in the step and ``out`` is the

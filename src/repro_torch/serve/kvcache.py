@@ -7,9 +7,11 @@ Ported from ``repro.serve.kvcache``:
   one dict per layer: for an attention layer
   ``{"k_pages", "v_pages"[, "k_scale_pages", "v_scale_pages"]}``
   (``(n_pages, page, Hkv, D)``, int8 with fp32 scale pages under
-  ``cfg.kv_quant``); for an RG-LRU layer the per-slot recurrent state
-  ``{"conv": (n_slots, K-1, W), "h": (n_slots, W)}``, which is O(1) per
-  request and not paged.  Page id 0 is the scratch page: idle decode
+  ``cfg.kv_quant``); for an RG-LRU or SSM layer the per-slot recurrent
+  state ``{"conv": (n_slots, K-1, C), "h": (n_slots, W)}`` (SSM: ``h`` is
+  ``(n_slots, H, P, N)``), which is O(1) per request and not paged.  An
+  attention-free arch (mamba2) has no page arrays at all; the accounting
+  is the same.  Page id 0 is the scratch page: idle decode
   slots write into it and nothing live reads it.
 * :func:`paged_attention_decode` — single-token decode attention over the
   pool, with the sliding window of ``attention="local"``/``"swa"``
@@ -31,8 +33,7 @@ import torch
 from repro_torch.device import resolve_device, resolve_kernel
 from repro_torch.kernels import paged_attention as PA
 from repro_torch.models import layers as L
-from repro_torch.models import rglru as R
-from repro_torch.models.transformer import check_supported
+from repro_torch.models.transformer import check_supported, init_recurrent_state
 
 Params = Dict[str, Any]
 
@@ -66,12 +67,12 @@ def _attn_page_block(cfg, num_pages: int, page: int, dtype, device) -> Params:
 
 def init_pool_blocks(cfg, num_pages: int, page: int, n_slots: int, device) -> Params:
     """``{"layers": [...]}``: a page block per attention layer (pages in the
-    compute dtype), the per-slot recurrent state per RG-LRU layer."""
+    compute dtype), the per-slot recurrent state per RG-LRU or SSM layer."""
     check_supported(cfg)
     dtype = L.dtype_of(cfg.compute_dtype)
     return {"layers": [
         _attn_page_block(cfg, num_pages, page, dtype, device) if kind == "attn"
-        else R.init_rglru_state(cfg, n_slots, dtype, device)
+        else init_recurrent_state(cfg, kind, n_slots, dtype, device)
         for kind in cfg.layer_kinds()]}
 
 

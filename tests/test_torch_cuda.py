@@ -1,7 +1,10 @@
 """The port's CUDA kernels on the card: skipped where there is no NVIDIA GPU.
 
 Each kernel is held to its plain version on the same inputs (fp32 atol
-2e-5 / rtol 2e-4, bf16 3e-2) and must refuse what it does not take.
+2e-5 / rtol 2e-4, bf16 3e-2; the SSD scan at the reference's SSD bar,
+2e-4 / 2e-3) and must refuse what it does not take.  The paged scatter is
+bit-equal to its plain version, and the fused paged step to the scatter
+kernel followed by the attention kernel.
 
 Run them on a machine with one (an H100 for the ``sm_90a`` build):
 
@@ -23,6 +26,7 @@ from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import paged_attention as PA
 from repro_torch.kernels import rglru_scan as RS
 from repro_torch.kernels import rmsnorm as RN
+from repro_torch.kernels import ssd as SSD
 from repro_torch.models.transformer import init_params
 from repro_torch.serve.engine import ContinuousEngine
 
@@ -248,3 +252,141 @@ def test_hybrid_engine_launches_every_kernel_by_default(card):
     assert FA.launches == joins * kinds.count("attn")
     assert RS.launches == joins * kinds.count("rglru")
     assert PA.launches == steps * kinds.count("attn")
+
+
+@pytest.mark.parametrize("b,s,h,p,n,chunk,with_state,dtype", [
+    (1, 2000, 24, 64, 128, 128, True, torch.float32),    # mamba2-130m prefill, ragged
+    (1, 2048, 24, 64, 128, 128, False, torch.float32),
+    (2, 45, 3, 16, 8, 16, True, torch.float32),          # the reference's test shapes
+    (2, 7, 3, 32, 16, 16, False, torch.float32),         # one chunk shorter than chunk
+    (2, 100, 3, 16, 8, 32, False, torch.bfloat16),
+])
+def test_ssd_kernel_matches_plain_on_card(card, b, s, h, p, n, chunk, with_state, dtype):
+    """y and the final state against ``ssd_chunked``: fp32 at the reference's
+    SSD bar, atol 2e-4 / rtol 2e-3; bf16 y at 3e-1 / 5e-2."""
+    rng = np.random.default_rng(8)
+    x = randn(card, b, s, h, p, dtype=dtype, seed=9)
+    dt = torch.from_numpy(rng.uniform(0.01, 0.5, (b, s, h)).astype(np.float32)).to(card)
+    a_log = torch.from_numpy(-rng.uniform(0.5, 2.0, (h,)).astype(np.float32)).to(card)
+    bb = randn(card, b, s, n, dtype=dtype, seed=10)
+    cc = randn(card, b, s, n, dtype=dtype, seed=11)
+    h0 = randn(card, b, h, p, n, seed=12) if with_state else None
+    before = SSD.launches
+    y, state = SSD.ssd_scan(x, dt, a_log, bb, cc, chunk=chunk, init_state=h0)
+    want_y, want_state = SSD.ssd_chunked(x, dt, a_log, bb, cc, chunk, h0)
+    torch.cuda.synchronize()
+    assert SSD.launches == before + 1 and y.dtype == dtype
+    tol = dict(atol=2e-4, rtol=2e-3)
+    torch.testing.assert_close(state, want_state, **tol)
+    torch.testing.assert_close(y.float(), want_y.float(),
+                               **(tol if dtype == torch.float32 else dict(atol=3e-1, rtol=5e-2)))
+
+
+def test_ssd_refuses_what_the_kernel_does_not_take(card):
+    x = randn(card, 1, 8, 2, 16)
+    dt = randn(card, 1, 8, 2).abs()
+    a_log = -randn(card, 2).abs()
+    bc = randn(card, 1, 8, 8)
+    with pytest.raises(ValueError, match="power of two"):
+        SSD.ssd_scan(randn(card, 1, 8, 2, 24), dt, a_log, bc, bc, chunk=4)
+    with pytest.raises(ValueError, match="b and c must be"):
+        SSD.ssd_scan(x, dt, a_log, bc.bfloat16(), bc.bfloat16(), chunk=4)
+    with pytest.raises(ValueError, match="init_state"):
+        SSD.ssd_scan(x, dt, a_log, bc, bc, chunk=4, init_state=randn(card, 1, 2, 8, 16))
+    with pytest.raises(ValueError, match="chunk 256"):
+        SSD.ssd_scan(randn(card, 1, 300, 2, 16), randn(card, 1, 300, 2).abs(), a_log,
+                     randn(card, 1, 300, 8), randn(card, 1, 300, 8), chunk=256)
+
+
+def scatter_args(ins):
+    quant = "k_scale_pages" in ins
+    names = ("k_pages", "v_pages") + (("k_scale_pages", "v_scale_pages") if quant else ())
+    rows = ("k_new", "v_new") + (("k_scale_new", "v_scale_new") if quant else ())
+    return [ins[k] for k in names], [ins[k] for k in rows]
+
+
+@pytest.mark.parametrize("page_dtype,window,tol", [
+    (torch.float32, 0, 2e-5), (torch.int8, 24, 2e-5), (torch.bfloat16, 0, 3e-2),
+])
+@pytest.mark.parametrize("dup", [False, True])
+def test_unfused_kernels_match_plain_on_card(card, page_dtype, window, tol, dup):
+    """Attention over the pages as they are against its plain version (fp32
+    query: fp32 and int8 pages at 2e-5, bf16 pages at 3e-2); the scatter
+    bit-equal to its plain version, with three rows on one destination
+    when ``dup`` (the last wins)."""
+    ins = case(card, page_dtype)
+    if dup:
+        ins["page_idx"][:3] = 0
+        ins["off"][:3] = 5
+    kern = {k: v.clone() for k, v in ins.items()}
+    plain = {k: v.clone() for k, v in ins.items()}
+    before = (PA.attention_launches, PA.scatter_launches)
+    PA.paged_scatter(*scatter_args(kern), kern["page_idx"], kern["off"])
+    PA.paged_scatter_plain(*scatter_args(plain), plain["page_idx"], plain["off"])
+    torch.cuda.synchronize()
+    for got, want in zip(scatter_args(kern)[0], scatter_args(plain)[0]):
+        assert torch.equal(got, want)
+    if dup:
+        assert torch.equal(kern["k_pages"][0, 5], ins["k_new"][2])
+    pool = {k: kern[k] for k in ("k_pages", "v_pages", "k_scale_pages", "v_scale_pages")
+            if k in kern}
+    got = PA.paged_attention(kern["q"], **pool, table=kern["table"], pos=kern["pos"],
+                             window=window)
+    want = PA.paged_attention_plain(kern["q"], **pool, table=kern["table"], pos=kern["pos"],
+                                    window=window)
+    torch.cuda.synchronize()
+    assert (PA.attention_launches, PA.scatter_launches) == (before[0] + 1, before[1] + 1)
+    torch.testing.assert_close(got, want, atol=tol, rtol=tol if tol > 1e-3 else 10 * tol)
+
+
+@pytest.mark.parametrize("quant,window", [(False, 0), (False, 12), (True, 0), (True, 12)])
+@pytest.mark.parametrize("shape", [dict(b=3, hkv=2, g=2, d=32, page=8, m=4),
+                                   dict(b=8, hkv=1, g=10, d=256, page=16, m=6)])
+def test_fused_kernel_is_scatter_then_attention_bit_for_bit(card, quant, window, shape):
+    """The reference's ``test_paged_attention_scatter_fuses_bit_equal`` on the
+    card: the fused kernel's output and every page equal the scatter
+    kernel's followed by the attention kernel's, bit for bit."""
+    ins = case(card, torch.int8 if quant else torch.float32, seed=13, **shape)
+    fused = {k: v.clone() for k, v in ins.items()}
+    split = {k: v.clone() for k, v in ins.items()}
+    out = PA.paged_attention_scatter(**fused, window=window)
+    PA.paged_scatter(*scatter_args(split), split["page_idx"], split["off"])
+    pool = {k: split[k] for k in ("k_pages", "v_pages", "k_scale_pages", "v_scale_pages")
+            if k in split}
+    want = PA.paged_attention(split["q"], **pool, table=split["table"], pos=split["pos"],
+                              window=window)
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
+    for name in pool:
+        assert torch.equal(fused[name], split[name]), name
+
+
+def test_mamba2_engine_launches_ssd_and_rmsnorm_by_default(card):
+    """Reduced mamba2 on the card with no kernel named: the SSD kernel once
+    per layer a join, RMSNorm layers + 1 times a join and a step, no paged
+    kernel; greedy tokens equal the CPU plain path's."""
+    cfg = reduced(get_config("mamba2-130m"))
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+
+    def to_card(tree):
+        if isinstance(tree, dict):
+            return {k: to_card(v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [to_card(v) for v in tree]
+        return tree.to(card)
+
+    on_card = to_card(params)
+    tokens = np.random.default_rng(14).integers(0, cfg.vocab, (2, 21)).astype(np.int32)
+    eng = ContinuousEngine(cfg, on_card, n_slots=2, max_len=48, page=8, device=card)
+    assert eng.attn_kernel == "cuda"
+    for mod in (RN, SSD, PA):
+        mod.launches = 0
+    got = eng.generate({"tokens": tokens}, n_steps=6)
+    joins, steps = eng.n_joins, eng.n_decode_steps
+    assert (joins, steps) == (2, 5)
+    assert SSD.launches == joins * cfg.n_layers
+    assert RN.launches == (joins + steps) * (cfg.n_layers + 1)
+    assert PA.launches == 0
+    want = ContinuousEngine(cfg, params, n_slots=2, max_len=48, page=8, device="cpu").generate(
+        {"tokens": tokens}, n_steps=6)
+    assert torch.equal(got, want)

@@ -74,6 +74,8 @@ def test_every_module_imports_with_jax_and_repro_blocked():
             importlib.import_module(n)
         bad = [k for k in sys.modules if k.split(".")[0] in ("jax", "jaxlib", "repro")]
         assert not bad, bad
+        for n in ("models.ssm", "kernels.ssd", "kernels.ops", "configs.mamba2_130m"):
+            assert "repro_torch." + n in names, n
         print(len(names))
     """)
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
@@ -96,12 +98,14 @@ def test_copied_config_equals_reference():
     for mods in ({}, {"kv_quant": True}):
         jcfg, tcfg = cfgs(**mods)
         assert dataclasses.asdict(jcfg) == dataclasses.asdict(tcfg)
-    for arch in ("llama3.2-1b", "recurrentgemma-2b"):
+    for arch in ("llama3.2-1b", "recurrentgemma-2b", "mamba2-130m"):
         assert dataclasses.asdict(jget_config(arch)) == dataclasses.asdict(get_config(arch))
         assert dataclasses.asdict(jreduced(jget_config(arch), n_layers=8)) == \
             dataclasses.asdict(reduced(get_config(arch), n_layers=8))
+    assert dataclasses.asdict(jreduced(jget_config("mamba2-130m"))) == \
+        dataclasses.asdict(reduced(get_config("mamba2-130m")))
     with pytest.raises(KeyError):
-        get_config("mamba2-130m")                     # not ported yet
+        get_config("mixtral-8x22b")                   # not ported yet
 
 
 def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
