@@ -13,7 +13,10 @@ Builds the hand-written kernels from the five sources in this checkout (one
    - paged decode attention: llama3.2-1b's (B 8, Hkv 8, G 4, D 64, page
      16; bf16/fp32/int8 pages, fp32/bf16 queries, window 0 and 64; pools
      bit-equal outside the scratch page) and recurrentgemma-2b's (B 8,
-     Hkv 1, G 10, D 256, page 16, a 2048 window that cuts pages);
+     Hkv 1, G 10, D 256, page 16, a 2048 window that cuts pages); the walk
+     is split over S blocks per (slot, kv head) and merged by a second
+     launch (the plan, S, C and shared bytes, is logged beside each
+     timing), and a second call on the same inputs gives the same bits;
    - RMSNorm: 8 x 2560 and 2032 x 2560 in bf16 and fp32, and 8 x 2048;
    - RG-LRU scan: B 1, S 2032, W 2560, with h0;
    - flash prefill attention: recurrentgemma-2b's (Hq 10, Hkv 1, D 256,
@@ -69,6 +72,8 @@ once per norm a join and a step: 2 a layer with an MLP, 1 an SSM layer,
 plus the final norm; flash, the RG-LRU scan and the SSD scan once per
 attention / RG-LRU / SSM layer a join; the fused paged kernel once per
 attention layer a step; the unfused paged kernels only on the ops path).
+Each step check profiles the step: device time by kernel, the paged
+kernels' walk and combine together and apart.
 Prints the card's name and power limit, then one JSON line of kernel
 numbers (each kernel's launches from its own path: the ops surface for the
 unfused paged kernels, mamba2's for RMSNorm and the SSD scan,
@@ -236,6 +241,18 @@ def paged_bound(case, pos, window, scatter=True):
     return bound(nbytes, 4 * keys * hkv * g * d)            # Q.K and P.V, fp32
 
 
+def paged_plan(PA, case, window) -> dict:
+    """The split plan the wrappers launch with at this case's shapes (S
+    blocks per (slot, kv head), each over C live pages) and a block's
+    shared memory."""
+    b, hkv, g, d = case["q"].shape
+    page = case["k_pages"].shape[1]
+    splits, run = PA.split_plan(b, hkv, case["table"].shape[1], page, window,
+                                PA.sm_count(case["q"].device))
+    return dict(splits=splits, run=run,
+                shared_bytes=PA.shared_bytes(case["k_pages"].dtype, g, d, page, run))
+
+
 def slot_ratio(got, want) -> float:
     """The worst slot's max error over that slot's output RMS."""
     slot_err = (got.float() - want.float()).abs().flatten(1).amax(1)
@@ -312,9 +329,54 @@ def phase_paged(torch, PA):
             b_ms, b_by = paged_bound(case, pos, window)
             records[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                                  bound_by=b_by, library_ms=paged_sdpa_ms(torch, case, window))
-            log(f"paged timing, {name} shapes {shape} window {window}: " + json.dumps(
-                records[name]) + f"; host issue {host_ms(torch, kern):.4f} ms")
+            rec = records[name]
+            log(f"paged timing, {name} shapes {shape} window {window}: " + json.dumps(rec)
+                + f"; plan {json.dumps(paged_plan(PA, case, window))}; "
+                f"{rec['ms'] / rec['library_ms']:.3f} x SDPA, "
+                f"{100 * rec['bound_ms'] / rec['ms']:.1f} % of the bound; "
+                f"host issue {host_ms(torch, kern):.4f} ms")
+            # the split walk's combine runs in a fixed order: a second launch
+            # on the same inputs gives the same bits
+            again = {k: v.clone() for k, v in case.items()}
+            first = {k: v.clone() for k, v in case.items()}
+            require(torch.equal(PA.paged_attention_scatter(**first, window=window),
+                                PA.paged_attention_scatter(**again, window=window)),
+                    f"paged {name}: two launches on the same inputs differ")
+    phase_paged_wide_table(torch, PA, rng)
     return records
+
+
+def phase_paged_wide_table(torch, PA, rng):
+    """The split plan is sized from the table width, not from the positions.
+    llama3.2-1b's shapes (bf16 pages, fp32 query, no window) with 7 slots
+    near position 2000 (and the idle one), timed beside SDPA over the same
+    pages with the table as wide as the live pages (what the engine's
+    decode step passes) and four times wider (a caller that passes the
+    whole table of an engine built for 8192 tokens).  Logged only."""
+    shape = dict(b=8, hkv=8, g=4, d=64, page=16)
+    pos = rng.integers(1968, 2000, shape["b"]).astype(np.int32)
+    pos[-1] = 0
+    for m in (int(pos.max()) // shape["page"] + 1, 512):
+        case, _ = paged_case(torch, rng, torch.bfloat16, torch.float32, m=m, pos_lo=0, **shape)
+        table = case["table"].cpu().numpy()
+        case.update(pos=torch.from_numpy(pos).cuda(),
+                    page_idx=torch.from_numpy(table[np.arange(shape["b"]),
+                                                    pos // shape["page"]]).cuda(),
+                    off=torch.from_numpy(pos % shape["page"]).cuda())
+        plain_in = {k: v.clone() for k, v in case.items()}
+        want = PA.paged_attention_scatter_plain(**plain_in, window=0)
+        got = PA.paged_attention_scatter(**{k: v.clone() for k, v in case.items()}, window=0)
+        err = compare(torch, got, want, BF16_TOL, f"paged llama3.2-1b table width {m}")
+        ratio = slot_ratio(got, want)
+        require(ratio <= SLOT_REL_TOL, f"paged llama3.2-1b table width {m}: a slot's error "
+                f"is {ratio:.3g} of its RMS, over {SLOT_REL_TOL}")
+        ms = time_ms(torch, lambda: PA.paged_attention_scatter(**case, window=0))
+        sdpa = paged_sdpa_ms(torch, case, 0)
+        b_ms, _ = paged_bound(case, pos.tolist(), 0)
+        log(f"paged timing, llama3.2-1b shapes at positions {pos.tolist()}, table width {m}: "
+            + json.dumps(dict(max_abs_err=err, ms=ms, library_ms=sdpa, bound_ms=b_ms))
+            + f"; plan {json.dumps(paged_plan(PA, case, 0))}; {ms / sdpa:.3f} x SDPA, "
+            f"{100 * b_ms / ms:.1f} % of the bound")
 
 
 def phase_rmsnorm(torch, RN):
@@ -537,7 +599,8 @@ def phase_ops(torch, mods):
             records["paged_attention"] = dict(
                 max_abs_err=err, ms=time_ms(torch, kern), plain_ms=time_ms(torch, plain),
                 bound_ms=b_ms, bound_by=b_by, library_ms=paged_sdpa_ms(torch, case, window))
-            log(f"paged_attention timing, {name}: " + json.dumps(records["paged_attention"]))
+            log(f"paged_attention timing, {name}: " + json.dumps(records["paged_attention"])
+                + f"; plan {json.dumps(paged_plan(PA, case, window))}")
 
     for shape, page_dtype, dup in ((llama, bf16, False), (llama, i8, False), (llama, f32, True),
                                    (rgemma, bf16, False)):
@@ -702,13 +765,29 @@ def phase_step_check(torch, eng, prompts, n_steps: int = 0, want_greedy: bool = 
     return err
 
 
+def covered_ms(ranges) -> float:
+    """The time covered by (start, end) intervals in microseconds, in ms:
+    overlapping kernels (the paged walk and its merge, launched as a
+    programmatic dependent launch) count once."""
+    total, reach = 0.0, float("-inf")
+    for start, end in sorted(ranges):
+        if end > reach:
+            total += end - max(start, reach)
+            reach = end
+    return total / 1e3
+
+
 def profile_step(torch, cfg, step, args, blocks, n: int = 5):
     """Where one full-width decode step's time goes: the host clock around
     synchronised steps, and the device time of every kernel from
     ``torch.profiler`` (reruns the same step; the pools are rewritten with
-    the same rows, the recurrent state steps on)."""
+    the same rows, the recurrent state steps on).  Device busy is the time
+    some kernel runs; per kernel, the sum of its launches' times."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import paged_attention as PA
+    from repro_torch.models.layers import _window
 
     step(*args, blocks)
     torch.cuda.synchronize()
@@ -724,13 +803,36 @@ def profile_step(torch, cfg, step, args, blocks, n: int = 5):
     kernels = sorted(((e.self_device_time_total / n / 1e3, e.count // n, e.key)
                       for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
                      reverse=True)
-    busy = sum(k[0] for k in kernels)
-    ours = {name: sum(k[0] for k in kernels if name in k[2])
-            for name in ("paged_attention_kernel", "rmsnorm_kernel")}
+    spans = [(e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+             if e.device_type == DeviceType.CUDA]
+    busy = covered_ms(r[:2] for r in spans) / n
+    paged_span = covered_ms(r[:2] for r in spans if "paged_attention" in r[2]) / n
+
+    def by_name(name):
+        return (sum(k[0] for k in kernels if name in k[2]),
+                sum(k[1] for k in kernels if name in k[2]))
+
+    # the paged step is the walk and, when it is split, the combine:
+    # both kernel names start with paged_attention
+    paged, walk, combine, norm = (by_name(k) for k in (
+        "paged_attention", "paged_attention_kernel", "paged_attention_combine_kernel",
+        "rmsnorm_kernel"))
+    plan = ""
+    table = args[3]
+    pools = [blk for blk in blocks["layers"] if "k_pages" in blk]
+    if pools:
+        # the plan the wrapper launched with: slots and table width from the
+        # step's table, the page size from the pools
+        b, m = table.shape
+        splits, run = PA.split_plan(b, cfg.n_kv_heads, m, pools[0]["k_pages"].shape[1],
+                                    _window(cfg), PA.sm_count(table.device))
+        plan = f" (table width {m}: {splits} splits of {run} pages)"
     log(f"decode step {cfg.name} (8 slots, full width): wall {wall:.3f} ms, device busy "
-        f"{busy:.3f} ms ({100 * busy / wall:.1f} %), paged kernel "
-        f"{ours['paged_attention_kernel']:.4f} ms, rmsnorm kernel "
-        f"{ours['rmsnorm_kernel']:.4f} ms, {sum(k[1] for k in kernels)} launches")
+        f"{busy:.3f} ms ({100 * busy / wall:.1f} %; kernel times summed "
+        f"{sum(k[0] for k in kernels):.3f} ms), paged kernels {paged_span:.4f} ms covered in "
+        f"{paged[1]} launches{plan}, summed {paged[0]:.4f} ms: walk {walk[0]:.4f} ms ({walk[1]}), combine "
+        f"{combine[0]:.4f} ms ({combine[1]}; its blocks start during the walk and wait for "
+        f"it); rmsnorm kernel {norm[0]:.4f} ms, {sum(k[1] for k in kernels)} launches")
     for ms, count, key in kernels[:10]:
         log(f"  {ms:.4f} ms in {count} launches: {key[:110]}")
 

@@ -69,7 +69,7 @@ def paged_attention_quant(q, k_pages, v_pages, k_scale_pages, v_scale_pages, tab
 
 def paged_attention_scatter(q, k_new, v_new, k_pages, v_pages, table, pos, page_idx, off,
                             window: int = 0) -> Tuple[torch.Tensor, Pools]:
-    """Fused decode step (scatter, then paged attention, one launch).
+    """Fused decode step (scatter, then paged attention, one kernel call).
     Returns ``(out, (k_pages, v_pages))``."""
     out = PA.paged_attention_scatter(q, k_new, v_new, k_pages, v_pages, table, pos,
                                      page_idx, off, window=window)

@@ -19,10 +19,19 @@ scatter followed by attention.  The three kernels in
 plain fused step is the plain scatter followed by the plain attention, so
 both hold that by construction.
 
+The walk is split over each slot's live pages (flash-decoding): S blocks
+per (slot, kv head), each over a run of C pages, then, when S > 1, a
+second launch that merges the S partials in a fixed order.
+:func:`split_plan` chooses S and C from the shapes and the card's SM
+count alone, the same for the fused and the unfused call, so the two stay
+bit-equal and two launches on the same inputs give the same bits.
+
 Each wrapper launches its kernel for CUDA tensors (built for ``sm_90a`` on
 first use) or raises, and takes its plain version only for tensors that lie
 on the CPU; each counts its launches (:data:`launches` for the fused step,
-:data:`attention_launches`, :data:`scatter_launches`).  The plain versions
+:data:`attention_launches`, :data:`scatter_launches`), one per call: with
+S > 1 an attention call is two CUDA launches on one stream, the walk and
+the combine, and counts once.  The plain versions
 are copies of the reference's XLA branch (``repro/serve/kvcache.py``:
 scatter, gather the whole table row, masked softmax); the CPU tests run
 them, and ``chip_smoke.py`` holds the kernels against them on the card.
@@ -46,7 +55,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.models.layers import NEG_INF, _kv_dequantize
 
-MAX_SHARED_BYTES = 48 * 1024
+MAX_SHARED_BYTES = 232448     # a block's shared memory on an H100 (opted into above 48 KB)
 
 _PAGE_KINDS = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _Q_KINDS = {torch.float32: 0, torch.bfloat16: 1}
@@ -135,6 +144,57 @@ def paged_attention_scatter_plain(
 
 
 # --------------------------------------------------------------------------
+# the split plan
+# --------------------------------------------------------------------------
+
+def max_live_pages(m: int, page: int, window: int) -> int:
+    """The most pages a slot's walk covers with a table of ``m`` pages: the
+    kernel walks from page ``max(0, pos - window + 1) // page`` (0 without a
+    window) to ``min(m - 1, pos // page)``, at most ``ceil((window - 1) /
+    page) + 1`` pages under a window, whatever ``pos`` is."""
+    if not window:
+        return m
+    return min(m, -(-(window - 1) // page) + 1)
+
+
+def split_plan(b: int, hkv: int, m: int, page: int, window: int,
+               n_sm: int) -> Tuple[int, int]:
+    """(S, C): S blocks per (slot, kv head), block s walking live pages
+    ``[j_lo + s*C, j_lo + (s+1)*C)``, so that S * C covers the longest live
+    range.  S aims at two blocks per SM over the B * Hkv pairs, and C is the
+    fewest pages per block that reaches it.  A function of the shapes alone:
+    positions, data and timing never move it.
+
+    The longest live range is taken from the table width ``m``, not from the
+    positions.  The engine's decode step clamps the table to the pages of
+    its longest live request, so there ``m`` tracks the live context; a
+    caller that passes a table much wider than its live pages gets longer
+    runs, and fewer blocks that find work, than the card could use."""
+    blocks_per_sm = 2
+    live = max_live_pages(m, page, window)
+    want = max(1, -(-blocks_per_sm * n_sm // (b * hkv)))
+    run = max(1, -(-live // want))
+    return -(-live // run), run
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """The card's SM count, read once per device."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _launch_plan(q, k_pages, table, window):
+    """The split plan of one launch and its fp32 workspace: (S, C, work),
+    work None when S is 1 (the blocks write the output themselves)."""
+    b, hkv, g, d = q.shape
+    splits, run = split_plan(b, hkv, table.shape[1], k_pages.shape[1], int(window),
+                             sm_count(q.device))
+    work = (torch.empty(b * hkv * splits * g * (d + 2), dtype=torch.float32, device=q.device)
+            if splits > 1 else None)
+    return splits, run, work
+
+
+# --------------------------------------------------------------------------
 # build
 # --------------------------------------------------------------------------
 
@@ -144,13 +204,13 @@ def build() -> ctypes.CDLL:
     :mod:`repro_torch.kernels._build`) and declare its C interface."""
     lib = _build.load("paged_attention")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.repro_paged_attention_scatter.argtypes = [i, i] + [p] * 14 + [i] * 8 + [f, p]
-    lib.repro_paged_attention.argtypes = [i, i] + [p] * 8 + [i] * 8 + [f, p]
+    lib.repro_paged_attention_scatter.argtypes = [i, i] + [p] * 15 + [i] * 10 + [f, p]
+    lib.repro_paged_attention.argtypes = [i, i] + [p] * 9 + [i] * 10 + [f, p]
     lib.repro_paged_scatter.argtypes = [i] + [p] * 10 + [i] * 5 + [p]
     for fn in (lib.repro_paged_attention_scatter, lib.repro_paged_attention,
                lib.repro_paged_scatter):
         fn.restype = i
-    lib.repro_paged_attention_shared_bytes.argtypes = [i, i, i]
+    lib.repro_paged_attention_shared_bytes.argtypes = [i] * 5
     lib.repro_paged_attention_shared_bytes.restype = ctypes.c_size_t
     return lib
 
@@ -257,12 +317,17 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def _lib_for_attention(fn: str, q, k_pages) -> ctypes.CDLL:
-    lib = build()
-    smem = lib.repro_paged_attention_shared_bytes(q.shape[2], q.shape[3], k_pages.shape[1])
+def shared_bytes(page_dtype: torch.dtype, g: int, d: int, page: int, run: int) -> int:
+    """An attention block's dynamic shared memory, in bytes, for runs of
+    ``run`` pages (builds the library on first use)."""
+    return build().repro_paged_attention_shared_bytes(_PAGE_KINDS[page_dtype], g, d, page, run)
+
+
+def _lib_for_attention(fn: str, q, k_pages, run: int) -> ctypes.CDLL:
+    smem = shared_bytes(k_pages.dtype, q.shape[2], q.shape[3], k_pages.shape[1], run)
     if smem > MAX_SHARED_BYTES:
         _fail(fn, f"{smem} bytes of shared memory > {MAX_SHARED_BYTES}")
-    return lib
+    return build()
 
 
 def _on_cuda(fn: str, t: torch.Tensor) -> None:
@@ -297,7 +362,8 @@ def paged_attention_scatter(
                    k_scale_new, v_scale_new, page_idx, off)
     if k_new.shape[0] != q.shape[0]:
         _fail(fn, f"{k_new.shape[0]} new rows for {q.shape[0]} slots")
-    lib = _lib_for_attention(fn, q, k_pages)
+    splits, run, work = _launch_plan(q, k_pages, table, window)
+    lib = _lib_for_attention(fn, q, k_pages, run)
     b, hkv, g, d = q.shape
     n_pages, page = k_pages.shape[:2]
     out = torch.empty_like(q)
@@ -305,8 +371,8 @@ def paged_attention_scatter(
         _PAGE_KINDS[k_pages.dtype], _Q_KINDS[q.dtype], _ptr(q), _ptr(k_new), _ptr(v_new),
         _ptr(k_scale_new), _ptr(v_scale_new), _ptr(k_pages), _ptr(v_pages),
         _ptr(k_scale_pages), _ptr(v_scale_pages), _ptr(table), _ptr(pos), _ptr(page_idx),
-        _ptr(off), _ptr(out), b, n_pages, hkv, g, d, page, table.shape[1], int(window),
-        1.0 / math.sqrt(d), _stream(q))
+        _ptr(off), _ptr(out), _ptr(work), b, n_pages, hkv, g, d, page, table.shape[1],
+        int(window), splits, run, 1.0 / math.sqrt(d), _stream(q))
     _build.check(lib, rc, fn)
     global launches
     launches += 1
@@ -326,15 +392,16 @@ def paged_attention(q, k_pages, v_pages, table, pos, *, k_scale_pages=None,
                                      v_scale_pages=v_scale_pages, window=window)
     _on_cuda(fn, q)
     _check_attention(fn, q, k_pages, v_pages, table, pos, k_scale_pages, v_scale_pages)
-    lib = _lib_for_attention(fn, q, k_pages)
+    splits, run, work = _launch_plan(q, k_pages, table, window)
+    lib = _lib_for_attention(fn, q, k_pages, run)
     b, hkv, g, d = q.shape
     n_pages, page = k_pages.shape[:2]
     out = torch.empty_like(q)
     rc = lib.repro_paged_attention(
         _PAGE_KINDS[k_pages.dtype], _Q_KINDS[q.dtype], _ptr(q), _ptr(k_pages), _ptr(v_pages),
         _ptr(k_scale_pages), _ptr(v_scale_pages), _ptr(table), _ptr(pos), _ptr(out),
-        b, n_pages, hkv, g, d, page, table.shape[1], int(window), 1.0 / math.sqrt(d),
-        _stream(q))
+        _ptr(work), b, n_pages, hkv, g, d, page, table.shape[1], int(window), splits, run,
+        1.0 / math.sqrt(d), _stream(q))
     _build.check(lib, rc, fn)
     global attention_launches
     attention_launches += 1

@@ -128,10 +128,14 @@ def test_engine_launches_the_kernel_every_layer_every_step(card):
 
 
 def test_paged_kernel_at_recurrentgemma_shapes(card):
-    """B 8, Hkv 1, G 10, D 256, page 16 (320 threads, 43,712 bytes of shared
-    memory), bf16 pages and an fp32 query, with a window that cuts pages."""
+    """B 8, Hkv 1, G 10, D 256, page 16 (160 threads), bf16 pages and an fp32
+    query, with a window that cuts pages.  On the decode path (a 129-page
+    table under the 2048 window) a block takes a run of 4 pages as one tile:
+    70,208 bytes of shared memory (page ids, the probabilities, one stage of
+    bf16 K and V rows)."""
     ins = case(card, torch.bfloat16, b=8, hkv=1, g=10, d=256, page=16, m=12, seed=3)
-    assert PA.build().repro_paged_attention_shared_bytes(10, 256, 16) == 43712
+    assert PA.split_plan(8, 1, 129, 16, 2048, 132) == (33, 4)
+    assert PA.build().repro_paged_attention_shared_bytes(1, 10, 256, 16, 4) == 70208
     plain = {k: v.clone() for k, v in ins.items()}
     got = PA.paged_attention_scatter(**ins, window=40)
     want = PA.paged_attention_scatter_plain(**plain, window=40)
@@ -390,3 +394,116 @@ def test_mamba2_engine_launches_ssd_and_rmsnorm_by_default(card):
     want = ContinuousEngine(cfg, params, n_slots=2, max_len=48, page=8, device="cpu").generate(
         {"tokens": tokens}, n_steps=6)
     assert torch.equal(got, want)
+
+
+# --------------------------------------------------------------------------
+# the split walk (S blocks per (slot, kv head), then the combine)
+# --------------------------------------------------------------------------
+
+SPLIT_SHAPES = {
+    "llama3.2-1b": dict(b=8, hkv=8, g=4, d=64, page=16, m=11),
+    "recurrentgemma-2b": dict(b=8, hkv=1, g=10, d=256, page=16, m=144),
+    # the slots fill the card: S = 1, a run of 40 pages in five tiles of 8
+    "one split": dict(b=64, hkv=8, g=4, d=64, page=16, m=40),
+    # odd G (a warp's second head idle), rows not whole 16-byte chunks
+    "odd shapes": dict(b=6, hkv=2, g=3, d=20, page=8, m=6),
+}
+
+
+def split_case(card, page_dtype, shape, window, seed=21):
+    """``case`` with positions that probe the split walk: a slot with fewer
+    live pages than splits, a position on a page's last row and one on its
+    first, a window edge that cuts a page, and an idle last slot on scratch
+    page 0."""
+    ins = case(card, page_dtype, seed=seed, **shape)
+    page, m = shape["page"], shape["m"]
+    pos = ins["pos"].cpu().numpy()
+    pos[:4] = [2, page * (m // 2) - 1, page * (m // 2), m * page - 1]
+    if window:
+        pos[4] = min(m * page - 1, window + page + page // 3)
+    table = ins["table"].cpu().numpy()
+    table[-1], pos[-1] = 0, 0
+    b = shape["b"]
+    ins.update(table=torch.from_numpy(table).to(card), pos=torch.from_numpy(pos).to(card),
+               page_idx=torch.from_numpy(table[np.arange(b), pos // page]).to(card),
+               off=torch.from_numpy(pos % page).to(card))
+    return ins
+
+
+def splits_of(card, shape, window):
+    return PA.split_plan(shape["b"], shape["hkv"], shape["m"], shape["page"], window,
+                         PA.sm_count(card))[0]
+
+
+SPLIT_CASES = [("llama3.2-1b", 0), ("llama3.2-1b", 40), ("recurrentgemma-2b", 2048),
+               ("one split", 0), ("odd shapes", 12)]
+SPLIT_TOL = {torch.float32: dict(atol=2e-5, rtol=2e-4), torch.int8: dict(atol=2e-5, rtol=2e-4),
+             torch.bfloat16: dict(atol=3e-2, rtol=3e-2)}
+SLOT_REL_TOL = 2e-2      # bf16 pages: a slot's max error over that slot's output RMS
+
+
+def worst_slot_ratio(got, want):
+    """The worst slot's max error over that slot's output RMS: 3e-2 is of
+    the order of the outputs at recurrentgemma's shapes, so bf16 pages are
+    held to each slot's own scale too."""
+    err = (got.float() - want.float()).abs().flatten(1).amax(1)
+    rms = want.float().pow(2).flatten(1).mean(1).sqrt()
+    return float((err / rms).max())
+
+
+@pytest.mark.parametrize("page_dtype", [torch.float32, torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("name,window", SPLIT_CASES)
+def test_split_walk_matches_plain_on_card(card, name, window, page_dtype):
+    """The fused and the unfused kernel against their plain versions (fp32
+    query: fp32 and int8 pages at 2e-5 / 2e-4, bf16 pages at 3e-2 and each
+    slot within 2e-2 of its RMS) with S > 1 at both paths' shapes and at odd
+    ones, and S = 1 where the slots fill the card."""
+    shape = SPLIT_SHAPES[name]
+    assert (splits_of(card, shape, window) > 1) == (name != "one split")
+    ins = split_case(card, page_dtype, shape, window)
+    if window:
+        assert int(ins["pos"].max()) >= window + shape["page"]
+    plain = {k: v.clone() for k, v in ins.items()}
+    got = PA.paged_attention_scatter(**ins, window=window)
+    want = PA.paged_attention_scatter_plain(**plain, window=window)
+    pool = {k: ins[k] for k in ("k_pages", "v_pages", "k_scale_pages", "v_scale_pages")
+            if k in ins}
+    got_u = PA.paged_attention(ins["q"], **pool, table=ins["table"], pos=ins["pos"],
+                               window=window)
+    want_u = PA.paged_attention_plain(ins["q"], **pool, table=ins["table"], pos=ins["pos"],
+                                      window=window)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, **SPLIT_TOL[page_dtype])
+    torch.testing.assert_close(got_u, want_u, **SPLIT_TOL[page_dtype])
+    if page_dtype == torch.bfloat16:
+        assert worst_slot_ratio(got, want) <= SLOT_REL_TOL
+        assert worst_slot_ratio(got_u, want_u) <= SLOT_REL_TOL
+    for k in pool:
+        assert torch.equal(ins[k][1:], plain[k][1:]), k
+
+
+@pytest.mark.parametrize("page_dtype", [torch.float32, torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("name,window", SPLIT_CASES)
+def test_split_fused_is_scatter_then_attention_and_repeats_bit_for_bit(card, name, window,
+                                                                       page_dtype):
+    """With S > 1 the fused kernel's output and every page equal the scatter
+    kernel's followed by the attention kernel's, bit for bit; and a second
+    launch of each on the same inputs gives the same bits (the combine's
+    order is fixed)."""
+    ins = split_case(card, page_dtype, SPLIT_SHAPES[name], window, seed=22)
+    runs = []
+    for _ in range(2):
+        fused = {k: v.clone() for k, v in ins.items()}
+        split = {k: v.clone() for k, v in ins.items()}
+        out = PA.paged_attention_scatter(**fused, window=window)
+        PA.paged_scatter(*scatter_args(split), split["page_idx"], split["off"])
+        pool = {k: split[k] for k in ("k_pages", "v_pages", "k_scale_pages", "v_scale_pages")
+                if k in split}
+        want = PA.paged_attention(split["q"], **pool, table=split["table"], pos=split["pos"],
+                                  window=window)
+        torch.cuda.synchronize()
+        assert torch.equal(out, want)
+        for k in pool:
+            assert torch.equal(fused[k], split[k]), k
+        runs.append(out)
+    assert torch.equal(runs[0], runs[1])
