@@ -18,18 +18,24 @@ Builds the hand-written kernels from the five sources in this checkout (one
      launch (the plan, S, C and shared bytes, is logged beside each
      timing), and a second call on the same inputs gives the same bits;
    - RMSNorm: 8 x 2560 and 2032 x 2560 in bf16 and fp32, and 8 x 2048;
-   - RG-LRU scan: B 1, S 2032, W 2560, with h0;
-   - flash prefill attention: recurrentgemma-2b's (Hq 10, Hkv 1, D 256,
-     window 2048) at S 2032 and at S 2304 > window, llama3.2-1b's (Hq 32,
-     Hkv 8, D 64) at S 128.
-   - SSD chunked scan: mamba2-130m's prefill (B 1, H 24, P 64, N 128,
-     chunk 128, fp32) at S 2000 (the last chunk ragged) and 2048, from a
-     zero and from a random state; y and the final state to the
-     reference's SSD bar, atol 2e-4 / rtol 2e-3.
+   - RG-LRU scan: B 1, W 2560, with h0, at S 2032 and S 128;
+   - flash prefill attention (tensor cores, 3xTF32 for fp32):
+     recurrentgemma-2b's (Hq 10, Hkv 1, D 256, window 2048) at S 2032, at
+     S 2304 > window and at S 128, llama3.2-1b's (Hq 32, Hkv 8, D 64) at S
+     128; the non-causal mode at both head shapes and at a ragged S with a
+     window;
+   - SSD chunked scan (four launches a call: C.B^T, chunk states, carry,
+     output; no carry when S fits one chunk): mamba2-130m's prefill (B 1,
+     H 24, P 64, N 128, chunk 128, fp32) at S 2000 (the last chunk
+     ragged) and 2048, from a zero and from a random state, and at S 128;
+     y and the final state to the reference's SSD bar, atol 2e-4 / rtol
+     2e-3.
    Each kernel is timed beside its plain version, its bound and, where one
    PyTorch call computes the same function, that call (``F.rms_norm``,
    ``scaled_dot_product_attention``; yardsticks only, the port never calls
-   them).
+   them); flash and the SSD scan also beside their 3xTF32 tensor-core
+   bound, and a second launch of each on the same inputs must give the
+   same bits.
 1b. **the ``kernels.ops`` surface**: the unfused paged attention and the
    paged scatter driven through ``repro_torch.kernels.ops`` at llama's
    and recurrentgemma's decode shapes (bf16, fp32 and int8 pages), the
@@ -50,7 +56,9 @@ Builds the hand-written kernels from the five sources in this checkout (one
    named (the default on the card is the kernels), over 12 Poisson
    requests (prompt 128, 16-32 new tokens) plus one of a 2032-token prompt
    and 32 new tokens, whose decode passes position 2048 so that the
-   window drops pages.
+   window drops pages.  Then one long join (the 2032-token prompt) timed
+   through the kernels and through the plain path (``launch/long_join.py``:
+   host clock and device time; logged).
 6. **one recurrentgemma decode step, kernels against plain**, from one pool
    state whose long request is past the window: logits to 3e-2, greedy
    tokens equal.
@@ -59,7 +67,8 @@ Builds the hand-written kernels from the five sources in this checkout (one
 8. **mamba2-130m serving**: full width (24 SSM layers, d 768, state 128,
    random weights from a seed, fp32 params and bf16 compute), no kernel
    named, 12 Poisson requests (prompt 128, 16-32 new tokens) plus one of a
-   2000-token prompt (16 chunks, the last ragged) and 32 new tokens.
+   2000-token prompt (16 chunks, the last ragged) and 32 new tokens; then
+   its long join timed as in phase 5.
 9. **one mamba2 join and decode step, kernels against plain**: the long
    slot's state after the join at the SSD bar in every layer, then one
    decode step from one pool state: logits to 3e-2, greedy tokens equal.
@@ -98,6 +107,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 FP32_FLOPS_PER_S = 67e12      # H100 SXM fp32 outside the tensor cores
+TF32_FLOPS_PER_S = 494.7e12   # H100 SXM dense TF32 tensor cores
 KERNEL_SOURCES = ("paged_attention", "rmsnorm", "rglru_scan", "flash_attention", "ssd")
 SSD_TOL = dict(atol=2e-4, rtol=2e-3)   # the reference's fp32 SSD bar (test_kernels.py)
 # each kernel: (its wrapper's module, the count's name, its source, the TPU kernel it replaces)
@@ -406,54 +416,98 @@ def phase_rmsnorm(torch, RN):
 
 
 def phase_scan(torch, RS):
+    """The RG-LRU scan at recurrentgemma's long prefill (the record) and at
+    a 128-token join, each timed beside its plain version and its bound."""
     rng = np.random.default_rng(2)
-    b, s, w = 1, 2032, 2560
-    a = torch.from_numpy(rng.uniform(0.3, 0.999, (b, s, w)).astype(np.float32)).to("cuda")
-    bb = randn(torch, rng, b, s, w, std=0.3)
-    h0 = randn(torch, rng, b, w)
-    err = compare(torch, RS.rglru_scan(a, bb, h0), RS.linear_scan(a, bb, h0)[0], F32_TOL,
-                  f"rglru_scan B {b} S {s} W {w} with h0")
-    b_ms, b_by = bound(3 * a.numel() * 4 + h0.numel() * 4, 2 * a.numel())
-    rec = dict(max_abs_err=err, ms=time_ms(torch, lambda: RS.rglru_scan(a, bb, h0)),
-               plain_ms=time_ms(torch, lambda: RS.linear_scan(a, bb, h0)),
-               bound_ms=b_ms, bound_by=b_by, library_ms=None)
-    log(f"rglru_scan timing, B {b} S {s} W {w}: " + json.dumps(rec))
-    return rec
+    record = None
+    for b, s, w in ((1, 2032, 2560), (1, 128, 2560)):
+        a = torch.from_numpy(rng.uniform(0.3, 0.999, (b, s, w)).astype(np.float32)).to("cuda")
+        bb = randn(torch, rng, b, s, w, std=0.3)
+        h0 = randn(torch, rng, b, w)
+        err = compare(torch, RS.rglru_scan(a, bb, h0), RS.linear_scan(a, bb, h0)[0], F32_TOL,
+                      f"rglru_scan B {b} S {s} W {w} with h0")
+        b_ms, b_by = bound(3 * a.numel() * 4 + h0.numel() * 4, 2 * a.numel())
+        rec = dict(max_abs_err=err, ms=time_ms(torch, lambda: RS.rglru_scan(a, bb, h0)),
+                   plain_ms=time_ms(torch, lambda: RS.linear_scan(a, bb, h0)),
+                   bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        log(f"rglru_scan timing, B {b} S {s} W {w}: " + json.dumps(rec))
+        record = record or rec
+    return record
+
+
+def flash_pairs(s, window, causal):
+    """The unmasked (query, key) pairs of one head."""
+    if causal:
+        return sum(min(i + 1, window) if window else i + 1 for i in range(s))
+    return sum(min(s, s - i + window - 1) if window else s for i in range(s))
+
+
+def flash_mask(torch, s, window, causal):
+    idx = torch.arange(s, device="cuda")
+    mask = torch.ones((s, s), dtype=torch.bool, device="cuda")
+    if causal:
+        mask &= idx[None, :] <= idx[:, None]
+    if window:
+        mask &= idx[None, :] > idx[:, None] - window
+    return mask
 
 
 def phase_flash(torch, FA):
+    """Flash against its plain version at the serving paths' shapes (causal,
+    fp32 as the paths promote), then the non-causal mode; each serving
+    shape timed beside SDPA with the same mask and beside its bound (fp32
+    CUDA cores, the table's column) and its 3xTF32 tensor-core bound
+    (logged).  Returns the record of recurrentgemma's 2032-token prefill."""
     import torch.nn.functional as F
 
     rng = np.random.default_rng(3)
     record = None
-    for name, hq, hkv, s, d, window in (("recurrentgemma-2b", 10, 1, 2032, 256, 2048),
-                                        ("recurrentgemma-2b", 10, 1, 2304, 256, 2048),
-                                        ("llama3.2-1b", 32, 8, 128, 64, 0)):
+    cases = (("recurrentgemma-2b", 10, 1, 2032, 256, 2048, True, True),
+             ("recurrentgemma-2b", 10, 1, 2304, 256, 2048, True, False),
+             ("recurrentgemma-2b", 10, 1, 128, 256, 2048, True, True),
+             ("llama3.2-1b", 32, 8, 128, 64, 0, True, True),
+             ("non-causal", 10, 1, 2032, 256, 0, False, True),
+             ("non-causal", 32, 8, 128, 64, 0, False, True),
+             ("non-causal, ragged", 4, 2, 45, 32, 16, False, False))
+    for name, hq, hkv, s, d, window, causal, timed in cases:
         q = randn(torch, rng, 1, hq, s, d)                      # fp32, as the path promotes
         k = randn(torch, rng, 1, hkv, s, d)
         v = randn(torch, rng, 1, hkv, s, d)
         pos = torch.arange(s, device="cuda", dtype=torch.int32)
-        got = FA.flash_attention(q, k, v, positions=pos, window=window)
-        err = compare(torch, got, FA.flash_attention_plain(q, k, v, window=window), F32_TOL,
-                      f"flash {name} Hq {hq} Hkv {hkv} S {s} D {d} window {window}")
+
+        def kern():
+            return FA.flash_attention(q, k, v, window=window, causal=causal)
+
+        got = (FA.flash_attention(q, k, v, positions=pos, window=window) if causal else kern())
+        what = f"flash {name} Hq {hq} Hkv {hkv} S {s} D {d} window {window} causal {causal}"
+        err = compare(torch, got, FA.flash_attention_plain(q, k, v, window=window, causal=causal),
+                      F32_TOL, what)
+        require(torch.equal(got, kern()), f"{what}: two launches on the same inputs differ")
+        if not timed:
+            continue
+        flops = 4 * d * hq * flash_pairs(s, window, causal)
+        nbytes = 4 * (2 * q.numel() + 2 * k.numel())
+        b_ms, b_by = bound(nbytes, flops)
+        reps = 20 if s > 1000 else 50
+        mask = flash_mask(torch, s, window, causal)
+        rec = dict(
+            max_abs_err=err, ms=time_ms(torch, kern, reps=reps),
+            plain_ms=time_ms(torch, lambda: FA.flash_attention_plain(
+                q, k, v, window=window, causal=causal), reps=min(reps, 10)),
+            bound_ms=b_ms, bound_by=b_by,
+            library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask, enable_gqa=True), reps=reps))
+        tc_ms = bound(nbytes, 3 * flops, TF32_FLOPS_PER_S)[0]
+        log(f"flash timing, {what}: " + json.dumps(rec)
+            + f"; 3xTF32 tensor-core bound {tc_ms:.5f} ms; {rec['ms'] / rec['library_ms']:.3f} x "
+            f"SDPA, {rec['ms'] / rec['plain_ms']:.3f} x plain, "
+            f"{100 * tc_ms / rec['ms']:.1f} % of the tensor-core bound")
         if record is None:                                       # recurrentgemma's prefill
-            pairs = sum(min(i + 1, window) if window else i + 1 for i in range(s))
-            b_ms, b_by = bound(4 * (2 * q.numel() + 2 * k.numel()), 4 * d * hq * pairs)
-            idx = torch.arange(s, device="cuda")
-            mask = (idx[None, :] <= idx[:, None]) & (idx[None, :] > idx[:, None] - window)
-            record = dict(
-                max_abs_err=err,
-                ms=time_ms(torch, lambda: FA.flash_attention(q, k, v, window=window), reps=20),
-                plain_ms=time_ms(torch, lambda: FA.flash_attention_plain(q, k, v, window=window),
-                                 reps=10),
-                bound_ms=b_ms, bound_by=b_by,
-                library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
-                    q, k, v, attn_mask=mask, enable_gqa=True), reps=20))
-            log(f"flash timing, {name} S {s}: " + json.dumps(record))
+            record = rec
     return record
 
 
-def ssd_bound(b, s, h, p, n, chunk, with_init):
+def ssd_bound(b, s, h, p, n, chunk, with_init, products=1, flops_per_s=FP32_FLOPS_PER_S):
     """x read and y written once, b, c, dt, a_log and the states once; the
     operations the function needs at the least: C.B^T once per batch and
     chunk (shared by the heads) over its causal half, then per head the
@@ -464,7 +518,7 @@ def ssd_bound(b, s, h, p, n, chunk, with_init):
     flops = b * (2 * n * pairs + h * (2 * p * pairs + 4 * s * n * p))
     nbytes = 4 * (b * (2 * s * h * p + 2 * s * n + s * h + (2 if with_init else 1) * h * p * n)
                   + h)
-    return bound(nbytes, flops)
+    return bound(nbytes, products * flops, flops_per_s)
 
 
 def phase_ssd(torch, SSD):
@@ -488,30 +542,44 @@ def phase_ssd(torch, SSD):
             err = max(compare(torch, y, want_y, SSD_TOL, what + ": y"),
                       compare(torch, state, want_state, SSD_TOL, what + ": final state"))
         if s == 2048:      # the serving prefill passes its cache's (zero) state: time with one
-            b_ms, b_by = ssd_bound(b, s, h, p, n, chunk, True)
-            record = dict(
-                max_abs_err=err,
-                ms=time_ms(torch, lambda: SSD.ssd_scan(x, dt, a_log, bb, cc, chunk=chunk,
-                                                       init_state=h0), reps=20),
-                plain_ms=time_ms(torch, lambda: SSD.ssd_chunked(x, dt, a_log, bb, cc, chunk,
-                                                                h0), reps=10),
-                bound_ms=b_ms, bound_by=b_by, library_ms=None)
-            log(f"ssd timing, B {b} S {s} H {h} P {p} N {n} chunk {chunk}: "
-                + json.dumps(record))
+            record = ssd_timing(torch, SSD, err, x, dt, a_log, bb, cc, chunk, h0, reps=20)
     # the common join, a 128-token prompt: one chunk a head
     s = 128
     x = randn(torch, rng, b, s, h, p)
     bb, cc = randn(torch, rng, b, s, n), randn(torch, rng, b, s, n)
     dt = torch.from_numpy(rng.uniform(0.001, 0.2, (b, s, h)).astype(np.float32)).to("cuda")
     h0 = randn(torch, rng, b, h, p, n, std=0.1)
-    compare(torch, SSD.ssd_scan(x, dt, a_log, bb, cc, chunk=chunk, init_state=h0)[0],
-            SSD.ssd_chunked(x, dt, a_log, bb, cc, chunk, h0)[0], SSD_TOL, f"ssd S {s}: y")
-    log(f"ssd timing, S {s}: " + json.dumps(dict(
-        ms=time_ms(torch, lambda: SSD.ssd_scan(x, dt, a_log, bb, cc, chunk=chunk,
-                                               init_state=h0)),
-        plain_ms=time_ms(torch, lambda: SSD.ssd_chunked(x, dt, a_log, bb, cc, chunk, h0)),
-        bound_ms=ssd_bound(b, s, h, p, n, chunk, True)[0])))
+    y, state = SSD.ssd_scan(x, dt, a_log, bb, cc, chunk=chunk, init_state=h0)
+    want_y, want_state = SSD.ssd_chunked(x, dt, a_log, bb, cc, chunk, h0)
+    err = max(compare(torch, y, want_y, SSD_TOL, f"ssd S {s}: y"),
+              compare(torch, state, want_state, SSD_TOL, f"ssd S {s}: final state"))
+    ssd_timing(torch, SSD, err, x, dt, a_log, bb, cc, chunk, h0, reps=50)
     return record
+
+
+def ssd_timing(torch, SSD, err, x, dt, a_log, bb, cc, chunk, h0, reps):
+    """Time the SSD scan beside ``ssd_chunked`` and its bounds (fp32 CUDA
+    cores, the table's column; 3xTF32 tensor cores, logged); check that a
+    second launch gives the same bits."""
+    b, s, h, p = x.shape
+    n = bb.shape[-1]
+
+    def kern():
+        return SSD.ssd_scan(x, dt, a_log, bb, cc, chunk=chunk, init_state=h0)
+
+    first, again = kern(), kern()
+    require(all(torch.equal(u, w) for u, w in zip(first, again)),
+            f"ssd S {s}: two launches on the same inputs differ")
+    b_ms, b_by = ssd_bound(b, s, h, p, n, chunk, True)
+    tc_ms = ssd_bound(b, s, h, p, n, chunk, True, 3, TF32_FLOPS_PER_S)[0]
+    rec = dict(max_abs_err=err, ms=time_ms(torch, kern, reps=reps),
+               plain_ms=time_ms(torch, lambda: SSD.ssd_chunked(x, dt, a_log, bb, cc, chunk, h0),
+                                reps=min(reps, 20)),
+               bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    log(f"ssd timing, B {b} S {s} H {h} P {p} N {n} chunk {chunk}: " + json.dumps(rec)
+        + f"; 3xTF32 tensor-core bound {tc_ms:.5f} ms; {rec['ms'] / rec['plain_ms']:.3f} x "
+        f"ssd_chunked; {100 * tc_ms / rec['ms']:.1f} % of the tensor-core bound")
+    return rec
 
 
 def phase_ops(torch, mods):
@@ -765,18 +833,6 @@ def phase_step_check(torch, eng, prompts, n_steps: int = 0, want_greedy: bool = 
     return err
 
 
-def covered_ms(ranges) -> float:
-    """The time covered by (start, end) intervals in microseconds, in ms:
-    overlapping kernels (the paged walk and its merge, launched as a
-    programmatic dependent launch) count once."""
-    total, reach = 0.0, float("-inf")
-    for start, end in sorted(ranges):
-        if end > reach:
-            total += end - max(start, reach)
-            reach = end
-    return total / 1e3
-
-
 def profile_step(torch, cfg, step, args, blocks, n: int = 5):
     """Where one full-width decode step's time goes: the host clock around
     synchronised steps, and the device time of every kernel from
@@ -788,6 +844,7 @@ def profile_step(torch, cfg, step, args, blocks, n: int = 5):
 
     from repro_torch.kernels import paged_attention as PA
     from repro_torch.models.layers import _window
+    from repro_torch.launch.long_join import covered_ms
 
     step(*args, blocks)
     torch.cuda.synchronize()
@@ -835,6 +892,17 @@ def profile_step(torch, cfg, step, args, blocks, n: int = 5):
         f"it); rmsnorm kernel {norm[0]:.4f} ms, {sum(k[1] for k in kernels)} launches")
     for ms, count, key in kernels[:10]:
         log(f"  {ms:.4f} ms in {count} launches: {key[:110]}")
+
+
+def phase_long_join(torch, eng, prompt):
+    """One long join on ``eng``'s weights through the kernels and through the
+    plain path, in turns: the host clock around a synchronised join and the
+    device time of one (``repro_torch.launch.long_join``).  Logged only."""
+    from repro_torch.launch.long_join import time_join
+
+    for kernel in ("cuda", "plain"):
+        rec = time_join(torch, eng.cfg, eng.params, prompt, kernel)
+        log(f"long join {eng.cfg.name}, {len(prompt)} tokens, {kernel}: " + json.dumps(rec))
 
 
 def phase_small_model(torch, arch, n_layers, prompt_len, n_steps, max_len):
@@ -919,6 +987,7 @@ def main() -> int:
                                            "flash_attention", "rglru_scan")), rg_counts)
     # the long request decodes to position 2063: its first page is past the window
     long_prompt = rng.integers(0, eng.cfg.vocab, 2032).astype(np.int32)
+    phase_long_join(torch, eng, long_prompt)
     phase_step_check(torch, eng, [long_prompt] + [
         rng.integers(0, eng.cfg.vocab, 128).astype(np.int32) for _ in range(7)],
         n_steps=31, want_greedy=True)
@@ -934,6 +1003,7 @@ def main() -> int:
     require(mamba_counts["ssd_scan"] > 0 and mamba_counts["rmsnorm"] > 0, mamba_counts)
     # one 2000-token prompt (16 chunks, the last ragged) beside 7 of 128
     long_prompt = rng.integers(0, eng.cfg.vocab, 2000).astype(np.int32)
+    phase_long_join(torch, eng, long_prompt)
     phase_step_check(torch, eng, [long_prompt] + [
         rng.integers(0, eng.cfg.vocab, 128).astype(np.int32) for _ in range(7)],
         want_greedy=True, join_check=True)

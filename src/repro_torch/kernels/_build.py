@@ -1,10 +1,11 @@
 """Build the port's CUDA sources into plain C libraries and load them.
 
 Each kernel lives in one file, ``csrc/<name>.cu``, that includes no PyTorch
-header and exports a plain C interface.  :func:`load` compiles it with
-``nvcc`` for ``sm_90a`` into ``build/torch_ext/`` at the repository root
-(once per process, and only when no library built from the same source and
-flags is there yet) and opens it with ``ctypes``.  :func:`build_all` starts
+header (only the shared ``csrc/*.cuh``) and exports a plain C interface.
+:func:`load` compiles it with ``nvcc`` for ``sm_90a`` into
+``build/torch_ext/`` at the repository root (once per process, and only when
+no library built from the same sources and flags is there yet) and opens it
+with ``ctypes``.  :func:`build_all` starts
 one ``nvcc`` per source at once and waits for all of them, so a caller that
 needs every kernel pays for the slowest build, not the sum.  Nothing is
 compiled when a module is imported.
@@ -37,9 +38,11 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     """Where ``csrc/<name>.cu`` is built to: the file name carries a digest
-    of the source and the flags, so an edited source is rebuilt."""
+    of the source, the shared headers and the flags, so an edited source or
+    header is rebuilt."""
+    sources = [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]
     digest = hashlib.sha256(
-        (CSRC / f"{name}.cu").read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+        b"".join(p.read_bytes() for p in sources) + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 

@@ -12,8 +12,10 @@ What differs from the reference, and why:
   taken: RMSNorm's ``row_block``, flash attention's ``block_q``/``block_k``,
   the RG-LRU scan's ``chunk``/``width_block``.  ``ssd_scan`` keeps
   ``chunk``, which defines the chunked computation.
-* ``flash_attention`` is causal only: the port's kernel has no non-causal
-  mode (no caller uses one).
+* ``flash_attention(causal=False)`` masks keys by index up to S - 1, as
+  ``ref.attention_ref`` does; the reference's Pallas kernel, when S is not
+  a multiple of its key block, lets its zero padding keys take softmax
+  weight in that mode, and the port does not copy that.
 * ``ssd_scan`` returns ``y`` only, as the reference does; the model path
   calls :func:`repro_torch.kernels.ssd.ssd_scan` for ``(y, state)``.
 * The paged functions update the pools **in place** and return them, where
@@ -39,10 +41,8 @@ def rmsnorm(x, scale, eps: float = 1e-6) -> torch.Tensor:
 
 
 def flash_attention(q, k, v, causal: bool = True, window: int = 0) -> torch.Tensor:
-    """q: (B,Hq,S,D); k/v: (B,Hkv,S,D); causal, with an optional window."""
-    if not causal:
-        raise NotImplementedError("flash_attention: the port's kernel is causal only")
-    return FA.flash_attention(q, k, v, window=window)
+    """q: (B,Hq,S,D); k/v: (B,Hkv,S,D); causal or full, with an optional window."""
+    return FA.flash_attention(q, k, v, window=window, causal=causal)
 
 
 def ssd_scan(x, dt, a_log, b, c, chunk: int = 128) -> torch.Tensor:

@@ -10,10 +10,13 @@ contract, and the TPU kernel already carries the state across chunks, so
 the port's kernel computes ``ssd_chunked``: ``(y, final_state)`` from an
 optional ``init_state``.  With no state given its ``y`` is ``ssd_pallas``'s.
 
-* :func:`ssd_scan` is the wrapper.  For CUDA tensors it launches the kernel
+* :func:`ssd_scan` is the wrapper.  For CUDA tensors it launches the kernels
   in ``csrc/ssd.cu`` (built for ``sm_90a`` on first use) or raises; it takes
-  the plain version only for tensors that lie on the CPU.  It counts its
-  launches in :data:`launches`.
+  the plain version only for tensors that lie on the CPU.  One call is four
+  CUDA launches (C.B^T per chunk, the chunk-local states, the carry across
+  chunks, the output; three when S fits one chunk, which needs no carry),
+  into workspaces it allocates with ``torch.empty``; it counts one launch
+  per call in :data:`launches` and never syncs the host.
 * :func:`ssd_chunked` is the plain PyTorch version, a copy of the
   reference's; the plain model path (``models/ssm.py``) runs it too.
 
@@ -34,8 +37,7 @@ from repro_torch.kernels import _build
 from repro_torch.models.layers import NEG_INF
 
 MAX_SHARED_BYTES = 232_448         # what an H100 block may opt in to
-MAX_CHUNK = 128                    # rows of a chunk the kernel holds at once
-MAX_STATE = 8192                   # N * P: 32 state entries a thread, 256 threads
+MAX_CHUNK = 128                    # rows of a chunk the kernels hold at once
 
 _KINDS = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -110,7 +112,7 @@ def build() -> ctypes.CDLL:
     """Build ``csrc/ssd.cu`` on first use and declare its C interface."""
     lib = _build.load("ssd")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.repro_ssd_scan.argtypes = [i, p, p, p, p, p, p, p, p, i, i, i, i, i, i, p]
+    lib.repro_ssd_scan.argtypes = [i, p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, p]
     lib.repro_ssd_scan.restype = i
     lib.repro_ssd_shared_bytes.argtypes = [i, i, i]
     lib.repro_ssd_shared_bytes.restype = ctypes.c_size_t
@@ -134,6 +136,8 @@ def _check_args(x, dt, a_log, b, c, chunk, init_state) -> None:
             _fail(f"{name} is on {t.device}, x on {x.device}")
         if not t.is_contiguous():
             _fail(f"{name} is not contiguous")
+        if name in ("x", "b", "c") and t.data_ptr() % 16:
+            _fail(f"{name} is not 16-byte aligned (the kernels copy rows with cp.async)")
     if x.dim() != 4:
         _fail(f"x must be (B,S,H,P), got {tuple(x.shape)}")
     bsz, s, h, p = x.shape
@@ -157,10 +161,11 @@ def _check_args(x, dt, a_log, b, c, chunk, init_state) -> None:
         _fail(f"chunk {chunk} < 1")
     if p < 1 or p > 128 or p & (p - 1):
         _fail(f"head dim P {p} must be a power of two <= 128")
-    if n < 4 or n % 4 or n * p > MAX_STATE:
-        _fail(f"state N {n} must be a multiple of 4 with N * P <= {MAX_STATE}")
-    if not 1 <= bsz * h <= 2 ** 31 - 1:
-        _fail(f"B * H = {bsz * h} out of range")
+    if n < 4 or n % 4:
+        _fail(f"state N {n} must be a multiple of 4")
+    if not 1 <= bsz <= 65535 or not 1 <= h * -(-p // 32) <= 65535:
+        _fail(f"need 1 <= B <= 65535 and 1 <= H * ceil(P / 32) <= 65535 (grid limits), "
+              f"got B {bsz}, H {h}, P {p}")
 
 
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor, b: torch.Tensor,
@@ -190,11 +195,15 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor, b: torch.Te
     smem = lib.repro_ssd_shared_bytes(q, n, p)
     if smem > MAX_SHARED_BYTES:
         _fail(f"{smem} bytes of shared memory > {MAX_SHARED_BYTES}")
+    nc = -(-s // q)
+    cb = torch.empty((bsz, nc, q, q), dtype=torch.float32, device=x.device)
+    chunk_states = torch.empty((bsz, nc, h, p, n), dtype=torch.float32, device=x.device)
+    decay = torch.empty((bsz, nc, h), dtype=torch.float32, device=x.device)
     rc = lib.repro_ssd_scan(
         _KINDS[x.dtype], x.data_ptr(), dt.data_ptr(), a_log.data_ptr(), b.data_ptr(),
         c.data_ptr(), None if init_state is None else init_state.data_ptr(),
-        y.data_ptr(), state.data_ptr(), bsz, s, h, p, n, q,
-        torch.cuda.current_stream(x.device).cuda_stream)
+        y.data_ptr(), state.data_ptr(), cb.data_ptr(), chunk_states.data_ptr(),
+        decay.data_ptr(), bsz, s, h, p, n, q, torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(lib, rc, "ssd_scan")
     global launches
     launches += 1

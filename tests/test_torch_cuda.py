@@ -220,6 +220,42 @@ def test_flash_kernel_matches_plain_on_card(card, b, hq, hkv, s, d, window, dtyp
     torch.testing.assert_close(got, want, **tol)
 
 
+@pytest.mark.parametrize("b,hq,hkv,s,d,window,dtype", [
+    (2, 4, 2, 45, 32, 0, torch.float32),           # ragged S: no key past S - 1 is seen
+    (2, 4, 2, 45, 32, 16, torch.float32),          # ragged, window < tile
+    (1, 10, 1, 200, 256, 64, torch.float32),       # recurrentgemma's heads, a window
+    (1, 32, 8, 128, 64, 0, torch.float32),         # llama's heads
+    (1, 8, 2, 100, 64, 0, torch.bfloat16),
+    (2, 4, 2, 77, 128, 24, torch.bfloat16),
+])
+def test_flash_non_causal_kernel_matches_plain_on_card(card, b, hq, hkv, s, d, window, dtype):
+    """``causal=False``: every key 0..S-1 (within the window) is seen, as
+    ``ref.attention_ref(causal=False)`` masks them."""
+    q = randn(card, b, hq, s, d, dtype=dtype, seed=15)
+    k = randn(card, b, hkv, s, d, dtype=dtype, seed=16)
+    v = randn(card, b, hkv, s, d, dtype=dtype, seed=17)
+    before = FA.launches
+    got = FA.flash_attention(q, k, v, window=window, causal=False)
+    want = FA.flash_attention_plain(q, k, v, window=window, causal=False)
+    torch.cuda.synchronize()
+    assert FA.launches == before + 1 and got.dtype == dtype
+    tol = dict(atol=2e-5, rtol=2e-4) if dtype == torch.float32 else dict(atol=3e-2, rtol=3e-2)
+    torch.testing.assert_close(got, want, **tol)
+    assert not torch.allclose(got.float(), FA.flash_attention_plain(q, k, v, window=window).float(),
+                              **tol)      # the mode is not the causal one
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_second_launch_gives_the_same_bits(card, causal, dtype):
+    q = randn(card, 1, 10, 300, 256, dtype=dtype, seed=18)
+    k = randn(card, 1, 1, 300, 256, dtype=dtype, seed=19)
+    first = FA.flash_attention(q, k, k, window=128, causal=causal)
+    again = FA.flash_attention(q, k, k, window=128, causal=causal)
+    torch.cuda.synchronize()
+    assert torch.equal(first, again)
+
+
 def test_flash_refuses_what_the_kernel_does_not_take(card):
     q = randn(card, 1, 4, 16, 32)
     k = randn(card, 1, 2, 16, 32, seed=1)
@@ -235,6 +271,9 @@ def test_flash_refuses_what_the_kernel_does_not_take(card):
     big = randn(card, 1, 1, 4, 260)
     with pytest.raises(ValueError, match="head dim"):
         FA.flash_attention(big, big, big)
+    off = torch.zeros(1 + q.numel(), device=card)[1:].view(q.shape)   # 4 bytes past 16
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        FA.flash_attention(off, off[:, :2].contiguous(), off[:, :2].contiguous())
 
 
 def test_hybrid_engine_launches_every_kernel_by_default(card):
@@ -264,6 +303,12 @@ def test_hybrid_engine_launches_every_kernel_by_default(card):
     (2, 45, 3, 16, 8, 16, True, torch.float32),          # the reference's test shapes
     (2, 7, 3, 32, 16, 16, False, torch.float32),         # one chunk shorter than chunk
     (2, 100, 3, 16, 8, 32, False, torch.bfloat16),
+    (1, 128, 24, 64, 128, 128, True, torch.float32),    # a 128-token join: one chunk
+    (1, 128, 24, 64, 128, 128, False, torch.float32),
+    (2, 300, 4, 32, 64, 64, True, torch.float32),       # several chunks, the last ragged
+    (1, 389, 24, 64, 128, 128, True, torch.float32),
+    (1, 384, 24, 64, 128, 128, True, torch.bfloat16),
+    (1, 50, 2, 128, 12, 16, True, torch.float32),       # P 128, N not a multiple of 16
 ])
 def test_ssd_kernel_matches_plain_on_card(card, b, s, h, p, n, chunk, with_state, dtype):
     """y and the final state against ``ssd_chunked``: fp32 at the reference's
@@ -284,6 +329,24 @@ def test_ssd_kernel_matches_plain_on_card(card, b, s, h, p, n, chunk, with_state
     torch.testing.assert_close(state, want_state, **tol)
     torch.testing.assert_close(y.float(), want_y.float(),
                                **(tol if dtype == torch.float32 else dict(atol=3e-1, rtol=5e-2)))
+
+
+@pytest.mark.parametrize("s,dtype", [(128, torch.float32), (2000, torch.float32),
+                                     (300, torch.bfloat16)])
+def test_ssd_second_launch_gives_the_same_bits(card, s, dtype):
+    """The carry runs the chunks in a fixed order and nothing sums with
+    atomics: two launches on the same inputs give the same y and state."""
+    rng = np.random.default_rng(13)
+    x = randn(card, 1, s, 24, 64, dtype=dtype, seed=14)
+    dt = torch.from_numpy(rng.uniform(0.001, 0.2, (1, s, 24)).astype(np.float32)).to(card)
+    a_log = torch.from_numpy(-rng.uniform(1.0, 16.0, 24).astype(np.float32)).to(card)
+    bb, cc = randn(card, 1, s, 128, dtype=dtype, seed=15), randn(card, 1, s, 128, dtype=dtype,
+                                                                  seed=16)
+    h0 = randn(card, 1, 24, 64, 128, seed=17, std=0.1)
+    y1, s1 = SSD.ssd_scan(x, dt, a_log, bb, cc, chunk=128, init_state=h0)
+    y2, s2 = SSD.ssd_scan(x, dt, a_log, bb, cc, chunk=128, init_state=h0)
+    torch.cuda.synchronize()
+    assert torch.equal(y1, y2) and torch.equal(s1, s2)
 
 
 def test_ssd_refuses_what_the_kernel_does_not_take(card):

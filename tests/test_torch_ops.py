@@ -18,6 +18,7 @@ import pytest
 import torch
 
 from repro.kernels import ops as jops
+from repro.kernels import ref as jref
 from repro_torch import bridge
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import paged_attention as PA
@@ -73,16 +74,54 @@ def test_flash_attention(b, hq, hkv, s, d, window):
 
 
 def test_flash_attention_bf16_and_causal_only():
+    """bf16, causal and (since the port's kernel gained the mode) non-causal,
+    against the reference's kernel at S a multiple of its key block."""
     rng = np.random.default_rng(52)
     jq, tq = both(rng.normal(0, 1, (1, 4, 64, 32)), jnp.bfloat16)
     jk, tk = both(rng.normal(0, 1, (1, 2, 64, 32)), jnp.bfloat16)
     jv, tv = both(rng.normal(0, 1, (1, 2, 64, 32)), jnp.bfloat16)
-    want = jops.flash_attention(jq, jk, jv, block_q=32, block_k=32)
-    got = tops.flash_attention(tq, tk, tv)
-    assert got.dtype == torch.bfloat16
-    np.testing.assert_allclose(f32(got), f32(want), atol=3e-2, rtol=3e-2)
-    with pytest.raises(NotImplementedError, match="causal"):
-        tops.flash_attention(tq, tk, tv, causal=False)
+    for causal in (True, False):
+        want = jops.flash_attention(jq, jk, jv, causal=causal, block_q=32, block_k=32)
+        got = tops.flash_attention(tq, tk, tv, causal=causal)
+        assert got.dtype == torch.bfloat16
+        np.testing.assert_allclose(f32(got), f32(want), atol=3e-2, rtol=3e-2)
+
+
+@pytest.mark.parametrize("b,hq,hkv,s,d,window", [
+    (1, 4, 4, 64, 32, 0), (2, 8, 2, 96, 64, 0), (1, 4, 2, 128, 32, 48), (1, 10, 1, 64, 32, 16),
+])
+def test_flash_attention_non_causal(b, hq, hkv, s, d, window):
+    """``causal=False`` with and without a window, against the reference's
+    Pallas kernel in interpret mode at S a multiple of its 32-key block."""
+    rng = np.random.default_rng(55)
+    jq, tq = both(rng.normal(0, 1, (b, hq, s, d)))
+    jk, tk = both(rng.normal(0, 1, (b, hkv, s, d)))
+    jv, tv = both(rng.normal(0, 1, (b, hkv, s, d)))
+    want = jops.flash_attention(jq, jk, jv, causal=False, window=window, block_q=32,
+                                block_k=32)
+    got = tops.flash_attention(tq, tk, tv, causal=False, window=window)
+    np.testing.assert_allclose(f32(got), f32(want), **F32)
+    causal = tops.flash_attention(tq, tk, tv, window=window)
+    assert not np.allclose(f32(causal), f32(want), **F32)
+
+
+@pytest.mark.parametrize("s,window", [(45, 0), (45, 16), (77, 0), (77, 40)])
+def test_flash_attention_non_causal_ragged_matches_oracle(s, window):
+    """At an S that is not a multiple of the key block the port is held to
+    the oracle, ``ref.attention_ref(causal=False)``, and not to the
+    reference's Pallas kernel: that kernel pads K/V with zero keys and masks
+    them only through its causal mask (``flash_attention.py:87-93``), so in
+    non-causal mode the padded keys take softmax weight and its output moves
+    away from the oracle (by 0.19 at S 45 with blocks of 32 on these inputs,
+    0.62 with a window of 16).  The port masks keys by index up to S - 1 in
+    both modes."""
+    rng = np.random.default_rng(56)
+    jq, tq = both(rng.normal(0, 1, (2, 4, s, 32)))
+    jk, tk = both(rng.normal(0, 1, (2, 2, s, 32)))
+    jv, tv = both(rng.normal(0, 1, (2, 2, s, 32)))
+    want = jref.attention_ref(jq, jk, jv, causal=False, window=window)
+    got = tops.flash_attention(tq, tk, tv, causal=False, window=window)
+    np.testing.assert_allclose(f32(got), f32(want), **F32)
 
 
 @pytest.mark.parametrize("s,chunk", [(64, 16), (100, 32), (32, 32)])
