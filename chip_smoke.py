@@ -17,7 +17,12 @@ Builds the hand-written kernels from the five sources in this checkout (one
      is split over S blocks per (slot, kv head) and merged by a second
      launch (the plan, S, C and shared bytes, is logged beside each
      timing), and a second call on the same inputs gives the same bits;
-   - RMSNorm: 8 x 2560 and 2032 x 2560 in bf16 and fp32, and 8 x 2048;
+   - RMSNorm at every path shape (8, 128 and 2032 rows of 2560; 8 and 128
+     of 2048; 8, 128 and 2000 of 768) in bf16 and fp32, a second launch
+     bit-equal, and rows of 2558 and 8190 (scalar loads; 8190 cut over a
+     cluster); fp32 timed at every shape, an empty kernel timed the same
+     way (the launch floor), and the decode calls timed under a cluster
+     split beside the wrapper's plan;
    - RG-LRU scan: B 1, W 2560, with h0, at S 2032 and S 128;
    - flash prefill attention (tensor cores, 3xTF32 for fp32):
      recurrentgemma-2b's (Hq 10, Hkv 1, D 256, window 2048) at S 2032, at
@@ -44,15 +49,22 @@ Builds the hand-written kernels from the five sources in this checkout (one
    ``test_paged_attention_scatter_fuses_bit_equal``); then each unfused
    kernel against its plain version (attention at the fused kernel's bars,
    scatter bit-equal, a case of duplicate destinations included).
+1c. **the sampler** (``repro_torch.jrandom``, ``jax.random``'s draws) on
+   the card against the CPU over (8, V) logits at V 128256, 256000 and
+   50280: bits and uniforms bit-equal, tokens equal but for near ties (the
+   two highest perturbed scores within 1e-5 relative); the decode step's
+   draw timed and its launches counted.
 2. **llama3.2-1b serving**: ``repro_torch.launch.serve.run_continuous``
-   drives full-width llama3.2-1b (random weights from a seed) over 16
+   drives full-width llama3.2-1b at the reference's default temperature
+   (0.8: tokens sampled; random weights from a seed) over 16
    Poisson requests (prompt 128, 16-32 new tokens, 8 slots, page 16)
    through the kernels, its decode phases priced by the governor.
 3. **one llama decode step, kernels against plain**, from one pool state.
 4. **reduced llama against the CPU**: greedy tokens on the card equal the
    plain path's on the CPU, with the same weights.
 5. **recurrentgemma-2b serving**: full width (26 layers, d 2560, random
-   weights from a seed, fp32 params and bf16 compute), with no kernel
+   weights from a seed, fp32 params and bf16 compute), sampled at the
+   default temperature, with no kernel
    named (the default on the card is the kernels), over 12 Poisson
    requests (prompt 128, 16-32 new tokens) plus one of a 2032-token prompt
    and 32 new tokens, whose decode passes position 2048 so that the
@@ -65,7 +77,8 @@ Builds the hand-written kernels from the five sources in this checkout (one
 7. **reduced recurrentgemma (fp32, 8 layers) against the CPU**: greedy
    tokens through the kernels on the card equal the plain path's on the CPU.
 8. **mamba2-130m serving**: full width (24 SSM layers, d 768, state 128,
-   random weights from a seed, fp32 params and bf16 compute), no kernel
+   random weights from a seed, fp32 params and bf16 compute), greedy
+   (``--temperature 0``: the step's fused argmax), no kernel
    named, 12 Poisson requests (prompt 128, 16-32 new tokens) plus one of a
    2000-token prompt (16 chunks, the last ragged) and 32 new tokens; then
    its long join timed as in phase 5.
@@ -389,12 +402,24 @@ def phase_paged_wide_table(torch, PA, rng):
             f"{100 * b_ms / ms:.1f} % of the bound")
 
 
+# the serving paths' RMSNorm calls: (rows, d) of decode steps (8 rows) and joins
+NORM_SHAPES = ((8, 2560), (128, 2560), (2032, 2560), (8, 2048), (128, 2048), (8, 768),
+               (128, 768), (2000, 768))
+
+
 def phase_rmsnorm(torch, RN):
+    """RMSNorm at every path shape, fp32 and bf16 x (fp32 params), held to
+    its plain version; a second launch must give the same bits; rows whose
+    width is no multiple of the vector width (scalar loads; at 8190 a row
+    cut over a cluster of 2 CTAs) too.  fp32, as the paths run it, is timed
+    at every shape beside the plain version, ``F.rms_norm`` and the bound,
+    and an empty kernel is timed with the same harness: the launch floor.
+    Returns the decode shape's record (8 x 2560)."""
     import torch.nn.functional as F
 
     rng = np.random.default_rng(1)
-    record = None
-    for rows, d in ((8, 2560), (2032, 2560), (8, 2048)):
+    records = {}
+    for rows, d in NORM_SHAPES + ((8, 2558), (8, 8190)):
         for dtype in (torch.float32, torch.bfloat16):
             x = randn(torch, rng, rows, d, dtype=dtype, std=2.0)
             scale = randn(torch, rng, d, mean=1.0, std=0.2)      # fp32 params
@@ -402,7 +427,9 @@ def phase_rmsnorm(torch, RN):
             want = RN.rmsnorm_plain(x, scale)
             err = compare(torch, got, want, F32_TOL if dtype == torch.float32 else BF16_TOL,
                           f"rmsnorm {rows} x {d} {dtype}")
-            if (rows, d, dtype) in ((8, 2560, torch.float32), (2032, 2560, torch.float32)):
+            require(torch.equal(RN.rmsnorm(x, scale), got),
+                    f"rmsnorm {rows} x {d} {dtype}: two launches differ")
+            if dtype == torch.float32 and (rows, d) in NORM_SHAPES:
                 w = scale.to(dtype)
                 nbytes = 2 * x.numel() * x.element_size() + scale.numel() * 4
                 b_ms, b_by = bound(nbytes, 4 * x.numel())
@@ -410,9 +437,101 @@ def phase_rmsnorm(torch, RN):
                            plain_ms=time_ms(torch, lambda: RN.rmsnorm_plain(x, scale)),
                            bound_ms=b_ms, bound_by=b_by,
                            library_ms=time_ms(torch, lambda: F.rms_norm(x, (d,), w, 1e-6)))
-                log(f"rmsnorm timing, {rows} x {d} fp32: " + json.dumps(rec))
-                record = record or rec        # the decode step's shape: 53 launches a step
-    return record
+                log(f"rmsnorm timing, {rows} x {d} fp32: " + json.dumps(rec)
+                    + f"; plan {RN.plan(d, 4)._asdict()}; "
+                    f"{rec['ms'] / rec['library_ms']:.3f} x F.rms_norm")
+                records[rows, d] = rec
+    floor = time_ms(torch, lambda: RN.empty(torch.device("cuda")))
+    log(f"launch floor (an empty kernel of one warp, same harness): {floor:.5f} ms")
+    rmsnorm_cluster_split(torch, RN, rng)
+    return records[8, 2560]
+
+
+def rmsnorm_cluster_split(torch, RN, rng):
+    """The decode calls (8 rows, fp32) under the wrapper's plan (a CTA a
+    row) and split over a thread block cluster of C CTAs of about 128
+    vectors each, one vector a thread (C 8, 4, 2 at d 2560, 2048, 768):
+    both held to the plain version and timed, in turns.  Logged only."""
+    lib = RN.build()
+
+    def launch(x, scale, out, pl):
+        rc = lib.repro_rmsnorm(0, 0, x.data_ptr(), scale.data_ptr(), out.data_ptr(),
+                               x.shape[0], x.shape[1], 1e-6, pl.vec, pl.vpt, pl.threads,
+                               pl.cluster, torch.cuda.current_stream().cuda_stream)
+        require(rc == 0, f"rmsnorm launch with plan {pl}: {rc}")
+
+    for d, cluster in ((2560, 8), (2048, 4), (768, 2)):
+        x = randn(torch, rng, 8, d, std=2.0)
+        scale = randn(torch, rng, d, mean=1.0, std=0.2)
+        want = RN.rmsnorm_plain(x, scale)
+        span = d // 4 // cluster
+        plans = dict(cta=RN.plan(d, 4), cluster=RN.Plan(4, 1, 32 * -(-span // 32), cluster))
+        out = {k: torch.empty_like(x) for k in plans}
+        for k, pl in plans.items():
+            launch(x, scale, out[k], pl)
+            compare(torch, out[k], want, F32_TOL, f"rmsnorm 8 x {d} fp32, plan {k}")
+        ms = {k: [] for k in plans}
+        for k in ("cta", "cluster", "cluster", "cta"):
+            ms[k].append(time_ms(torch, lambda: launch(x, scale, out[k], plans[k])))
+        log(f"rmsnorm 8 x {d} fp32: a CTA a row {plans['cta']._asdict()}: "
+            f"{ms['cta'][0]:.5f} / {ms['cta'][1]:.5f} ms; a cluster of {cluster} "
+            f"{plans['cluster']._asdict()}: {ms['cluster'][0]:.5f} / {ms['cluster'][1]:.5f} ms")
+
+
+def phase_sampling(torch):
+    """The sampler (``repro_torch.jrandom``, the draws of ``jax.random``) on
+    the card against the same draws on the CPU, over (8, V) logits at the
+    three paths' vocabularies: bits and uniforms bit-equal, tokens equal
+    but for near ties (the two highest perturbed scores within 1e-5
+    relative).  The decode step's draw (``serve.engine.sample_rows``, 8
+    keyed slots at T 0.8) is timed on the card (events, and the kernels'
+    summed time under the profiler, which the host's issue cannot stretch)
+    and its launches counted."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import jrandom
+    from repro_torch.serve.engine import _tempered, sample_rows
+
+    for vocab in (128256, 256000, 50280):
+        key = jrandom.fold_in(jrandom.key(0), vocab)
+        card_key = key.to("cuda")
+        require(torch.equal(jrandom.bits(card_key, (8, vocab)).cpu(),
+                            jrandom.bits(key, (8, vocab))),
+                f"sampler bits differ on the card, V {vocab}")
+        require(torch.equal(jrandom.uniform(card_key, (8, vocab)).cpu(),
+                            jrandom.uniform(key, (8, vocab))),
+                f"sampler uniforms differ on the card, V {vocab}")
+        logits = torch.from_numpy(
+            np.random.default_rng(vocab).normal(0, 3, (8, vocab)).astype(np.float32))
+        keys = jrandom.fold_in(jrandom.fold_in(key, torch.arange(8)), 5)
+        rows = list(range(8))
+        want = sample_rows(logits, rows, keys, 0.8)
+        on_card = logits.to("cuda")
+        got = sample_rows(on_card, rows, keys, 0.8).cpu()
+        scaled = _tempered(logits, 0.8)
+        ties = 0
+        for r in torch.nonzero(got != want).flatten().tolist():
+            g = jrandom.gumbel(keys[r], (vocab,)) + scaled[r]
+            second, top = g.double().topk(2).values.tolist()[::-1]
+            require(top - second <= 1e-5 * abs(top),
+                    f"sampler V {vocab} row {r}: card {got[r]} CPU {want[r]} off a near tie")
+            ties += 1
+        draw = lambda: sample_rows(on_card, rows, keys, 0.8)      # noqa: E731
+        draw()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            draw()
+            torch.cuda.synchronize()
+        on_device = [e for e in prof.key_averages()
+                     if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+        n_kernels = sum(e.count for e in on_device)
+        kernel_ms = sum(e.self_device_time_total for e in on_device) / 1e3
+        log(f"sampling V {vocab}: card == CPU bits and uniforms over (8, {vocab}); tokens "
+            f"equal in {8 - ties}/8 rows, {ties} near ties; one step's draw (8 keyed slots, "
+            f"T 0.8): device {time_ms(torch, draw):.4f} ms between events, kernels summed "
+            f"{kernel_ms:.4f} ms, host issue {host_ms(torch, draw, reps=20):.4f} ms, "
+            f"{n_kernels} device launches")
 
 
 def phase_scan(torch, RS):
@@ -738,6 +857,7 @@ def phase_serving(torch, mods, argv, want_dims):
     require((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.vocab) == want_dims,
             cfg)
     require(eng.attn_kernel == "cuda", eng.attn_kernel)
+    require(eng._fused_sample == (args.temperature <= 0), "greedy steps fuse the argmax")
     kinds = cfg.layer_kinds()
     joins, steps = eng.n_joins, eng.n_decode_steps      # the warm-up's included
     norms = sum(1 if k == "ssm" else 2 for k in kinds) + 1
@@ -965,8 +1085,11 @@ def main() -> int:
                   flash_attention=phase_flash(torch, FA), ssd_scan=phase_ssd(torch, SSD))
     ops_counts, ops_records = phase_ops(torch, mods)
     timing.update(ops_records)
+    phase_sampling(torch)
 
     rng = np.random.default_rng(7)
+    # llama3.2-1b and recurrentgemma-2b serve at the reference's default
+    # temperature (0.8, sampled); mamba2-130m greedy, the fused-argmax step
     llama_counts, eng, _ = phase_serving(torch, mods, [
         "--arch", "llama3.2-1b", "--continuous", "--attn-kernel", "cuda",
         "--n-requests", "16", "--prompt-len", "128", "--steps", "32",
@@ -996,7 +1119,7 @@ def main() -> int:
     phase_small_model(torch, "recurrentgemma-2b", 8, 40, 30, 80)
 
     mamba_counts, eng, _ = phase_serving(torch, mods, [
-        "--arch", "mamba2-130m", "--continuous",
+        "--arch", "mamba2-130m", "--continuous", "--temperature", "0",
         "--n-requests", "12", "--prompt-len", "128", "--steps", "32", "--long-prompt", "2000",
         "--slots", "8", "--page-size", "16", "--arrival-rate", "40", "--seed", "0"],
         (24, 768, 0, 0, 50280))

@@ -17,13 +17,19 @@
       --continuous --n-requests 12 --prompt-len 128 --steps 32 --slots 8 \\
       --page-size 16 --long-prompt 2000
 
+  # greedy decoding instead of the reference's default temperature of 0.8
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \\
+      --continuous --temperature 0
+
   # a small model on the CPU, plain PyTorch (the default there)
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \\
       --reduced --continuous --device cpu
 
 Only the ``--continuous`` path of ``repro.launch.serve`` is ported: the
 static batch, the fleet, the trace/telemetry outputs and the power cap
-come in later slices.  Weights are random, drawn from ``--seed``.  One
+come in later slices.  Weights are random, drawn from ``--seed``.  Tokens
+are drawn at ``--temperature`` (0.8 by default, as the reference's) with
+the reference's ``jax.random`` keys and draws (``repro_torch.jrandom``).  One
 warm-up generate runs before the clock starts (it also builds the CUDA
 kernel on first use); its time is reported as ``warmup_s``.  Each result
 line is one JSON object.
@@ -39,6 +45,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch import jrandom
 from repro_torch.configs import get_config, reduced
 from repro_torch.core.events import EventBus
 from repro_torch.core.governor import Governor
@@ -54,18 +61,27 @@ def _make_requests(args, cfg) -> List[Request]:
     """``--n-requests`` Poisson arrivals with ``--prompt-len`` prompts and
     ``--steps // 2 .. --steps`` new tokens; with ``--long-prompt N``, one
     more request of an N-token prompt and ``--steps`` new tokens, arriving
-    with the first."""
+    with the first.  With a temperature, request ``i`` samples with the key
+    ``fold_in(key(--seed), i)``, as the reference's, and the long one with
+    ``fold_in(key(--seed), --n-requests)``."""
     rng = np.random.default_rng(args.seed)
     arrivals = poisson_arrivals(args.n_requests, args.arrival_rate, seed=args.seed,
                                 burst_every=max(args.slots, 2), burst_gap=0.05)
+    base = jrandom.key(args.seed) if args.temperature > 0 else None
+
+    def key(i):
+        return None if base is None else jrandom.fold_in(base, i)
+
     reqs = []
     for i in range(args.n_requests):
         prompt = rng.integers(0, cfg.vocab, size=args.prompt_len).astype(np.int32)
         max_new = int(rng.integers(max(2, args.steps // 2), args.steps + 1))
-        reqs.append(Request(prompt=prompt, max_new=max_new, arrival=float(arrivals[i])))
+        reqs.append(Request(prompt=prompt, max_new=max_new, arrival=float(arrivals[i]),
+                            key=key(i)))
     if args.long_prompt:
         prompt = rng.integers(0, cfg.vocab, size=args.long_prompt).astype(np.int32)
-        reqs.append(Request(prompt=prompt, max_new=args.steps, arrival=float(arrivals[0])))
+        reqs.append(Request(prompt=prompt, max_new=args.steps, arrival=float(arrivals[0]),
+                            key=key(args.n_requests)))
     return reqs
 
 
@@ -82,8 +98,8 @@ def run_continuous(args) -> Dict[str, Any]:
     max_len = max(args.prompt_len, args.long_prompt) + args.steps + args.page_size
     max_len += (-max_len) % args.page_size
     eng = ContinuousEngine(cfg, params, n_slots=args.slots, max_len=max_len,
-                           page=args.page_size, attn_kernel=args.attn_kernel,
-                           device=device)
+                           page=args.page_size, temperature=args.temperature,
+                           attn_kernel=args.attn_kernel, device=device)
     warm = np.random.default_rng(args.seed + 1).integers(
         0, cfg.vocab, size=(1, args.prompt_len)).astype(np.int32)
     t0 = time.time()
@@ -107,6 +123,7 @@ def run_continuous(args) -> Dict[str, Any]:
     n_tok = sum(len(r.out) for r in done)
     return {
         "arch": cfg.name, "device": str(device), "attn_kernel": eng.attn_kernel,
+        "temperature": args.temperature,
         "requests": len(done), "tokens": n_tok, "wall_s": dt,
         "tok_per_s": n_tok / dt, "warmup_s": t_warm,
         "decode_steps": eng.n_decode_steps - steps_before,
@@ -133,8 +150,12 @@ def parser() -> argparse.ArgumentParser:
                          "mode ported so far)")
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--long-prompt", type=int, default=0,
-                    help="add one request with a prompt this long (0: none)")
+                    help="add one request with a prompt this long (0: none); it "
+                         "samples with the key fold_in(key(seed), n_requests)")
     ap.add_argument("--steps", type=int, default=16)
+    ap.add_argument("--temperature", type=float, default=0.8,
+                    help="sampling temperature, as the reference's default; request i "
+                         "draws with fold_in(key(seed), i) as jax.random does; 0: greedy")
     ap.add_argument("--kv-int8", action="store_true")
     ap.add_argument("--n-requests", type=int, default=8)
     ap.add_argument("--arrival-rate", type=float, default=40.0,

@@ -21,9 +21,12 @@ and a clock stopped at launch would price the wrong slack.
 
 Greedy decoding matches the reference token for token; the argmax runs on
 the device and only ``B`` tokens come back.  Sampling with a temperature
-draws from a ``torch.Generator`` per request and cannot reproduce the
-reference's ``jax.random`` draws; it is deterministic for a given seed.
-The prefix cache and the tracer hooks are not ported yet.
+draws as the reference does, with :mod:`repro_torch.jrandom` (the draws
+of ``jax.random`` on torch tensors): a request's ``n``-th token is
+``categorical(fold_in(req.key, n), logits / T)``, and a decode step draws
+every keyed slot at once on the logits' device and copies the ``(B,)``
+tokens to the host once.  A temperature with no key is greedy, as in the
+reference.  The prefix cache and the tracer hooks are not ported yet.
 """
 from __future__ import annotations
 
@@ -34,6 +37,7 @@ from typing import Any, Callable, Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch import jrandom
 from repro_torch.device import resolve_device, resolve_kernel
 from repro_torch.models.transformer import decode_step as _decode
 from repro_torch.models.transformer import init_cache
@@ -53,16 +57,24 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def _sample(logits: torch.Tensor, temperature: float,
-            generator: Optional[torch.Generator]) -> torch.Tensor:
-    """Greedy argmax (first index on a tie, as ``jnp.argmax``), or a draw
-    at ``temperature`` from ``generator`` when one is given."""
-    if temperature <= 0.0 or generator is None:
-        return torch.argmax(logits, dim=-1).to(torch.int32)
-    probs = torch.softmax(logits.float() / temperature, dim=-1)
-    flat = probs.reshape(-1, probs.shape[-1])
-    draw = torch.multinomial(flat, 1, generator=generator)[:, 0]
-    return draw.reshape(probs.shape[:-1]).to(torch.int32)
+def _tempered(logits: torch.Tensor, temperature: float) -> torch.Tensor:
+    """``logits / temperature`` in the logits' dtype, a true division as the
+    reference's (a CUDA tensor divided by a Python float is multiplied by
+    the reciprocal, which can move the last bit)."""
+    return logits / torch.full((), temperature, dtype=logits.dtype, device=logits.device)
+
+
+def sample_rows(logits: torch.Tensor, rows: List[int], keys: Optional[torch.Tensor],
+                temperature: float) -> torch.Tensor:
+    """(B,) int32 tokens on the logits' device from (B, V) logits: greedy,
+    except that row ``rows[i]`` is drawn at ``temperature`` with
+    ``keys[i]`` (``keys (R, 2)``), all in one
+    :func:`~repro_torch.jrandom.categorical_rows` pass."""
+    tok = torch.argmax(logits, dim=-1)
+    if rows:
+        idx = torch.tensor(rows, device=logits.device)
+        tok[idx] = jrandom.categorical_rows(keys, _tempered(logits[idx], temperature))
+    return tok.to(torch.int32)
 
 
 # --------------------------------------------------------------------------
@@ -82,20 +94,28 @@ class ServeEngine:
 
     @torch.no_grad()
     def generate(self, batch: Dict[str, Any], n_steps: int,
-                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                 key: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Greedy/sampled continuation of ``batch['tokens']`` (B,S) for n_steps."""
         tokens = torch.as_tensor(np.asarray(batch["tokens"]), device=self.device)
         b, s = tokens.shape
         prompt_len = s + self.cfg.n_prefix
         cache = init_cache(self.cfg, b, self.max_len, self.device)
         logits, cache = _prefill(self.cfg, self.params, {"tokens": tokens}, cache)
-        tok = _sample(logits, self.temperature, generator)
+        tok = self._select(logits, key, 0)
         out = [tok]
         for i in range(1, n_steps):
             logits, cache = _decode(self.cfg, self.params, tok, prompt_len + i - 1, cache)
-            tok = _sample(logits, self.temperature, generator)
+            tok = self._select(logits, key, i)
             out.append(tok)
         return torch.stack(out, dim=1)                         # (B, n_steps)
+
+    def _select(self, logits: torch.Tensor, key: Optional[torch.Tensor], i: int):
+        """Greedy, or one draw over the whole (B, V) logits with
+        ``fold_in(key, i)``, as the reference's ``_select``."""
+        if self.temperature <= 0.0 or key is None:
+            return torch.argmax(logits, dim=-1).to(torch.int32)
+        sub = jrandom.fold_in(key, i)
+        return jrandom.categorical(sub, _tempered(logits, self.temperature)).to(torch.int32)
 
 
 # --------------------------------------------------------------------------
@@ -228,7 +248,20 @@ class ContinuousEngine:
         self._tokens[slot] = tok
 
     def _select_one(self, logits: torch.Tensor, req: Request) -> int:
-        return int(_sample(logits, self.temperature, req.key))
+        """A join's first token from its (V,) logits, drawn as a step draws."""
+        return int(self._select_step(logits[None], [(0, req)])[0])
+
+    def _select_step(self, logits: torch.Tensor, active: List[tuple]) -> torch.Tensor:
+        """(B,) int32 tokens on the device from (B, V) logits: at a
+        temperature, every active slot whose request has a key draws with
+        ``fold_in(req.key, req.n_generated)``; the others take the argmax."""
+        keyed = [(slot, req) for slot, req in active
+                 if req.key is not None and self.temperature > 0.0]
+        keys = None
+        if keyed:
+            keys = jrandom.fold_in(torch.stack([req.key for _, req in keyed]),
+                                   torch.tensor([req.n_generated for _, req in keyed]))
+        return sample_rows(logits, [slot for slot, _ in keyed], keys, self.temperature)
 
     def _grow_pages(self, req: Request) -> None:
         pos = int(self._lengths[req.slot])
@@ -276,23 +309,20 @@ class ContinuousEngine:
 
     # ---- ServeEngine-compatible entry point ------------------------------
     def generate(self, batch: Dict[str, Any], n_steps: int,
-                 seed: Optional[int] = None) -> torch.Tensor:
+                 key: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Static-batch compatibility: all rows arrive at t=0, run to n_steps.
 
         Greedy output matches ``ServeEngine.generate`` token for token.
-        With a temperature and a ``seed``, row ``i`` samples from its own
-        generator seeded ``seed + i``.
+        Sampled output gives row ``i`` the key ``fold_in(key, i)``, as the
+        reference (not the static engine's one key a step).
         """
         tokens = np.asarray(batch["tokens"])
         b = tokens.shape[0]
         if b > self.n_slots:
             raise ValueError(f"batch {b} exceeds n_slots {self.n_slots}")
-        reqs = []
-        for i in range(b):
-            key = None
-            if seed is not None:
-                key = torch.Generator(device=self.device).manual_seed(seed + i)
-            reqs.append(Request(prompt=tokens[i], max_new=n_steps, arrival=0.0, key=key))
+        reqs = [Request(prompt=tokens[i], max_new=n_steps, arrival=0.0,
+                        key=None if key is None else jrandom.fold_in(key, i))
+                for i in range(b)]
         order = {r.rid: i for i, r in enumerate(reqs)}
         done = sorted(self.serve(reqs), key=lambda r: order[r.rid])
         return torch.as_tensor(np.stack([np.asarray(r.out[:n_steps], np.int32) for r in done]))
@@ -406,11 +436,14 @@ class EngineSession:
         self.step_seconds.append(t1 - t0)
         if self.meter is not None:
             self.meter.step(t0, t1, sched.n_active, eng.n_slots)
-        greedy = out.cpu().numpy() if eng._fused_sample else None
+        active = list(sched.active.items())
+        if not eng._fused_sample:
+            out = eng._select_step(out, active)
+        tokens = out.cpu().numpy()             # the step's one copy to the host
         tnow = self.now()
-        for slot, req in list(sched.active.items()):
+        for slot, req in active:
             eng._lengths[slot] += 1
-            tok = int(greedy[slot]) if greedy is not None else eng._select_one(out[slot], req)
+            tok = int(tokens[slot])
             first = not req.out
             req.out.append(tok)
             eng._tokens[slot] = tok

@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch import jrandom
 from repro_torch.configs import get_config, reduced
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import paged_attention as PA
@@ -28,6 +29,7 @@ from repro_torch.kernels import rglru_scan as RS
 from repro_torch.kernels import rmsnorm as RN
 from repro_torch.kernels import ssd as SSD
 from repro_torch.models.transformer import init_params
+from repro_torch.serve import engine as TE
 from repro_torch.serve.engine import ContinuousEngine
 
 pytestmark = pytest.mark.cuda
@@ -149,7 +151,12 @@ def randn(card, *shape, dtype=torch.float32, seed=0, mean=0.0, std=1.0):
     return torch.from_numpy(rng.normal(mean, std, shape).astype(np.float32)).to(card, dtype)
 
 
-@pytest.mark.parametrize("shape", [(8, 2560), (2032, 2560), (3, 5, 320), (8, 2048)])
+# the serving paths' calls (decode steps and joins), and one 3-D input
+NORM_SHAPES = [(8, 2560), (128, 2560), (2032, 2560), (8, 2048), (128, 2048), (8, 768),
+               (128, 768), (2000, 768)]
+
+
+@pytest.mark.parametrize("shape", NORM_SHAPES + [(3, 5, 320), (4, 40000)])
 @pytest.mark.parametrize("dtype,scale_dtype", [
     (torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
     (torch.bfloat16, torch.float32), (torch.float32, torch.bfloat16)])
@@ -165,6 +172,36 @@ def test_rmsnorm_kernel_matches_plain_on_card(card, shape, dtype, scale_dtype):
     torch.testing.assert_close(got, want, **tol)
 
 
+@pytest.mark.parametrize("shape", [(8, 2560), (2032, 2560), (8, 768), (2000, 768), (4, 40000)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_second_launch_gives_the_same_bits(card, shape, dtype):
+    """A row's warps are added in warp order and a cluster's partial sums in
+    rank order (4 x 40000: a cluster of 4): a second launch on the
+    same input gives the same bits."""
+    x = randn(card, *shape, dtype=dtype, std=2.0)
+    scale = randn(card, shape[-1], seed=1, mean=1.0, std=0.2)
+    assert torch.equal(RN.rmsnorm(x, scale), RN.rmsnorm(x, scale))
+
+
+@pytest.mark.parametrize("rows,d", [(8, 2558), (8, 769), (3, 10), (128, 2558), (8, 8190),
+                                    (2, 30001)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_scalar_tail_matches_plain_on_card(card, rows, d, dtype):
+    """d not a multiple of the vector width (scalar loads; at 8190 and 30001
+    a row cut over a cluster of 2 and 8 CTAs, its last slice ragged), and x
+    starting off a 16-byte boundary."""
+    pl = RN.plan(d, torch.empty((), dtype=dtype).element_size())
+    assert pl.vec == 1 and pl.cluster == {8190: 2, 30001: 8}.get(d, 1)
+    x = randn(card, rows, d, dtype=dtype, std=2.0)
+    scale = randn(card, d, seed=1, mean=1.0, std=0.2)
+    tol = dict(atol=2e-5, rtol=2e-4) if dtype == torch.float32 else dict(atol=3e-2, rtol=3e-2)
+    torch.testing.assert_close(RN.rmsnorm(x, scale), RN.rmsnorm_plain(x, scale), **tol)
+    flat = randn(card, rows * 2560 + 1, dtype=dtype, std=2.0)
+    off = flat[1:].view(rows, 2560)                   # aligned width, misaligned start
+    w = randn(card, 2560, seed=2, mean=1.0, std=0.2)
+    torch.testing.assert_close(RN.rmsnorm(off, w), RN.rmsnorm_plain(off, w), **tol)
+
+
 def test_rmsnorm_refuses_what_the_kernel_does_not_take(card):
     x = randn(card, 4, 64)
     scale = randn(card, 64, seed=1)
@@ -174,6 +211,8 @@ def test_rmsnorm_refuses_what_the_kernel_does_not_take(card):
         RN.rmsnorm(x, scale[:32])
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         RN.rmsnorm(x.half(), scale)
+    with pytest.raises(ValueError, match="exceed"):           # wider than 8 CTAs hold
+        RN.rmsnorm(randn(card, 1, 131080), randn(card, 131080, seed=1))
 
 
 @pytest.mark.parametrize("b,s,w,with_h0", [(1, 2032, 2560, True), (2, 37, 100, False)])
@@ -570,3 +609,41 @@ def test_split_fused_is_scatter_then_attention_and_repeats_bit_for_bit(card, nam
             assert torch.equal(fused[k], split[k]), k
         runs.append(out)
     assert torch.equal(runs[0], runs[1])
+
+
+# --------------------------------------------------------------------------
+# the sampler (repro_torch.jrandom) on the card against the same call on CPU
+# --------------------------------------------------------------------------
+
+def assert_near_tie(scores) -> None:
+    """The near-tie rule of ``tests/test_torch_jrandom.py``: where two draws
+    differ, the two highest perturbed scores lie within 1e-5 relative."""
+    second, top = np.sort(scores.double().cpu().numpy())[-2:]
+    assert top - second <= 1e-5 * abs(top), (top, second)
+
+
+@pytest.mark.parametrize("vocab", [128256, 256000, 50280])
+def test_sampler_on_card_matches_cpu(card, vocab):
+    """Bits and uniforms bit-equal on the card and on the CPU; tokens equal
+    under the near-tie rule, for the static and the per-row draw."""
+    key = jrandom.fold_in(jrandom.key(5), vocab)
+    for shape in ((8, vocab), (3, 700)):
+        assert torch.equal(jrandom.bits(key.to(card), shape).cpu(), jrandom.bits(key, shape))
+        assert torch.equal(jrandom.uniform(key.to(card), shape).cpu(),
+                           jrandom.uniform(key, shape))
+    raw = torch.from_numpy(np.random.default_rng(vocab).normal(0, 3, (8, vocab)).astype(np.float32))
+    logits = TE._tempered(raw, 0.8)
+    # a true division on the card too, not a product with the reciprocal
+    assert torch.equal(TE._tempered(raw.to(card), 0.8).cpu(), logits)
+    keys = jrandom.fold_in(jrandom.fold_in(key, torch.arange(8)), 3)
+    rows_cpu = jrandom.categorical_rows(keys, logits)
+    rows_card = jrandom.categorical_rows(keys, logits.to(card)).cpu()
+    counters = torch.arange(vocab)
+    for r in torch.nonzero(rows_cpu != rows_card).flatten().tolist():
+        hashed = jrandom._hash(keys[r, 0], keys[r, 1], counters)
+        assert_near_tie(jrandom._gumbel_from(hashed, torch.float32) + logits[r])
+    static_cpu = jrandom.categorical(key, logits)
+    static_card = jrandom.categorical(key, logits.to(card)).cpu()
+    scores = jrandom.gumbel(key, logits.shape) + logits
+    for r in torch.nonzero(static_cpu != static_card).flatten().tolist():
+        assert_near_tie(scores[r])

@@ -3,9 +3,14 @@
 Greedy tokens must match token for token (the dense rows of the
 reference's own Pallas parity matrix, ``test_serve_paged.py``); the
 bf16-compute configuration is held per step on logits under teacher
-forcing.  Sampling with a temperature draws from ``torch.Generator``s,
-which cannot reproduce ``jax.random``; it is checked for determinism only.
+forcing.  Sampled tokens (``repro_torch.jrandom``, the draws of
+``jax.random``) must match token for token too, under the near-tie rule
+of ``test_torch_jrandom.py``: where the port and the reference draw
+different tokens, the reference's two highest perturbed scores at that
+draw lie within 1e-5 relative of each other, and the comparison of that
+request stops there.  Any other difference fails.
 """
+import argparse
 import dataclasses
 
 import jax
@@ -21,8 +26,10 @@ from repro.models import transformer as JT
 from repro.serve import ContinuousEngine as JContinuousEngine
 from repro.serve import ServeEngine as JServeEngine
 from repro.serve import engine as JE
+from repro.launch import serve as jserve
 from repro.serve import kvcache as JK
 from repro_torch import bridge
+from repro_torch import jrandom
 from repro_torch.configs import get_config, reduced
 from repro_torch.core.governor import Governor
 from repro_torch.launch import serve as tserve
@@ -31,6 +38,11 @@ from repro_torch.serve import engine as TE
 from repro_torch.serve import kvcache as TK
 from repro_torch.serve.engine import ContinuousEngine, ServeEngine
 from repro_torch.serve.scheduler import Request
+from test_torch_jrandom import assert_near_tie, perturbed
+
+# reduced configs of the three served archs (as test_torch_hybrid / _ssm)
+ARCHS = {"llama3.2-1b": {}, "recurrentgemma-2b": dict(n_layers=8, window=16),
+         "mamba2-130m": {}}
 
 
 def setup(seed=0, **mods):
@@ -111,19 +123,113 @@ def test_eos_stops_generation_early():
 
 
 def test_sampling_is_seeded_and_differs_from_greedy():
-    _, tcfg, _, tp = setup()
+    """At a temperature the port draws the reference's tokens from the same
+    key, which differ from greedy; no key is greedy, as in the reference."""
+    jcfg, tcfg, jp, tp = setup()
     toks = prompts(2, 12, tcfg.vocab, seed=2)
     greedy = ContinuousEngine(tcfg, tp, n_slots=2, max_len=40, page=8, device="cpu")
     sampled = ContinuousEngine(tcfg, tp, n_slots=2, max_len=40, page=8, device="cpu",
                                temperature=1.0)
     assert greedy._fused_sample and not sampled._fused_sample
+    ref = RecordingContinuous(jcfg, jp, n_slots=2, max_len=40, page=8, temperature=1.0)
+    want = np.asarray(ref.generate({"tokens": jnp.asarray(toks)}, n_steps=6,
+                                   key=jax.random.PRNGKey(3)))
     g = greedy.generate({"tokens": toks}, n_steps=6)
-    s1 = sampled.generate({"tokens": toks}, n_steps=6, seed=3)
-    s2 = sampled.generate({"tokens": toks}, n_steps=6, seed=3)
+    s1 = sampled.generate({"tokens": toks}, n_steps=6, key=jrandom.key(3))
+    s2 = sampled.generate({"tokens": toks}, n_steps=6, key=jrandom.key(3))
     assert torch.equal(s1, s2) and not torch.equal(s1, g)
-    assert torch.equal(sampled.generate({"tokens": toks}, n_steps=6), g)   # no seed: greedy
+    assert_same_draws(s1.numpy(), want, ref.row_scores(jax.random.PRNGKey(3)))
+    assert torch.equal(sampled.generate({"tokens": toks}, n_steps=6), g)   # no key: greedy
     with pytest.raises(ValueError, match="attn_kernel"):
         ContinuousEngine(tcfg, tp, attn_kernel="pallas", device="cpu")
+
+
+# --------------------------------------------------------------------------
+# sampled tokens against the reference's jax.random draws, three archs
+# --------------------------------------------------------------------------
+
+class RecordingContinuous(JContinuousEngine):
+    """The reference's engine, keeping each draw's perturbed scores by the
+    request's key words and the token's index."""
+
+    def __post_init__(self):
+        super().__post_init__()
+        self.scores = {}
+
+    def _select_one(self, logits, req):
+        if self.temperature > 0.0 and req.key is not None:
+            sub = jax.random.fold_in(req.key, req.n_generated)
+            words = tuple(np.asarray(req.key).tolist())
+            self.scores[words, req.n_generated] = perturbed(sub, logits, self.temperature)
+        return super()._select_one(logits, req)
+
+    def row_scores(self, key):
+        """scores(row, n) for ``generate(..., key)``: row i's key is fold_in(key, i)."""
+        return lambda r, n: self.scores[
+            tuple(np.asarray(jax.random.fold_in(key, r)).tolist()), n]
+
+
+class RecordingServe(JServeEngine):
+    """The reference's static engine, keeping each step's perturbed scores."""
+
+    def __post_init__(self):
+        super().__post_init__()
+        self.scores = {}
+
+    def _select(self, logits, key, i):
+        if self.temperature > 0.0 and key is not None:
+            self.scores[i] = perturbed(jax.random.fold_in(key, i), logits, self.temperature)
+        return super()._select(logits, key, i)
+
+
+def assert_same_draws(got, want, scores_at) -> None:
+    """Token for token, under the near-tie rule: ``scores_at(row, n)`` gives
+    the reference's perturbed scores at the draw of row's n-th token."""
+    got, want = np.asarray(got), np.asarray(want)
+    assert got.shape == want.shape
+    for r in range(len(want)):
+        diff = np.flatnonzero(got[r] != want[r])
+        if len(diff):
+            assert_near_tie(scores_at(r, int(diff[0])), f"row {r}, token {int(diff[0])}")
+
+
+def arch_setup(arch, seed=0):
+    jcfg = jreduced(jget_config(arch), **ARCHS[arch])
+    tcfg = reduced(get_config(arch), **ARCHS[arch])
+    jp = jinit_params(jcfg, jax.random.PRNGKey(seed))
+    return jcfg, tcfg, jp, bridge.params_from_numpy(tcfg, jax.tree.map(np.asarray, jp), "cpu")
+
+
+@pytest.mark.parametrize("arch", list(ARCHS))
+def test_continuous_engine_samples_the_reference_tokens(arch):
+    """``ContinuousEngine(temperature=0.8).generate(batch, n, key)``: row i
+    draws with ``fold_in(key, i)``, its n-th token with
+    ``fold_in(fold_in(key, i), n)``, as the reference's."""
+    jcfg, tcfg, jp, tp = arch_setup(arch)
+    toks = prompts(3, 8, tcfg.vocab, seed=5)
+    kw = dict(n_slots=3, max_len=32, page=8, temperature=0.8)
+    ref = RecordingContinuous(jcfg, jp, **kw)
+    want = np.asarray(ref.generate({"tokens": jnp.asarray(toks)}, n_steps=8,
+                                   key=jax.random.PRNGKey(21)))
+    got = ContinuousEngine(tcfg, tp, device="cpu", **kw).generate(
+        {"tokens": toks}, n_steps=8, key=jrandom.key(21)).numpy()
+    assert_same_draws(got, want, ref.row_scores(jax.random.PRNGKey(21)))
+    assert len(ref.scores) == 3 * 8
+
+
+@pytest.mark.parametrize("arch", list(ARCHS))
+def test_serve_engine_samples_the_reference_tokens(arch):
+    """The static engine: one key a step, ``fold_in(key, i)``, over the
+    whole (B, V) logits, as the reference's ``_select``."""
+    jcfg, tcfg, jp, tp = arch_setup(arch)
+    toks = prompts(3, 8, tcfg.vocab, seed=6)
+    ref = RecordingServe(jcfg, jp, max_len=32, temperature=0.8)
+    want = np.asarray(ref.generate({"tokens": jnp.asarray(toks)}, n_steps=6,
+                                   key=jax.random.PRNGKey(22)))
+    got = ServeEngine(tcfg, tp, max_len=32, temperature=0.8, device="cpu").generate(
+        {"tokens": toks}, n_steps=6, key=jrandom.key(22)).numpy()
+    assert_same_draws(got, want, lambda r, n: ref.scores[n][r])
+    assert sorted(ref.scores) == list(range(6))
 
 
 # --------------------------------------------------------------------------
@@ -206,3 +312,34 @@ def test_serve_cli_continuous_on_cpu(capsys):
         tserve.main(["--reduced", "--continuous", "--device", "cpu", "--theta", "predictive"])
     with pytest.raises(SystemExit):
         tserve.main(["--reduced", "--device", "cpu"])
+
+
+def test_serve_cli_samples_the_reference_tokens_at_its_default_temperature():
+    """The launcher's default temperature is the reference's 0.8; request i
+    gets the reference's key ``fold_in(PRNGKey(seed), i)`` and prompt, and
+    the reference's engine, given the run's weights and the reference's
+    requests, draws the tokens the launcher served."""
+    argv = ["--reduced", "--continuous", "--device", "cpu", "--n-requests", "4",
+            "--steps", "6", "--prompt-len", "8", "--seed", "3"]
+    args = tserve.parser().parse_args(argv)
+    assert args.temperature == 0.8
+    res = tserve.run_continuous(args)
+    assert res["temperature"] == 0.8 and res["completed"] == 4
+    eng = res["objects"]["engine"]
+    jcfg = jreduced(jget_config("llama3.2-1b"))
+    jargs = argparse.Namespace(seed=3, n_requests=4, arrival_rate=args.arrival_rate,
+                               slots=args.slots, temperature=0.8, prompt_len=8, steps=6)
+    jreqs = jserve._make_requests(jargs, jcfg)
+    treqs = tserve._make_requests(args, eng.cfg)
+    for jr, tr in zip(jreqs, treqs, strict=True):
+        np.testing.assert_array_equal(tr.prompt, jr.prompt)
+        assert (tr.max_new, tr.arrival) == (jr.max_new, jr.arrival)
+        np.testing.assert_array_equal(tr.key.numpy(), np.asarray(jr.key).astype(np.int64))
+    jp = jax.tree.map(jnp.asarray, bridge.params_to_numpy(eng.cfg, eng.params))
+    ref = RecordingContinuous(jcfg, jp, n_slots=args.slots, max_len=eng.max_len,
+                              page=args.page_size, temperature=0.8)
+    want = {r.prompt.tobytes(): r for r in ref.serve(jreqs)}
+    for r in res["objects"]["requests"]:
+        w = want[r.prompt.tobytes()]
+        words = tuple(np.asarray(w.key).tolist())
+        assert_same_draws([r.out], [w.out], lambda _, n: ref.scores[words, n])

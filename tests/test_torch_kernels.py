@@ -73,6 +73,61 @@ def test_rmsnorm_plain_matches_pallas_and_apply_norm(shape, dtype, scale_dtype):
             np.testing.assert_allclose(f32(got), f32(want), **tol)
 
 
+def held_vectors(pl: RN.Plan, d: int) -> np.ndarray:
+    """The vectors of one row that the kernel's threads hold under ``pl``
+    (CTA rank c of the cluster, thread t, load k: vector c * span + t +
+    k * threads, below the end of the rank's slice), as
+    ``csrc/rmsnorm.cu`` indexes them."""
+    nvec = d // pl.vec
+    span = -(-nvec // pl.cluster)
+    c, t, k = np.meshgrid(np.arange(pl.cluster), np.arange(pl.threads), np.arange(pl.vpt),
+                          indexing="ij")
+    v = c * span + t + k * pl.threads
+    return v[v < np.minimum((c + 1) * span, nvec)]
+
+
+@pytest.mark.parametrize("d", [2560, 2048, 768, 2558, 320, 16384, 8190, 24000, 30001])
+@pytest.mark.parametrize("itemsize", [4, 2])
+def test_rmsnorm_plan_holds_every_element_once(d, itemsize):
+    """Every vector of a row is held by exactly one thread, within the
+    kernel's limits; 16-byte vectors unless d is not a multiple of them."""
+    pl = RN.plan(d, itemsize)
+    held = np.sort(held_vectors(pl, d))
+    np.testing.assert_array_equal(held, np.arange(d // pl.vec))
+    assert pl.vec == (16 // itemsize if d % (16 // itemsize) == 0 else 1)
+    assert pl.vpt in (1, 2, 4, 8) and pl.vpt * pl.vec <= RN.MAX_ELEMS
+    assert pl.threads % 32 == 0 and pl.threads <= RN.MAX_THREADS
+    assert pl.cluster in (1, 2, 4, 8)
+    assert RN.plan(d, itemsize, aligned=False).vec == 1
+
+
+@pytest.mark.parametrize("d,itemsize,threads,vpt", [
+    (2560, 4, 96, 8), (2048, 4, 64, 8), (768, 4, 32, 8),
+    (2560, 2, 96, 4), (2048, 2, 64, 4), (768, 2, 32, 4)])
+def test_rmsnorm_plan_at_the_paths_widths(d, itemsize, threads, vpt):
+    """The serving paths' rows: no cluster; the fewest warps that hold a row
+    at 32 elements a thread (1-3)."""
+    assert RN.plan(d, itemsize) == RN.Plan(16 // itemsize, vpt, threads, 1)
+
+
+@pytest.mark.parametrize("d,itemsize,cluster", [(8190, 4, 2), (8190, 2, 2), (40000, 4, 4),
+                                                (40000, 2, 4), (131072, 4, 8)])
+def test_rmsnorm_plan_cuts_only_rows_wider_than_a_cta_over_a_cluster(d, itemsize, cluster):
+    assert RN.plan(d, itemsize).cluster == cluster
+
+
+def test_rmsnorm_plan_refuses_rows_past_the_kernel():
+    widest = RN.MAX_CLUSTER * RN.MAX_THREADS * RN.MAX_ELEMS
+    for itemsize in (4, 2):
+        assert RN.plan(widest, itemsize).cluster == RN.MAX_CLUSTER
+        with pytest.raises(ValueError, match="exceed"):
+            RN.plan(widest + 16, itemsize)
+    scalar = RN.MAX_CLUSTER * RN.MAX_THREADS * RN.MAX_VPT      # one element a load
+    assert RN.plan(scalar - 1, 4).cluster == RN.MAX_CLUSTER
+    with pytest.raises(ValueError, match="exceed"):
+        RN.plan(scalar + 1, 4)
+
+
 # --------------------------------------------------------------------------
 # flash attention
 # --------------------------------------------------------------------------

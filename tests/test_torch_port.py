@@ -74,7 +74,7 @@ def test_every_module_imports_with_jax_and_repro_blocked():
             importlib.import_module(n)
         bad = [k for k in sys.modules if k.split(".")[0] in ("jax", "jaxlib", "repro")]
         assert not bad, bad
-        for n in ("models.ssm", "kernels.ssd", "kernels.ops", "configs.mamba2_130m"):
+        for n in ("models.ssm", "kernels.ssd", "kernels.ops", "configs.mamba2_130m", "jrandom"):
             assert "repro_torch." + n in names, n
         print(len(names))
     """)
