@@ -23,7 +23,9 @@ Builds the hand-written kernels from the five sources in this checkout (one
      cluster); fp32 timed at every shape, an empty kernel timed the same
      way (the launch floor), and the decode calls timed under a cluster
      split beside the wrapper's plan;
-   - RG-LRU scan: B 1, W 2560, with h0, at S 2032 and S 128;
+   - RG-LRU scan: B 1, W 2560, with h0, at S 2032 and S 128, also held to
+     ``scan_model`` (its order of operations) within an ulp, its plan
+     logged, timed beside an elementwise product with the same bytes;
    - flash prefill attention (tensor cores, 3xTF32 for fp32):
      recurrentgemma-2b's (Hq 10, Hkv 1, D 256, window 2048) at S 2032, at
      S 2304 > window and at S 128, llama3.2-1b's (Hq 32, Hkv 8, D 64) at S
@@ -37,8 +39,8 @@ Builds the hand-written kernels from the five sources in this checkout (one
      2e-3.
    Each kernel is timed beside its plain version, its bound and, where one
    PyTorch call computes the same function, that call (``F.rms_norm``,
-   ``scaled_dot_product_attention``; yardsticks only, the port never calls
-   them); flash and the SSD scan also beside their 3xTF32 tensor-core
+   ``scaled_dot_product_attention``, ``index_put_`` for the paged scatter;
+   yardsticks only, the port never calls them); flash and the SSD scan also beside their 3xTF32 tensor-core
    bound, and a second launch of each on the same inputs must give the
    same bits.
 1b. **the ``kernels.ops`` surface**: the unfused paged attention and the
@@ -536,20 +538,43 @@ def phase_sampling(torch):
 
 def phase_scan(torch, RS):
     """The RG-LRU scan at recurrentgemma's long prefill (the record) and at
-    a 128-token join, each timed beside its plain version and its bound."""
+    a 128-token join, B 1, W 2560, with h0: held to its plain version and
+    to ``scan_model`` (the kernel's order of operations, within an ulp of
+    max(|h|, 1)), a second launch bit-equal, its plan logged, timed beside
+    its plain version and its bound.  ``library_ms`` is None: no single
+    PyTorch call computes a first-order linear recurrence (``cumsum`` and
+    ``cumprod`` are its special cases a = 1 and b = 0)."""
     rng = np.random.default_rng(2)
     record = None
     for b, s, w in ((1, 2032, 2560), (1, 128, 2560)):
         a = torch.from_numpy(rng.uniform(0.3, 0.999, (b, s, w)).astype(np.float32)).to("cuda")
         bb = randn(torch, rng, b, s, w, std=0.3)
         h0 = randn(torch, rng, b, w)
-        err = compare(torch, RS.rglru_scan(a, bb, h0), RS.linear_scan(a, bb, h0)[0], F32_TOL,
+        got = RS.rglru_scan(a, bb, h0)
+        err = compare(torch, got, RS.linear_scan(a, bb, h0)[0], F32_TOL,
                       f"rglru_scan B {b} S {s} W {w} with h0")
+        same = torch.equal(RS.rglru_scan(a, bb, h0), got)
+        require(same, f"rglru_scan S {s}: two launches on the same inputs differ")
+        plan = RS.scan_plan(b, s, w, RS.sm_count(a.device))
+        require(RS.build().repro_rglru_scan_shared_bytes(plan.lanes, plan.seg)
+                == plan.shared_bytes, f"rglru_scan S {s}: shared bytes of {plan}")
+        model = RS.scan_model(a.cpu().numpy(), bb.cpu().numpy(), h0.cpu().numpy(), plan)
+        ulps = np.abs(got.cpu().numpy() - model) / np.spacing(
+            np.maximum(np.abs(model), np.float32(1)))
+        require(float(ulps.max()) <= 1, f"rglru_scan S {s}: {ulps.max()} ulp from scan_model")
         b_ms, b_by = bound(3 * a.numel() * 4 + h0.numel() * 4, 2 * a.numel())
         rec = dict(max_abs_err=err, ms=time_ms(torch, lambda: RS.rglru_scan(a, bb, h0)),
                    plain_ms=time_ms(torch, lambda: RS.linear_scan(a, bb, h0)),
                    bound_ms=b_ms, bound_by=b_by, library_ms=None)
-        log(f"rglru_scan timing, B {b} S {s} W {w}: " + json.dumps(rec))
+        # the same bytes without the recurrence: what a streaming elementwise
+        # op reaches on this card (a yardstick of the rate, not of the function)
+        out = torch.empty_like(a)
+        mul_ms = time_ms(torch, lambda: torch.mul(a, bb, out=out))
+        log(f"rglru_scan timing, B {b} S {s} W {w}: " + json.dumps(rec)
+            + f"; plan {json.dumps(plan._asdict())}; {100 * b_ms / rec['ms']:.1f} % of the "
+            f"bound; a second launch bit-equal: {same}; off scan_model by at most "
+            f"{float(ulps.max()):.0f} ulp; torch.mul(a, b) into h, the same bytes: "
+            f"{mul_ms:.5f} ms ({rec['ms'] / mul_ms:.3f} x)")
         record = record or rec
     return record
 
@@ -824,9 +849,25 @@ def phase_ops(torch, mods):
             b_ms, b_by = bound(2 * b_rows + 4 * 2 * shape["b"], 0)
             records["paged_scatter"] = dict(
                 max_abs_err=0.0, ms=time_ms(torch, kern), plain_ms=time_ms(torch, plain),
-                bound_ms=b_ms, bound_by=b_by, library_ms=None)
+                bound_ms=b_ms, bound_by=b_by, library_ms=scatter_index_put_ms(torch, case))
             log("paged_scatter timing, recurrentgemma-2b: " + json.dumps(records["paged_scatter"]))
     return counts, records
+
+
+def scatter_index_put_ms(torch, case):
+    """One ``index_put_`` that writes the same rows (the slots' K and V rows)
+    to the same destinations (page, offset), into the K and V pools stacked
+    as one (2, pages, page, Hkv, D) tensor, so that one PyTorch call does the
+    kernel's work; the copy of the pools is made once, before the timing."""
+    pools = torch.stack([case["k_pages"], case["v_pages"]])
+    rows = torch.cat([case["k_new"], case["v_new"]])
+    b = case["k_new"].shape[0]
+    which = torch.arange(2, device="cuda").repeat_interleave(b)
+    index = (which, case["page_idx"].long().repeat(2), case["off"].long().repeat(2))
+    pools.index_put_(index, rows)
+    torch.cuda.synchronize()
+    require(torch.equal(pools[0][index[1][:b], index[2][:b]], case["k_new"]), "index_put_")
+    return time_ms(torch, lambda: pools.index_put_(index, rows))
 
 
 # --------------------------------------------------------------------------
@@ -1023,6 +1064,10 @@ def phase_long_join(torch, eng, prompt):
     for kernel in ("cuda", "plain"):
         rec = time_join(torch, eng.cfg, eng.params, prompt, kernel)
         log(f"long join {eng.cfg.name}, {len(prompt)} tokens, {kernel}: " + json.dumps(rec))
+        if kernel == "cuda" and "rglru" in eng.cfg.layer_kinds():
+            log(f"long join {eng.cfg.name}: the RG-LRU scan's device time summed over its "
+                f"{eng.cfg.layer_kinds().count('rglru')} launches (one per RG-LRU layer): "
+                f"{rec['prefill_kernel_ms'].get('rglru_scan', 0.0):.4f} ms")
 
 
 def phase_small_model(torch, arch, n_layers, prompt_len, n_steps, max_len):

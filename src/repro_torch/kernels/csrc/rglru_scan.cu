@@ -8,19 +8,45 @@
 // What bounds it on an H100: the bytes, at 3.35 TB/s: a and b are read and
 // h is written once, 12 bytes per element against two flops.  At one
 // prompt of 2032 positions over the 2560 lanes of recurrentgemma-2b that is
-// 62 MB, about 19 us.
+// 62 MB, about 19 us; a 128-token join moves 3.9 MB, about 1.2 us, less
+// than a launch and one trip to device memory take.
 //
-// What the design does about it: the recurrence is elementwise over the
-// width lanes and sequential in time, so one thread owns one (batch, lane)
-// pair and steps time with the carry in a register; neighbouring threads
-// take neighbouring lanes, so every load and store of a warp is one
-// coalesced 128-byte row.  The loads of a and b do not depend on the carry:
-// each thread issues a batch of kUnroll time steps' loads before it folds
-// them, so kUnroll rows are in flight per thread instead of one.  The
-// TPU kernel's chunked time grid with its VMEM carry becomes this in-thread
-// loop.  Not done yet: B * W threads are few (2560 at one prompt, 80 warps
-// on 132 SMs), so the kernel waits on memory latency; a two-pass scan over
-// time chunks would give the card more parallel work.
+// What the design does about it: one launch reads a and b once and writes
+// h once, with enough bytes in flight to keep device memory busy at one
+// prompt (Little's law: about 3 MB at 3.35 TB/s and a microsecond of
+// latency).  A thread per (batch, lane) pair stepping all S positions, as
+// this kernel did before, has 2560 threads at one prompt and waits on
+// latency; here the time axis is cut too.
+// * A block owns L lanes (16 or 32: 64- or 128-byte rows) of one batch row,
+//   so one prompt at W 2560 gives 160 blocks on 132 SMs, and walks time in
+//   tiles of T = G * Q steps, at most 128 (tiles of 256 were measured
+//   slower: the ring fills and drains later).  Its 256 threads are L lanes
+//   x G segments of Q steps; a warp spans neighbouring lanes at one step.
+// * Tiles of a and b arrive by 16-byte `cp.async` copies (4-byte ones where
+//   W is not a multiple of 4 or a pointer is not 16-byte aligned) into a
+//   ring of two stages in shared memory: tile k+2 is copied while tile k is
+//   scanned, so two tiles a block are in flight (three stages were measured
+//   no faster).  L2 fetches whole 128-byte lines, so at L 16 one block's
+//   copy brings its neighbour's half of each line too.  Segments are padded so
+//   that the two segments a warp reads at L 16 fall on different banks.
+// * A tile is scanned in three passes over registers: each thread forms its
+//   segment's aggregate (A = the product of its a, B = its scan from 0);
+//   after one barrier the thread of segment g folds the tile's carry-in
+//   through the aggregates of segments 0 .. g-1 in that order
+//   (c <- A_j * c + B_j), then rescans its Q steps from c with the a and b
+//   it still holds and stores h.  The last segment's end is the next
+//   tile's carry.  No atomics and no flags between blocks: the order of
+//   every floating-point operation is fixed by (L, Q), so two launches give
+//   the same bits.  A segment's product of Q factors rounds to about Q ulp,
+//   within the port's fp32 bar.
+// * The plan (L, Q; G = 256 / L) is a function of (B, S, W) and the SM count
+//   alone, chosen by the Python wrapper (`repro_torch.kernels.rglru_scan.
+//   scan_plan`), which also models this order in numpy (`scan_model`).  At
+//   S 128 the whole sequence is one tile.  Ragged S and W are masked: rows
+//   past S are never copied and never stored (they only reach later
+//   segments, which lie past S too), lanes past W likewise.
+// The TPU kernel's sequential time grid with its VMEM carry becomes the
+// loop over tiles inside the block, with the carry in shared memory.
 //
 // The file includes no PyTorch header: it exposes a plain C interface that
 // the Python wrapper calls through ctypes.
@@ -29,51 +55,181 @@
 
 namespace {
 
-constexpr int kThreads = 32;
-constexpr int kUnroll = 16;
+constexpr int kThreads = 256;  // threads a block: L lanes x G segments
+constexpr int kStages = 2;     // tiles of a and b in shared memory
 
-// grid (ceil(W / kThreads), B); thread = one width lane of one batch row.
+// floats between the starts of two segments of a tile: Q rows of L lanes,
+// padded at L 16 so that a warp's two segments start 16 banks apart
+__host__ __device__ constexpr int seg_stride(int lanes, int seg) { return seg * lanes + 32 - lanes; }
+
+// floats of one tile of one array in shared memory
+__host__ __device__ constexpr int tile_floats(int lanes, int seg) {
+  return (kThreads / lanes) * seg_stride(lanes, seg);
+}
+
+// the ring (two stages of a and b), the segments' aggregates and the carry
+constexpr size_t shared_bytes(int lanes, int seg) {
+  return sizeof(float) * (2 * kStages * static_cast<size_t>(tile_floats(lanes, seg)) +
+                          2 * kThreads + lanes);
+}
+
+// floats a copy: 4 (16 bytes, past L1) or 1; L2 fetches the whole 128-byte
+// line, whose other half at L 16 is the neighbouring block's
+template <int V>
+__device__ __forceinline__ void cp_async(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  if constexpr (V == 4) {
+    asm volatile("cp.async.cg.shared.global.L2::128B [%0], [%1], 16;\n" ::"r"(s), "l"(src)
+                 : "memory");
+  } else {
+    asm volatile("cp.async.ca.shared.global.L2::128B [%0], [%1], 4;\n" ::"r"(s), "l"(src)
+                 : "memory");
+  }
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// grid B * ceil(W / lanes); block = (batch row, L lanes); thread = (lane l,
+// segment g) with threadIdx.x = g * lanes + l.  Q steps a segment, V floats a copy.
+template <int Q, int V>
 __global__ void __launch_bounds__(kThreads)
     rglru_scan_kernel(const float* __restrict__ a, const float* __restrict__ b,
-                      const float* __restrict__ h0, float* __restrict__ h, int s, int w) {
-  const int lane_w = blockIdx.x * kThreads + threadIdx.x;
-  if (lane_w >= w) return;
-  const size_t bi = blockIdx.y;
-  const size_t base = bi * static_cast<size_t>(s) * w + lane_w;
-  const size_t step = static_cast<size_t>(w);
-  float carry = h0 ? h0[bi * w + lane_w] : 0.f;
+                      const float* __restrict__ h0, float* __restrict__ h, int s, int w,
+                      int lanes) {
+  extern __shared__ float4 smem4[];
+  float* const ring = reinterpret_cast<float*>(smem4);
+  const int segs = kThreads / lanes;
+  const int stride = seg_stride(lanes, Q);
+  const int tile_f = tile_floats(lanes, Q);
+  float* const agg_a = ring + 2 * kStages * tile_f;  // (G, L): A of each segment
+  float* const agg_b = agg_a + kThreads;             // (G, L): B of each segment
+  float* const carry = agg_b + kThreads;             // (L,): the next tile's carry-in
 
-  int t = 0;
-  for (; t + kUnroll <= s; t += kUnroll) {
-    float av[kUnroll], bv[kUnroll];
-    const size_t row = base + static_cast<size_t>(t) * step;
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      av[u] = a[row + u * step];
-      bv[u] = b[row + u * step];
+  const int l = threadIdx.x % lanes, g = threadIdx.x / lanes;
+  const int col_blocks = (w + lanes - 1) / lanes;
+  const int bi = blockIdx.x / col_blocks;
+  const int lane0 = (blockIdx.x % col_blocks) * lanes;
+  const int width = min(lanes, w - lane0);  // this block's lanes inside W
+  const int tile = segs * Q;
+  const int n_tiles = (s + tile - 1) / tile;
+  const size_t first = static_cast<size_t>(bi) * s * w + lane0;  // (bi, 0, lane0)
+
+  // copy tile k of a and b into stage k % 2, neighbouring threads on
+  // neighbouring chunks of a row; every thread commits one group a tile
+  auto load = [&](int k) {
+    float* const dst = ring + (k % kStages) * 2 * tile_f;
+    const int per_row = lanes / V;
+    const int t0 = k * tile;
+    const int chunks = min(tile, s - t0) * per_row;
+    for (int c = threadIdx.x; c < chunks; c += kThreads) {
+      const int r = c / per_row, col = (c % per_row) * V;
+      if (col < width) {
+        const int at = (r / Q) * stride + (r % Q) * lanes + col;
+        const size_t src = first + static_cast<size_t>(t0 + r) * w + col;
+        cp_async<V>(dst + at, a + src);
+        cp_async<V>(dst + tile_f + at, b + src);
+      }
     }
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      carry = fmaf(av[u], carry, bv[u]);
-      h[row + u * step] = carry;
+    cp_async_commit();
+  };
+
+  const bool live = l < width;
+  float c0 = (h0 != nullptr && live) ? h0[static_cast<size_t>(bi) * w + lane0 + l] : 0.f;
+  static_assert(kStages == 2, "the waits below leave one tile in flight");
+  load(0);
+  if (n_tiles > 1) load(1);
+  for (int k = 0; k < n_tiles; ++k) {
+    if (k + 1 < n_tiles) {
+      cp_async_wait<1>();  // tile k + 1 may still be in flight
+    } else {
+      cp_async_wait<0>();
     }
+    __syncthreads();  // tile k has landed; the last tile's carry is written
+    const float* const ta = ring + (k % kStages) * 2 * tile_f + g * stride + l;
+    float av[Q], bv[Q];
+#pragma unroll
+    for (int q = 0; q < Q; ++q) {
+      av[q] = ta[q * lanes];
+      bv[q] = ta[tile_f + q * lanes];
+    }
+    // the segment's aggregate: its end is A * (its carry-in) + B
+    float A = av[0], B = bv[0];
+#pragma unroll
+    for (int q = 1; q < Q; ++q) {
+      A *= av[q];
+      B = fmaf(av[q], B, bv[q]);
+    }
+    agg_a[threadIdx.x] = A;
+    agg_b[threadIdx.x] = B;
+    float c = k == 0 ? c0 : carry[l];
+    __syncthreads();  // the aggregates are written; stage k % 2 is read
+    if (k + kStages < n_tiles) load(k + kStages);
+    for (int j = 0; j < g; ++j) c = fmaf(agg_a[j * lanes + l], c, agg_b[j * lanes + l]);
+    const int t0 = k * tile + g * Q;
+    float* const out = h + first + static_cast<size_t>(t0) * w + l;
+#pragma unroll
+    for (int q = 0; q < Q; ++q) {
+      c = fmaf(av[q], c, bv[q]);
+      if (live && t0 + q < s) out[static_cast<size_t>(q) * w] = c;
+    }
+    if (g == segs - 1) carry[l] = c;
   }
-  for (; t < s; ++t) {
-    const size_t row = base + static_cast<size_t>(t) * step;
-    carry = fmaf(a[row], carry, b[row]);
-    h[row] = carry;
+}
+
+template <int Q, int V>
+cudaError_t launch(const float* a, const float* b, const float* h0, float* h, int batch, int s,
+                   int w, int lanes, cudaStream_t stream) {
+  const size_t smem = shared_bytes(lanes, Q);
+  const cudaError_t err = cudaFuncSetAttribute(
+      rglru_scan_kernel<Q, V>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const unsigned blocks = static_cast<unsigned>(batch) * ((w + lanes - 1) / lanes);
+  rglru_scan_kernel<Q, V><<<blocks, kThreads, smem, stream>>>(a, b, h0, h, s, w, lanes);
+  return cudaGetLastError();
+}
+
+template <int V>
+cudaError_t dispatch(const float* a, const float* b, const float* h0, float* h, int batch, int s,
+                     int w, int lanes, int seg, cudaStream_t stream) {
+  switch (seg) {
+    case 1: return launch<1, V>(a, b, h0, h, batch, s, w, lanes, stream);
+    case 2: return launch<2, V>(a, b, h0, h, batch, s, w, lanes, stream);
+    case 4: return launch<4, V>(a, b, h0, h, batch, s, w, lanes, stream);
+    case 8: return launch<8, V>(a, b, h0, h, batch, s, w, lanes, stream);
+    case 16: return launch<16, V>(a, b, h0, h, batch, s, w, lanes, stream);
+    default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
 // a, b, h: (batch, s, w) fp32; h0: (batch, w) fp32 or null for a zero state.
-// Launches on `stream` and returns the launch's cudaError_t (0 on success).
+// The plan: `lanes` (16 or 32) lanes a block, `seg` (1, 2, 4, 8 or 16) steps
+// a segment, `vec` floats a copy (4: w a multiple of 4 and a, b 16-byte
+// aligned; else 1).  Launches on `stream` and returns the launch's
+// cudaError_t (0 on success).
 extern "C" int repro_rglru_scan(const float* a, const float* b, const float* h0, float* h,
-                                int batch, int s, int w, void* stream) {
-  const dim3 grid((w + kThreads - 1) / kThreads, batch);
-  rglru_scan_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(a, b, h0, h, s, w);
-  return static_cast<int>(cudaGetLastError());
+                                int batch, int s, int w, int lanes, int seg, int vec,
+                                void* stream) {
+  if ((lanes != 16 && lanes != 32) || (vec == 4 && w % 4 != 0))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (vec == 4) return static_cast<int>(dispatch<4>(a, b, h0, h, batch, s, w, lanes, seg, st));
+  if (vec == 1) return static_cast<int>(dispatch<1>(a, b, h0, h, batch, s, w, lanes, seg, st));
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The shared memory a block of the plan (lanes, seg) takes, in bytes.
+extern "C" size_t repro_rglru_scan_shared_bytes(int lanes, int seg) {
+  return shared_bytes(lanes, seg);
 }
 
 extern "C" const char* repro_cuda_error_string(int code) {

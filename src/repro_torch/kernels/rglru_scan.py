@@ -2,13 +2,17 @@
 
 The port of ``repro.kernels.rglru_scan.rglru_scan_pallas``, which the
 reference holds to ``rglru.linear_scan``, an associative, log-depth scan.
-The kernel steps time in order, so the two agree to fp32 rounding, not bit
-for bit.
+The kernel scans tiles of time in segments with a fixed-order carry, so the
+two agree to fp32 rounding, not bit for bit.
 
 * :func:`rglru_scan` is the wrapper.  For CUDA tensors it launches the
-  kernel in ``csrc/rglru_scan.cu`` (built for ``sm_90a`` on first use) or
-  raises; it takes the plain version only for tensors that lie on the CPU.
-  It counts its launches in :data:`launches`.
+  kernel in ``csrc/rglru_scan.cu`` (built for ``sm_90a`` on first use) with
+  the plan of :func:`scan_plan`, or raises; it takes the plain version only
+  for tensors that lie on the CPU.  It counts its launches in
+  :data:`launches`.
+* :func:`scan_plan` picks the kernel's lanes a block and steps a segment
+  from the shapes and the SM count alone; :func:`scan_model` is a numpy
+  model of the kernel's order of floating-point operations under a plan.
 * :func:`linear_scan` is the plain PyTorch version, the reference's
   log-depth scan; the plain model path runs it too.
 """
@@ -16,14 +20,21 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.paged_attention import sm_count
 
 # kernel launches since the count was last set to 0 (the plain path never counts)
 launches = 0
+
+THREADS = 256         # threads a block: lanes x segments
+STAGES = 2            # tiles of a and b a block holds in shared memory
+MAX_TILE = 128        # steps a tile (a segment: at most 16, held in registers)
+VEC_BYTES = 16        # one cp.async copy, where W and the pointers allow it
 
 
 def linear_scan(a: torch.Tensor, b: torch.Tensor,
@@ -45,13 +56,102 @@ def linear_scan(a: torch.Tensor, b: torch.Tensor,
     return b, b[:, -1]
 
 
+class Plan(NamedTuple):
+    lanes: int          # L: width lanes a block, 16 or 32 (64- or 128-byte rows)
+    segs: int           # G = THREADS // L: segments a tile
+    seg: int            # Q: steps a segment, 1, 2, 4, 8 or 16
+    tile: int           # T = G * Q: steps a tile, at most 128
+    blocks: int         # B * ceil(W / L)
+    tiles: int          # ceil(S / T): tiles a block walks in order
+    shared_bytes: int   # a block's shared memory: the ring, the aggregates, the carry
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _pow2(n: int) -> int:
+    return 1 << max(n - 1, 0).bit_length()
+
+
+def scan_plan(b: int, s: int, w: int, n_sm: int) -> Plan:
+    """The kernel's plan for a, b of (b, s, w) on a card of ``n_sm`` SMs.
+
+    Lanes of 32 (128-byte rows) where that still gives two blocks an SM,
+    else 16, so that one prompt at W 2560 has 160 blocks on 132 SMs.  A
+    tile is G = 256 / L segments of the fewest steps (a power of two) that
+    cover S in one tile, up to tiles of 128 steps: a 128-token join is one
+    tile, a 2032-token one 16.  (Tiles of 256 steps were measured slower on
+    an H100 at S 2032: the ring takes longer to fill and to drain.)  A
+    function of the shapes and the SM count alone: data, positions and
+    timing never move it, and it fixes the order of every floating-point
+    operation (:func:`scan_model`)."""
+    lanes = 32 if b * _cdiv(w, 32) >= 2 * n_sm else 16
+    segs = THREADS // lanes
+    seg = min(MAX_TILE // segs, _pow2(_cdiv(max(s, 1), segs)))
+    tile = segs * seg
+    stride = seg * lanes + 32 - lanes        # a segment in shared memory, padded at L 16
+    shared = 4 * (2 * STAGES * segs * stride + 2 * THREADS + lanes)
+    return Plan(lanes, segs, seg, tile, b * _cdiv(w, lanes), _cdiv(s, tile), shared)
+
+
+def scan_model(a: np.ndarray, b: np.ndarray, h0: Optional[np.ndarray],
+               plan: Plan) -> np.ndarray:
+    """The kernel's order of floating-point operations under ``plan``, in
+    numpy: a, b (B,S,W) and h0 (B,W) (zeros when None) fp32; returns h
+    (B,S,W) fp32.
+
+    Per tile of T = G * Q steps: each segment's aggregate (A, the product of
+    its a, rounded at each step; B, its scan from 0), the fixed-order carry
+    (segment g's carry-in is the tile's carry-in folded through segments
+    0 .. g-1, c <- A_j * c + B_j), the rescan of each segment from its
+    carry-in; the last segment's end is the next tile's carry.  Each
+    ``fmaf`` is computed in float64 and rounded once to fp32, so the model
+    gives the kernel's bits but for rare double roundings."""
+    a, b = np.asarray(a, np.float32), np.asarray(b, np.float32)
+    bsz, s, w = a.shape
+    g_n, q_n, t_n = plan.segs, plan.seg, plan.tile
+    n = plan.tiles * t_n
+    # rows past S (the kernel never stores them) as identity steps
+    ap = np.ones((bsz, n, w), np.float32)
+    bp = np.zeros((bsz, n, w), np.float32)
+    ap[:, :s], bp[:, :s] = a, b
+    h = np.empty((bsz, n, w), np.float32)
+    carry = np.zeros((bsz, w), np.float32) if h0 is None else np.asarray(h0, np.float32)
+
+    def fma(x, y, z):
+        return (x.astype(np.float64) * y + z).astype(np.float32)
+
+    for k in range(plan.tiles):
+        rows = slice(k * t_n, (k + 1) * t_n)
+        ta = ap[:, rows].reshape(bsz, g_n, q_n, w)
+        tb = bp[:, rows].reshape(bsz, g_n, q_n, w)
+        agg_a, agg_b = ta[:, :, 0], tb[:, :, 0]
+        for q in range(1, q_n):
+            agg_a = agg_a * ta[:, :, q]
+            agg_b = fma(ta[:, :, q], agg_b, tb[:, :, q])
+        c = np.empty((bsz, g_n, w), np.float32)
+        c[:, 0] = carry
+        for g in range(1, g_n):
+            c[:, g] = fma(agg_a[:, g - 1], c[:, g - 1], agg_b[:, g - 1])
+        out = np.empty((bsz, g_n, q_n, w), np.float32)
+        for q in range(q_n):
+            c = fma(ta[:, :, q], c, tb[:, :, q])
+            out[:, :, q] = c
+        carry = c[:, -1]
+        h[:, rows] = out.reshape(bsz, t_n, w)
+    return h[:, :s]
+
+
 @functools.lru_cache(maxsize=None)
 def build() -> ctypes.CDLL:
     """Build ``csrc/rglru_scan.cu`` on first use and declare its C interface."""
     lib = _build.load("rglru_scan")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.repro_rglru_scan.argtypes = [p, p, p, p, i, i, i, p]
+    lib.repro_rglru_scan.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
     lib.repro_rglru_scan.restype = i
+    lib.repro_rglru_scan_shared_bytes.argtypes = [i, i]
+    lib.repro_rglru_scan_shared_bytes.restype = ctypes.c_size_t
     return lib
 
 
@@ -87,10 +187,13 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor,
     out = torch.empty_like(a)
     if s == 0 or w == 0:
         return out
+    pl = scan_plan(bsz, s, w, sm_count(a.device))
+    vec = 4 if w % 4 == 0 and all(t.data_ptr() % VEC_BYTES == 0 for t in (a, b)) else 1
     lib = build()
     rc = lib.repro_rglru_scan(a.data_ptr(), b.data_ptr(),
                               None if h0 is None else h0.data_ptr(), out.data_ptr(),
-                              bsz, s, w, torch.cuda.current_stream(a.device).cuda_stream)
+                              bsz, s, w, pl.lanes, pl.seg, vec,
+                              torch.cuda.current_stream(a.device).cuda_stream)
     _build.check(lib, rc, "rglru_scan")
     global launches
     launches += 1

@@ -215,18 +215,66 @@ def test_rmsnorm_refuses_what_the_kernel_does_not_take(card):
         RN.rmsnorm(randn(card, 1, 131080), randn(card, 131080, seed=1))
 
 
-@pytest.mark.parametrize("b,s,w,with_h0", [(1, 2032, 2560, True), (2, 37, 100, False)])
-def test_rglru_scan_kernel_matches_plain_on_card(card, b, s, w, with_h0):
-    a = torch.from_numpy(np.random.default_rng(2).uniform(0.3, 0.999, (b, s, w))
-                         .astype(np.float32)).to(card)
-    bb = randn(card, b, s, w, seed=3, std=0.3)
+def scan_inputs(card, b, s, w, with_h0, lo=0.3, offset=0):
+    """a in [lo, 0.999), b and h0 normal; ``offset`` elements into a buffer,
+    so that a and b are not 16-byte aligned (the kernel's 4-byte copies)."""
+    rng = np.random.default_rng(2)
+
+    def placed(x):
+        flat = torch.empty(x.size + offset, dtype=torch.float32, device=card)
+        flat[offset:] = torch.from_numpy(x.ravel()).to(card)
+        return flat[offset:].view(x.shape)
+
+    a = placed(rng.uniform(lo, 0.999, (b, s, w)).astype(np.float32))
+    bb = placed(rng.normal(0, 0.3, (b, s, w)).astype(np.float32))
     h0 = randn(card, b, w, seed=4) if with_h0 else None
+    return a, bb, h0
+
+
+# S from one step to 32 tiles of 256; W ragged (not a multiple of 16 or 4),
+# B 2 and 4 (lanes of 32), a and b off 16-byte alignment
+SCAN_CASES = [(1, 1, 2560, True, 0), (1, 128, 2560, True, 0), (1, 2032, 2560, True, 0),
+              (1, 8192, 2560, False, 0), (2, 37, 100, False, 0), (2, 300, 2563, True, 0),
+              (2, 2032, 100, True, 0), (4, 300, 2560, True, 0), (1, 2032, 2560, True, 1)]
+
+
+@pytest.mark.parametrize("b,s,w,with_h0,offset", SCAN_CASES)
+def test_rglru_scan_kernel_matches_plain_on_card(card, b, s, w, with_h0, offset):
+    a, bb, h0 = scan_inputs(card, b, s, w, with_h0, offset=offset)
     before = RS.launches
     got = RS.rglru_scan(a, bb, h0)
     want = RS.linear_scan(a, bb, h0)[0]
     torch.cuda.synchronize()
     assert RS.launches == before + 1
     torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-4)
+
+
+@pytest.mark.parametrize("b,s,w", [(1, 2032, 2560), (1, 128, 2560), (4, 300, 2560)])
+def test_rglru_scan_two_launches_give_the_same_bits(card, b, s, w):
+    a, bb, h0 = scan_inputs(card, b, s, w, True)
+    first = RS.rglru_scan(a, bb, h0)
+    again = RS.rglru_scan(a, bb, h0)
+    torch.cuda.synchronize()
+    assert torch.equal(first, again)
+    pl = RS.scan_plan(b, s, w, PA.sm_count(a.device))
+    assert RS.build().repro_rglru_scan_shared_bytes(pl.lanes, pl.seg) == pl.shared_bytes
+
+
+@pytest.mark.parametrize("b,s,w,with_h0,offset,lo", [
+    (1, 2032, 2560, True, 0, 0.3), (1, 128, 2560, True, 0, 0.3), (2, 300, 2563, False, 0, 0.3),
+    (4, 300, 2560, True, 0, 0.3), (1, 37, 100, True, 1, 0.3), (1, 8192, 100, True, 0, 0.99)])
+def test_rglru_scan_kernel_runs_the_order_of_the_cpu_model(card, b, s, w, with_h0, offset, lo):
+    """The kernel equals ``scan_model`` (the order of operations the CPU
+    tests hold to the reference) within one ulp of max(|h|, 1): the model
+    rounds each fmaf from float64, which can differ from the card's single
+    rounding by an ulp, rarely."""
+    a, bb, h0 = scan_inputs(card, b, s, w, with_h0, lo=lo, offset=offset)
+    got = RS.rglru_scan(a, bb, h0).cpu().numpy()
+    pl = RS.scan_plan(b, s, w, PA.sm_count(a.device))
+    want = RS.scan_model(a.cpu().numpy(), bb.cpu().numpy(),
+                         None if h0 is None else h0.cpu().numpy(), pl)
+    ulp = np.spacing(np.maximum(np.abs(want), np.float32(1)))
+    assert np.all(np.abs(got - want) <= ulp), float((np.abs(got - want) / ulp).max())
 
 
 def test_rglru_scan_refuses_what_the_kernel_does_not_take(card):
