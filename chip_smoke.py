@@ -556,9 +556,9 @@ def phase_scan(torch, RS):
         same = torch.equal(RS.rglru_scan(a, bb, h0), got)
         require(same, f"rglru_scan S {s}: two launches on the same inputs differ")
         plan = RS.scan_plan(b, s, w, RS.sm_count(a.device))
-        require(RS.build().repro_rglru_scan_shared_bytes(plan.lanes, plan.seg)
-                == plan.shared_bytes, f"rglru_scan S {s}: shared bytes of {plan}")
-        model = RS.scan_model(a.cpu().numpy(), bb.cpu().numpy(), h0.cpu().numpy(), plan)
+        require(RS.build().repro_rglru_scan_shared_bytes() == RS.SHARED_BYTES,
+                f"rglru_scan: the kernel's shared bytes differ from {RS.SHARED_BYTES}")
+        model = RS.scan_model(a.cpu().numpy(), bb.cpu().numpy(), h0.cpu().numpy())
         ulps = np.abs(got.cpu().numpy() - model) / np.spacing(
             np.maximum(np.abs(model), np.float32(1)))
         require(float(ulps.max()) <= 1, f"rglru_scan S {s}: {ulps.max()} ulp from scan_model")
@@ -570,8 +570,9 @@ def phase_scan(torch, RS):
         # op reaches on this card (a yardstick of the rate, not of the function)
         out = torch.empty_like(a)
         mul_ms = time_ms(torch, lambda: torch.mul(a, bb, out=out))
+        cut = dict(plan._asdict(), lanes=RS.LANES, segs=RS.SEGS, seg=RS.SEG)
         log(f"rglru_scan timing, B {b} S {s} W {w}: " + json.dumps(rec)
-            + f"; plan {json.dumps(plan._asdict())}; {100 * b_ms / rec['ms']:.1f} % of the "
+            + f"; plan {json.dumps(cut)}; {100 * b_ms / rec['ms']:.1f} % of the "
             f"bound; a second launch bit-equal: {same}; off scan_model by at most "
             f"{float(ulps.max()):.0f} ulp; torch.mul(a, b) into h, the same bytes: "
             f"{mul_ms:.5f} ms ({rec['ms'] / mul_ms:.3f} x)")

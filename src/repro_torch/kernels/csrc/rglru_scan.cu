@@ -17,34 +17,35 @@
 // latency).  A thread per (batch, lane) pair stepping all S positions, as
 // this kernel did before, has 2560 threads at one prompt and waits on
 // latency; here the time axis is cut too.
-// * A block owns L lanes (16 or 32: 64- or 128-byte rows) of one batch row,
-//   so one prompt at W 2560 gives 160 blocks on 132 SMs, and walks time in
-//   tiles of T = G * Q steps, at most 128 (tiles of 256 were measured
-//   slower: the ring fills and drains later).  Its 256 threads are L lanes
-//   x G segments of Q steps; a warp spans neighbouring lanes at one step.
+// * A block owns 16 lanes (64-byte rows) of one batch row, so one prompt at
+//   W 2560 gives 160 blocks on 132 SMs, and walks time in tiles of 128
+//   steps (tiles of 256 were measured slower: the ring fills and drains
+//   later).  Its 256 threads are 16 lanes x 16 segments of 8 steps; a warp
+//   spans neighbouring lanes at two neighbouring segments.
 // * Tiles of a and b arrive by 16-byte `cp.async` copies (4-byte ones where
 //   W is not a multiple of 4 or a pointer is not 16-byte aligned) into a
 //   ring of two stages in shared memory: tile k+2 is copied while tile k is
 //   scanned, so two tiles a block are in flight (three stages were measured
-//   no faster).  L2 fetches whole 128-byte lines, so at L 16 one block's
-//   copy brings its neighbour's half of each line too.  Segments are padded so
-//   that the two segments a warp reads at L 16 fall on different banks.
+//   no faster).  L2 fetches whole 128-byte lines, so one block's copy
+//   brings its neighbour's half of each line too.  Segments are padded by
+//   16 floats so that the two segments a warp reads fall on different banks.
 // * A tile is scanned in three passes over registers: each thread forms its
 //   segment's aggregate (A = the product of its a, B = its scan from 0);
 //   after one barrier the thread of segment g folds the tile's carry-in
 //   through the aggregates of segments 0 .. g-1 in that order
-//   (c <- A_j * c + B_j), then rescans its Q steps from c with the a and b
+//   (c <- A_j * c + B_j), then rescans its 8 steps from c with the a and b
 //   it still holds and stores h.  The last segment's end is the next
 //   tile's carry.  No atomics and no flags between blocks: the order of
-//   every floating-point operation is fixed by (L, Q), so two launches give
-//   the same bits.  A segment's product of Q factors rounds to about Q ulp,
-//   within the port's fp32 bar.
-// * The plan (L, Q; G = 256 / L) is a function of (B, S, W) and the SM count
-//   alone, chosen by the Python wrapper (`repro_torch.kernels.rglru_scan.
-//   scan_plan`), which also models this order in numpy (`scan_model`).  At
-//   S 128 the whole sequence is one tile.  Ragged S and W are masked: rows
-//   past S are never copied and never stored (they only reach later
-//   segments, which lie past S too), lanes past W likewise.
+//   every floating-point operation is fixed by the plan, so two launches
+//   give the same bits.  A segment's product of 8 factors rounds to about
+//   8 ulp, within the port's fp32 bar.
+// * The plan is one for every shape: its constants below are mirrored by
+//   the Python wrapper (`repro_torch.kernels.rglru_scan.scan_plan`), which
+//   also models this order in numpy (`scan_model`).  At S 128 the whole
+//   sequence is one tile.  Ragged S and W are masked: rows past S are
+//   never copied and never stored (they only reach later segments, which
+//   lie past S too), lanes past W likewise.  A block's 38,976 bytes of
+//   shared memory lie under the 48 KB a launch gets without asking.
 // The TPU kernel's sequential time grid with its VMEM carry becomes the
 // loop over tiles inside the block, with the carry in shared memory.
 //
@@ -55,26 +56,24 @@
 
 namespace {
 
-constexpr int kThreads = 256;  // threads a block: L lanes x G segments
-constexpr int kStages = 2;     // tiles of a and b in shared memory
-
-// floats between the starts of two segments of a tile: Q rows of L lanes,
-// padded at L 16 so that a warp's two segments start 16 banks apart
-__host__ __device__ constexpr int seg_stride(int lanes, int seg) { return seg * lanes + 32 - lanes; }
-
-// floats of one tile of one array in shared memory
-__host__ __device__ constexpr int tile_floats(int lanes, int seg) {
-  return (kThreads / lanes) * seg_stride(lanes, seg);
-}
+constexpr int kThreads = 256;           // threads a block: lanes x segments
+constexpr int kLanes = 16;              // width lanes a block (64-byte rows)
+constexpr int kSegs = kThreads / kLanes;  // segments a tile
+constexpr int kSeg = 8;                 // steps a segment, held in registers
+constexpr int kTile = kSegs * kSeg;     // steps a tile
+constexpr int kStages = 2;              // tiles of a and b in shared memory
+// floats between the starts of two segments of a tile: 8 rows of 16 lanes,
+// padded so that a warp's two segments start 16 banks apart
+constexpr int kStride = kSeg * kLanes + 16;
+constexpr int kTileFloats = kSegs * kStride;  // one tile of one array
 
 // the ring (two stages of a and b), the segments' aggregates and the carry
-constexpr size_t shared_bytes(int lanes, int seg) {
-  return sizeof(float) * (2 * kStages * static_cast<size_t>(tile_floats(lanes, seg)) +
-                          2 * kThreads + lanes);
-}
+constexpr size_t kSharedBytes =
+    sizeof(float) * (2 * kStages * static_cast<size_t>(kTileFloats) + 2 * kThreads + kLanes);
+static_assert(kSharedBytes <= 48 * 1024, "a launch takes 48 KB of shared memory without asking");
 
 // floats a copy: 4 (16 bytes, past L1) or 1; L2 fetches the whole 128-byte
-// line, whose other half at L 16 is the neighbouring block's
+// line, whose other half is the neighbouring block's
 template <int V>
 __device__ __forceinline__ void cp_async(float* dst, const float* src) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
@@ -96,45 +95,40 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// grid B * ceil(W / lanes); block = (batch row, L lanes); thread = (lane l,
-// segment g) with threadIdx.x = g * lanes + l.  Q steps a segment, V floats a copy.
-template <int Q, int V>
+// grid B * ceil(W / 16); block = (batch row, 16 lanes); thread = (lane l,
+// segment g) with threadIdx.x = g * 16 + l.  V floats a copy.
+template <int V>
 __global__ void __launch_bounds__(kThreads)
     rglru_scan_kernel(const float* __restrict__ a, const float* __restrict__ b,
-                      const float* __restrict__ h0, float* __restrict__ h, int s, int w,
-                      int lanes) {
+                      const float* __restrict__ h0, float* __restrict__ h, int s, int w) {
   extern __shared__ float4 smem4[];
   float* const ring = reinterpret_cast<float*>(smem4);
-  const int segs = kThreads / lanes;
-  const int stride = seg_stride(lanes, Q);
-  const int tile_f = tile_floats(lanes, Q);
-  float* const agg_a = ring + 2 * kStages * tile_f;  // (G, L): A of each segment
-  float* const agg_b = agg_a + kThreads;             // (G, L): B of each segment
-  float* const carry = agg_b + kThreads;             // (L,): the next tile's carry-in
+  float* const agg_a = ring + 2 * kStages * kTileFloats;  // (G, L): A of each segment
+  float* const agg_b = agg_a + kThreads;                  // (G, L): B of each segment
+  float* const carry = agg_b + kThreads;                  // (L,): the next tile's carry-in
 
-  const int l = threadIdx.x % lanes, g = threadIdx.x / lanes;
-  const int col_blocks = (w + lanes - 1) / lanes;
+  const int l = threadIdx.x % kLanes, g = threadIdx.x / kLanes;
+  const int col_blocks = (w + kLanes - 1) / kLanes;
   const int bi = blockIdx.x / col_blocks;
-  const int lane0 = (blockIdx.x % col_blocks) * lanes;
-  const int width = min(lanes, w - lane0);  // this block's lanes inside W
-  const int tile = segs * Q;
-  const int n_tiles = (s + tile - 1) / tile;
+  const int lane0 = (blockIdx.x % col_blocks) * kLanes;
+  const int width = min(kLanes, w - lane0);  // this block's lanes inside W
+  const int n_tiles = (s + kTile - 1) / kTile;
   const size_t first = static_cast<size_t>(bi) * s * w + lane0;  // (bi, 0, lane0)
 
   // copy tile k of a and b into stage k % 2, neighbouring threads on
   // neighbouring chunks of a row; every thread commits one group a tile
   auto load = [&](int k) {
-    float* const dst = ring + (k % kStages) * 2 * tile_f;
-    const int per_row = lanes / V;
-    const int t0 = k * tile;
-    const int chunks = min(tile, s - t0) * per_row;
+    float* const dst = ring + (k % kStages) * 2 * kTileFloats;
+    constexpr int per_row = kLanes / V;
+    const int t0 = k * kTile;
+    const int chunks = min(kTile, s - t0) * per_row;
     for (int c = threadIdx.x; c < chunks; c += kThreads) {
       const int r = c / per_row, col = (c % per_row) * V;
       if (col < width) {
-        const int at = (r / Q) * stride + (r % Q) * lanes + col;
+        const int at = (r / kSeg) * kStride + (r % kSeg) * kLanes + col;
         const size_t src = first + static_cast<size_t>(t0 + r) * w + col;
         cp_async<V>(dst + at, a + src);
-        cp_async<V>(dst + tile_f + at, b + src);
+        cp_async<V>(dst + kTileFloats + at, b + src);
       }
     }
     cp_async_commit();
@@ -152,17 +146,17 @@ __global__ void __launch_bounds__(kThreads)
       cp_async_wait<0>();
     }
     __syncthreads();  // tile k has landed; the last tile's carry is written
-    const float* const ta = ring + (k % kStages) * 2 * tile_f + g * stride + l;
-    float av[Q], bv[Q];
+    const float* const ta = ring + (k % kStages) * 2 * kTileFloats + g * kStride + l;
+    float av[kSeg], bv[kSeg];
 #pragma unroll
-    for (int q = 0; q < Q; ++q) {
-      av[q] = ta[q * lanes];
-      bv[q] = ta[tile_f + q * lanes];
+    for (int q = 0; q < kSeg; ++q) {
+      av[q] = ta[q * kLanes];
+      bv[q] = ta[kTileFloats + q * kLanes];
     }
     // the segment's aggregate: its end is A * (its carry-in) + B
     float A = av[0], B = bv[0];
 #pragma unroll
-    for (int q = 1; q < Q; ++q) {
+    for (int q = 1; q < kSeg; ++q) {
       A *= av[q];
       B = fmaf(av[q], B, bv[q]);
     }
@@ -171,66 +165,43 @@ __global__ void __launch_bounds__(kThreads)
     float c = k == 0 ? c0 : carry[l];
     __syncthreads();  // the aggregates are written; stage k % 2 is read
     if (k + kStages < n_tiles) load(k + kStages);
-    for (int j = 0; j < g; ++j) c = fmaf(agg_a[j * lanes + l], c, agg_b[j * lanes + l]);
-    const int t0 = k * tile + g * Q;
+    for (int j = 0; j < g; ++j) c = fmaf(agg_a[j * kLanes + l], c, agg_b[j * kLanes + l]);
+    const int t0 = k * kTile + g * kSeg;
     float* const out = h + first + static_cast<size_t>(t0) * w + l;
 #pragma unroll
-    for (int q = 0; q < Q; ++q) {
+    for (int q = 0; q < kSeg; ++q) {
       c = fmaf(av[q], c, bv[q]);
       if (live && t0 + q < s) out[static_cast<size_t>(q) * w] = c;
     }
-    if (g == segs - 1) carry[l] = c;
+    if (g == kSegs - 1) carry[l] = c;
   }
-}
-
-template <int Q, int V>
-cudaError_t launch(const float* a, const float* b, const float* h0, float* h, int batch, int s,
-                   int w, int lanes, cudaStream_t stream) {
-  const size_t smem = shared_bytes(lanes, Q);
-  const cudaError_t err = cudaFuncSetAttribute(
-      rglru_scan_kernel<Q, V>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  const unsigned blocks = static_cast<unsigned>(batch) * ((w + lanes - 1) / lanes);
-  rglru_scan_kernel<Q, V><<<blocks, kThreads, smem, stream>>>(a, b, h0, h, s, w, lanes);
-  return cudaGetLastError();
 }
 
 template <int V>
-cudaError_t dispatch(const float* a, const float* b, const float* h0, float* h, int batch, int s,
-                     int w, int lanes, int seg, cudaStream_t stream) {
-  switch (seg) {
-    case 1: return launch<1, V>(a, b, h0, h, batch, s, w, lanes, stream);
-    case 2: return launch<2, V>(a, b, h0, h, batch, s, w, lanes, stream);
-    case 4: return launch<4, V>(a, b, h0, h, batch, s, w, lanes, stream);
-    case 8: return launch<8, V>(a, b, h0, h, batch, s, w, lanes, stream);
-    case 16: return launch<16, V>(a, b, h0, h, batch, s, w, lanes, stream);
-    default: return cudaErrorInvalidValue;
-  }
+cudaError_t launch(const float* a, const float* b, const float* h0, float* h, int batch, int s,
+                   int w, cudaStream_t stream) {
+  const unsigned blocks = static_cast<unsigned>(batch) * ((w + kLanes - 1) / kLanes);
+  rglru_scan_kernel<V><<<blocks, kThreads, kSharedBytes, stream>>>(a, b, h0, h, s, w);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 // a, b, h: (batch, s, w) fp32; h0: (batch, w) fp32 or null for a zero state.
-// The plan: `lanes` (16 or 32) lanes a block, `seg` (1, 2, 4, 8 or 16) steps
-// a segment, `vec` floats a copy (4: w a multiple of 4 and a, b 16-byte
-// aligned; else 1).  Launches on `stream` and returns the launch's
-// cudaError_t (0 on success).
+// `vec` floats a copy (4: w a multiple of 4 and a, b 16-byte aligned; else
+// 1).  The caller keeps batch * ceil(w / 16) blocks within the grid's
+// 2**31 - 1.  Launches on `stream` and returns the launch's cudaError_t (0
+// on success).
 extern "C" int repro_rglru_scan(const float* a, const float* b, const float* h0, float* h,
-                                int batch, int s, int w, int lanes, int seg, int vec,
-                                void* stream) {
-  if ((lanes != 16 && lanes != 32) || (vec == 4 && w % 4 != 0))
-    return static_cast<int>(cudaErrorInvalidValue);
+                                int batch, int s, int w, int vec, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (vec == 4) return static_cast<int>(dispatch<4>(a, b, h0, h, batch, s, w, lanes, seg, st));
-  if (vec == 1) return static_cast<int>(dispatch<1>(a, b, h0, h, batch, s, w, lanes, seg, st));
+  if (vec == 4 && w % 4 == 0) return static_cast<int>(launch<4>(a, b, h0, h, batch, s, w, st));
+  if (vec == 1) return static_cast<int>(launch<1>(a, b, h0, h, batch, s, w, st));
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The shared memory a block of the plan (lanes, seg) takes, in bytes.
-extern "C" size_t repro_rglru_scan_shared_bytes(int lanes, int seg) {
-  return shared_bytes(lanes, seg);
-}
+// The shared memory a block takes, in bytes.
+extern "C" size_t repro_rglru_scan_shared_bytes() { return kSharedBytes; }
 
 extern "C" const char* repro_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -10,9 +10,10 @@ two agree to fp32 rounding, not bit for bit.
   the plan of :func:`scan_plan`, or raises; it takes the plain version only
   for tensors that lie on the CPU.  It counts its launches in
   :data:`launches`.
-* :func:`scan_plan` picks the kernel's lanes a block and steps a segment
-  from the shapes and the SM count alone; :func:`scan_model` is a numpy
-  model of the kernel's order of floating-point operations under a plan.
+* :func:`scan_plan` gives the kernel's grid and tiles for the shapes; the
+  cut of a block (:data:`LANES`, :data:`SEGS`, :data:`SEG`, :data:`TILE`)
+  is one for every shape.  :func:`scan_model` is a numpy model of the
+  kernel's order of floating-point operations.
 * :func:`linear_scan` is the plain PyTorch version, the reference's
   log-depth scan; the plain model path runs it too.
 """
@@ -31,10 +32,18 @@ from repro_torch.kernels.paged_attention import sm_count
 # kernel launches since the count was last set to 0 (the plain path never counts)
 launches = 0
 
+# the kernel's constants (csrc/rglru_scan.cu)
 THREADS = 256         # threads a block: lanes x segments
+LANES = 16            # L: width lanes a block (64-byte rows)
+SEGS = THREADS // LANES   # G: segments a tile
+SEG = 8               # Q: steps a segment, held in registers
+TILE = SEGS * SEG     # T: steps a tile
 STAGES = 2            # tiles of a and b a block holds in shared memory
-MAX_TILE = 128        # steps a tile (a segment: at most 16, held in registers)
+# a block's shared memory: the ring (a segment padded by 16 floats), the
+# segments' aggregates and the carry
+SHARED_BYTES = 4 * (2 * STAGES * SEGS * (SEG * LANES + 16) + 2 * THREADS + LANES)
 VEC_BYTES = 16        # one cp.async copy, where W and the pointers allow it
+GRID_LIMIT = 2**31 - 1    # blocks a launch's grid.x may hold
 
 
 def linear_scan(a: torch.Tensor, b: torch.Tensor,
@@ -57,49 +66,31 @@ def linear_scan(a: torch.Tensor, b: torch.Tensor,
 
 
 class Plan(NamedTuple):
-    lanes: int          # L: width lanes a block, 16 or 32 (64- or 128-byte rows)
-    segs: int           # G = THREADS // L: segments a tile
-    seg: int            # Q: steps a segment, 1, 2, 4, 8 or 16
-    tile: int           # T = G * Q: steps a tile, at most 128
-    blocks: int         # B * ceil(W / L)
+    blocks: int         # B * ceil(W / L): a block for each batch row's L lanes
     tiles: int          # ceil(S / T): tiles a block walks in order
-    shared_bytes: int   # a block's shared memory: the ring, the aggregates, the carry
 
 
 def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def _pow2(n: int) -> int:
-    return 1 << max(n - 1, 0).bit_length()
-
-
 def scan_plan(b: int, s: int, w: int, n_sm: int) -> Plan:
     """The kernel's plan for a, b of (b, s, w) on a card of ``n_sm`` SMs.
 
-    Lanes of 32 (128-byte rows) where that still gives two blocks an SM,
-    else 16, so that one prompt at W 2560 has 160 blocks on 132 SMs.  A
-    tile is G = 256 / L segments of the fewest steps (a power of two) that
-    cover S in one tile, up to tiles of 128 steps: a 128-token join is one
-    tile, a 2032-token one 16.  (Tiles of 256 steps were measured slower on
-    an H100 at S 2032: the ring takes longer to fill and to drain.)  A
-    function of the shapes and the SM count alone: data, positions and
-    timing never move it, and it fixes the order of every floating-point
-    operation (:func:`scan_model`)."""
-    lanes = 32 if b * _cdiv(w, 32) >= 2 * n_sm else 16
-    segs = THREADS // lanes
-    seg = min(MAX_TILE // segs, _pow2(_cdiv(max(s, 1), segs)))
-    tile = segs * seg
-    stride = seg * lanes + 32 - lanes        # a segment in shared memory, padded at L 16
-    shared = 4 * (2 * STAGES * segs * stride + 2 * THREADS + lanes)
-    return Plan(lanes, segs, seg, tile, b * _cdiv(w, lanes), _cdiv(s, tile), shared)
+    Every shape takes the one cut of a block: 16 lanes, tiles of 128 steps
+    in 16 segments of 8, which gives one prompt at W 2560 160 blocks, more
+    than an H100's 132 SMs, and makes a 128-token join one tile and a
+    2032-token one 16.  (Tiles of 256 steps were measured slower on an H100
+    at S 2032: the ring takes longer to fill and to drain.)  Rows past S and
+    lanes past W are masked, so ``n_sm`` moves nothing.  A function of the
+    shapes alone: data, positions and timing never move it, and the cut
+    fixes the order of every floating-point operation (:func:`scan_model`)."""
+    return Plan(b * _cdiv(w, LANES), _cdiv(s, TILE))
 
 
-def scan_model(a: np.ndarray, b: np.ndarray, h0: Optional[np.ndarray],
-               plan: Plan) -> np.ndarray:
-    """The kernel's order of floating-point operations under ``plan``, in
-    numpy: a, b (B,S,W) and h0 (B,W) (zeros when None) fp32; returns h
-    (B,S,W) fp32.
+def scan_model(a: np.ndarray, b: np.ndarray, h0: Optional[np.ndarray]) -> np.ndarray:
+    """The kernel's order of floating-point operations, in numpy: a, b
+    (B,S,W) and h0 (B,W) (zeros when None) fp32; returns h (B,S,W) fp32.
 
     Per tile of T = G * Q steps: each segment's aggregate (A, the product of
     its a, rounded at each step; B, its scan from 0), the fixed-order carry
@@ -110,8 +101,9 @@ def scan_model(a: np.ndarray, b: np.ndarray, h0: Optional[np.ndarray],
     gives the kernel's bits but for rare double roundings."""
     a, b = np.asarray(a, np.float32), np.asarray(b, np.float32)
     bsz, s, w = a.shape
-    g_n, q_n, t_n = plan.segs, plan.seg, plan.tile
-    n = plan.tiles * t_n
+    g_n, q_n, t_n = SEGS, SEG, TILE
+    tiles = _cdiv(s, t_n)
+    n = tiles * t_n
     # rows past S (the kernel never stores them) as identity steps
     ap = np.ones((bsz, n, w), np.float32)
     bp = np.zeros((bsz, n, w), np.float32)
@@ -122,7 +114,7 @@ def scan_model(a: np.ndarray, b: np.ndarray, h0: Optional[np.ndarray],
     def fma(x, y, z):
         return (x.astype(np.float64) * y + z).astype(np.float32)
 
-    for k in range(plan.tiles):
+    for k in range(tiles):
         rows = slice(k * t_n, (k + 1) * t_n)
         ta = ap[:, rows].reshape(bsz, g_n, q_n, w)
         tb = bp[:, rows].reshape(bsz, g_n, q_n, w)
@@ -148,9 +140,9 @@ def build() -> ctypes.CDLL:
     """Build ``csrc/rglru_scan.cu`` on first use and declare its C interface."""
     lib = _build.load("rglru_scan")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.repro_rglru_scan.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
+    lib.repro_rglru_scan.argtypes = [p, p, p, p, i, i, i, i, p]
     lib.repro_rglru_scan.restype = i
-    lib.repro_rglru_scan_shared_bytes.argtypes = [i, i]
+    lib.repro_rglru_scan_shared_bytes.argtypes = []
     lib.repro_rglru_scan_shared_bytes.restype = ctypes.c_size_t
     return lib
 
@@ -182,17 +174,19 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor,
     bsz, s, w = a.shape
     if h0 is not None and h0.shape != (bsz, w):
         _fail(f"h0 must be ({bsz},{w}), got {tuple(h0.shape)}")
-    if not 1 <= bsz <= 65535:
-        _fail(f"batch {bsz} not in [1, 65535]")
+    if bsz < 1:
+        _fail(f"batch {bsz} is empty")
+    pl = scan_plan(bsz, s, w, sm_count(a.device))
+    if pl.blocks > GRID_LIMIT:
+        _fail(f"{pl.blocks} blocks (B * ceil(W / {LANES})) exceed the grid's {GRID_LIMIT}")
     out = torch.empty_like(a)
     if s == 0 or w == 0:
         return out
-    pl = scan_plan(bsz, s, w, sm_count(a.device))
     vec = 4 if w % 4 == 0 and all(t.data_ptr() % VEC_BYTES == 0 for t in (a, b)) else 1
     lib = build()
     rc = lib.repro_rglru_scan(a.data_ptr(), b.data_ptr(),
                               None if h0 is None else h0.data_ptr(), out.data_ptr(),
-                              bsz, s, w, pl.lanes, pl.seg, vec,
+                              bsz, s, w, vec,
                               torch.cuda.current_stream(a.device).cuda_stream)
     _build.check(lib, rc, "rglru_scan")
     global launches

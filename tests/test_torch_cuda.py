@@ -231,8 +231,8 @@ def scan_inputs(card, b, s, w, with_h0, lo=0.3, offset=0):
     return a, bb, h0
 
 
-# S from one step to 32 tiles of 256; W ragged (not a multiple of 16 or 4),
-# B 2 and 4 (lanes of 32), a and b off 16-byte alignment
+# S from one step to 64 tiles of 128; W ragged (not a multiple of 16 or 4),
+# B 2 and 4, a and b off 16-byte alignment
 SCAN_CASES = [(1, 1, 2560, True, 0), (1, 128, 2560, True, 0), (1, 2032, 2560, True, 0),
               (1, 8192, 2560, False, 0), (2, 37, 100, False, 0), (2, 300, 2563, True, 0),
               (2, 2032, 100, True, 0), (4, 300, 2560, True, 0), (1, 2032, 2560, True, 1)]
@@ -256,8 +256,7 @@ def test_rglru_scan_two_launches_give_the_same_bits(card, b, s, w):
     again = RS.rglru_scan(a, bb, h0)
     torch.cuda.synchronize()
     assert torch.equal(first, again)
-    pl = RS.scan_plan(b, s, w, PA.sm_count(a.device))
-    assert RS.build().repro_rglru_scan_shared_bytes(pl.lanes, pl.seg) == pl.shared_bytes
+    assert RS.build().repro_rglru_scan_shared_bytes() == RS.SHARED_BYTES
 
 
 @pytest.mark.parametrize("b,s,w,with_h0,offset,lo", [
@@ -270,9 +269,8 @@ def test_rglru_scan_kernel_runs_the_order_of_the_cpu_model(card, b, s, w, with_h
     rounding by an ulp, rarely."""
     a, bb, h0 = scan_inputs(card, b, s, w, with_h0, lo=lo, offset=offset)
     got = RS.rglru_scan(a, bb, h0).cpu().numpy()
-    pl = RS.scan_plan(b, s, w, PA.sm_count(a.device))
     want = RS.scan_model(a.cpu().numpy(), bb.cpu().numpy(),
-                         None if h0 is None else h0.cpu().numpy(), pl)
+                         None if h0 is None else h0.cpu().numpy())
     ulp = np.spacing(np.maximum(np.abs(want), np.float32(1)))
     assert np.all(np.abs(got - want) <= ulp), float((np.abs(got - want) / ulp).max())
 
@@ -285,6 +283,14 @@ def test_rglru_scan_refuses_what_the_kernel_does_not_take(card):
         RS.rglru_scan(a.transpose(1, 2), a.transpose(1, 2))
     with pytest.raises(ValueError, match="h0 must be"):
         RS.rglru_scan(a, a, randn(card, 1, 16))
+    with pytest.raises(ValueError, match="empty"):
+        RS.rglru_scan(a[:0], a[:0])
+    # one block a batch row at W 1: 2**31 rows are one block past the grid
+    rows = torch.empty((RS.GRID_LIMIT + 1, 1, 1), dtype=torch.float32, device=card)
+    with pytest.raises(ValueError, match="exceed the grid"):
+        RS.rglru_scan(rows, rows)
+    del rows
+    torch.cuda.empty_cache()
 
 
 @pytest.mark.parametrize("b,hq,hkv,s,d,window,dtype", [
