@@ -89,8 +89,23 @@ Builds the hand-written kernels from the five sources in this checkout (one
    decode step from one pool state: logits to 3e-2, greedy tokens equal.
 10. **reduced mamba2 (fp32, 4 layers, chunk 16, a 37-token prompt) against
    the CPU**: greedy tokens equal.
+11. **llama3.2-1b under ``--theta predictive``** (run after phase 4; the
+   guarded predictor+timeout hybrid, ``cntd_predictive``): full width, 8
+   requests (prompt 128, 8-16 new tokens, 8 slots, page 16, seed 0) through
+   the kernels, with phase 2's launch and completion checks; the report's
+   policy and priced slack; the recorded phase stream replayed through a
+   fresh governor of the same policy gives the same report and predictor
+   decisions; an event profiler on the same bus logs its summary; the
+   decode step's host clock (p50, max) is logged beside phase 2's.
+12. **the instrumented collectives** (``repro_torch.core.instrument``) on
+   NCCL in a world of 1 on cuda:0: every wrapper in the modes off, barrier
+   and profile on fp32 tensors of 4 B and 16 MiB equals the plain
+   collective and leaves its input untouched; profile mode emits the
+   reference's phase sequence, in order in time; then the median host
+   clock of a completed ``cd_psum`` in each mode, in turns, and the
+   barrier's added cost a call.
 
-In phases 1b, 2, 5 and 8 every kernel count is set to 0 just before the run
+In phases 1b, 2, 5, 8 and 11 every kernel count is set to 0 just before the run
 and read just after; each must equal the launches the path needs (RMSNorm
 once per norm a join and a step: 2 a layer with an MLP, 1 an SSM layer,
 plus the final norm; flash, the RG-LRU scan and the SSD scan once per
@@ -884,14 +899,15 @@ def counts_of(mods):
     return {name: getattr(mods[mod], count) for name, (mod, count, _, _) in KERNELS.items()}
 
 
-def phase_serving(torch, mods, argv, want_dims):
-    """Serve through ``run_continuous``; check every kernel's launch count
-    against what the path needs.  Returns (counts, engine, result)."""
+def phase_serving(torch, mods, argv, want_dims, subscribers=()):
+    """Serve through ``run_continuous`` (``subscribers`` join the governor
+    on its event bus); check every kernel's launch count against what the
+    path needs.  Returns (counts, engine, result, objects)."""
     from repro_torch.launch import serve
 
     args = serve.parser().parse_args(argv)
     reset(mods)
-    res = serve.run_continuous(args)
+    res = serve.run_continuous(args, subscribers=subscribers)
     counts = counts_of(mods)
     objs = res.pop("objects")
     eng = objs["engine"]
@@ -916,7 +932,183 @@ def phase_serving(torch, mods, argv, want_dims):
         require(len(r.out) == r.max_new and all(0 <= t < cfg.vocab for t in r.out), r.rid)
     log(f"serving {cfg.name}: " + json.dumps(res))
     log(f"serving {cfg.name}: {joins} joins, {steps} decode steps, launches {counts}")
-    return counts, eng, res
+    return counts, eng, res, objs
+
+
+def step_clock_ms(eng):
+    """The last serve run's decode-step host clock, p50 and max, in ms."""
+    sec = eng._last_session.step_seconds
+    return float(np.percentile(sec, 50)) * 1e3, float(np.max(sec)) * 1e3
+
+
+class PhaseTape:
+    """Records the serve loop's phase stream, in bus order."""
+
+    def __init__(self):
+        self.records = []
+
+    def on_phase(self, record):
+        self.records.append(record)
+
+
+def phase_predictive(torch, mods, default_clock):
+    """Full-width llama3.2-1b under ``--theta predictive`` (the guarded
+    predictor+timeout hybrid): the serving checks, then the recorded phase
+    stream replayed through a fresh governor of the same policy must give
+    the same report and predictor decisions; an event profiler on the same
+    bus logs its summary; the decode step's host clock is logged beside the
+    default policy's run."""
+    from repro_torch.core.governor import Governor
+    from repro_torch.core.policies import policy_for_theta
+    from repro_torch.core.profiler import EventProfiler, hierarchical_report
+
+    tape, prof = PhaseTape(), EventProfiler()
+    counts, eng, res, objs = phase_serving(torch, mods, [
+        "--arch", "llama3.2-1b", "--continuous", "--attn-kernel", "cuda",
+        "--theta", "predictive", "--n-requests", "8", "--prompt-len", "128",
+        "--steps", "16", "--slots", "8", "--page-size", "16", "--seed", "0"],
+        (16, 2048, 32, 8, 128256), subscribers=(tape, prof))
+    gov = objs["governor"]
+    require(res["policy"] == gov.policy.name == "cntd_predictive", res)
+    require(len(tape.records) == res["phases"] > 0, (len(tape.records), res["phases"]))
+    replay = Governor(policy=policy_for_theta("predictive"))
+    for rec in tape.records:
+        replay.on_phase(rec)
+    require(replay.finalize().to_dict() == objs["report"].to_dict(), "replayed report")
+    require(replay.n_predictor_decisions == gov.n_predictor_decisions, "predictor decisions")
+    require([tuple(d) for d in replay.predictor_log] == [tuple(d) for d in gov.predictor_log],
+            "predictor log")
+    kinds = {}
+    for d in gov.predictor_log:
+        kinds[d.kind] = kinds.get(d.kind, 0) + 1
+    log(f"predictive llama3.2-1b: {len(tape.records)} phases replayed to the same report; "
+        f"{gov.n_predictor_decisions} predictor decisions {json.dumps(kinds)}, "
+        f"{gov.tuner.predictor.n_refits} forest refits over "
+        f"{gov.tuner.predictor.n_observations} observations")
+    log("predictive llama3.2-1b: event profiler summary "
+        + json.dumps(hierarchical_report(prof)["summary"]))
+    p50, worst = step_clock_ms(eng)
+    log(f"decode step host clock, llama3.2-1b: predictive p50 {p50:.3f} ms, max {worst:.3f} "
+        f"ms ({res['decode_steps']} steps, 8 requests); default policy p50 "
+        f"{default_clock[0]:.3f} ms, max {default_clock[1]:.3f} ms (16 requests)")
+    return counts
+
+
+COLLECTIVE_MODES = ("off", "barrier", "profile")
+BLOCKING_PHASES = ["barrier_enter", "barrier_exit", "copy_exit"]
+ASYNC_PHASES = ["dispatch_enter", "wait_enter", "barrier_exit", "copy_exit"]
+
+
+def collective_calls(torch, dist, I, x):
+    """Every wrapper once on ``x`` beside its plain collective: a list of
+    (name, wrapped, plain, phases of one call in profile mode)."""
+    def plain_sum():
+        y = x.clone()
+        dist.all_reduce(y)
+        return y
+
+    def plain_gather(tiled, axis=0):
+        parts = [torch.empty_like(x) for _ in range(dist.get_world_size())]
+        dist.all_gather(parts, x)
+        return (torch.cat if tiled else torch.stack)(parts, dim=axis)
+
+    n = dist.get_world_size()
+    calls = [("cd_psum", I.cd_psum(x), plain_sum(), BLOCKING_PHASES),
+             ("cd_pmean", I.cd_pmean(x), plain_sum() / n, BLOCKING_PHASES),
+             ("cd_all_gather", I.cd_all_gather(x), plain_gather(True), BLOCKING_PHASES),
+             ("cd_all_gather untiled", I.cd_all_gather(x, tiled=False), plain_gather(False),
+              BLOCKING_PHASES),
+             ("cd_ppermute", I.cd_ppermute(x, [(0, 0)]), x.clone(), BLOCKING_PHASES)]
+    h = I.cd_psum_async(x)
+    calls.append(("cd_psum_async", I.cd_wait(h), plain_sum(), ASYNC_PHASES))
+    h = I.cd_all_gather_async(x, tiled=False)
+    calls.append(("cd_all_gather_async", I.cd_wait(h), plain_gather(False), ASYNC_PHASES))
+    return calls
+
+
+def median_call_ms(torch, fn, reps):
+    """Median host clock of one completed call (synchronised after each)."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return float(np.median(times)) * 1e3
+
+
+def phase_collectives(torch, card):
+    """The instrumented collectives on NCCL in a world of 1 on cuda:0: every
+    wrapper in every mode on fp32 tensors of 4 B and 16 MiB equal to the
+    plain collective, inputs untouched, the reference's phase sequence (3
+    phases blocking, 4 events of the 5-phase taxonomy async) with
+    ``barrier_enter <= barrier_exit <= copy_exit`` in time; then the median
+    host clock of a wrapped ``cd_psum`` in each mode, in turns."""
+    import torch.distributed as dist
+
+    from repro_torch.core import instrument as I
+    from repro_torch.core.governor import Governor
+    from repro_torch.core.policies import COUNTDOWN_SLACK
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        gen = torch.Generator(device="cuda").manual_seed(11)
+        for nbytes in (4, 16 << 20):
+            x = torch.randn(nbytes // 4, device="cuda", generator=gen)
+            keep = x.clone()
+            for mode in COLLECTIVE_MODES:
+                events = []
+                I.reset_instrumentation()
+                I.set_mode(mode)
+                I.enable_events(mode == "profile")
+                I.set_event_sink(lambda r, p, c, t: events.append((r, p, c, t)))
+                calls = collective_calls(torch, dist, I, x)
+                torch.cuda.synchronize()
+                for name, got, want, _ in calls:
+                    require(got.shape == want.shape and torch.equal(got, want),
+                            f"{name} ({mode}, {nbytes} B) differs from the plain collective")
+                require(torch.equal(x, keep), f"{mode}: an input was written")
+                want_ev = []
+                if mode == "profile":
+                    for cid, (_, _, _, phases) in enumerate(calls, start=1):
+                        want_ev += [(0, p, cid) for p in phases]
+                require([e[:3] for e in events] == want_ev,
+                        f"{mode}, {nbytes} B: events {[e[:3] for e in events]}")
+                for cid in range(1, len(calls) + 1):
+                    ts = [e[3] for e in events if e[2] == cid]
+                    require(ts == sorted(ts), f"call {cid}: phases out of order in time")
+            log(f"collectives, {nbytes} B fp32 on NCCL (world of 1): {len(calls)} wrappers x "
+                f"{len(COLLECTIVE_MODES)} modes equal to the plain collectives, "
+                f"inputs untouched, phase sequences and times in order")
+
+        I.reset_instrumentation()
+        timings = {}
+        for nbytes, reps in ((4, 400), (16 << 20, 100)):
+            x = torch.randn(nbytes // 4, device="cuda", generator=gen)
+            ms = {m: [] for m in COLLECTIVE_MODES}
+            for turn in range(4):                 # off, barrier, profile, then reversed
+                for mode in (COLLECTIVE_MODES if turn % 2 == 0 else COLLECTIVE_MODES[::-1]):
+                    I.reset_instrumentation()
+                    I.set_mode(mode)
+                    I.enable_events(mode == "profile")
+                    gov = Governor(policy=COUNTDOWN_SLACK)
+                    I.get_event_bus().subscribe(gov)
+                    ms[mode].append(median_call_ms(torch, lambda: I.cd_psum(x), reps))
+                    if mode == "profile":
+                        require(gov.finalize().n_calls == reps, "governor calls")
+            timings[nbytes] = {m: float(np.median(v)) for m, v in ms.items()}
+            t = timings[nbytes]
+            log(f"cd_psum {nbytes} B fp32, NCCL world of 1, {card}: median host clock of a "
+                f"completed call (median of 4 turns of {reps}): off {t['off']:.4f} ms, barrier "
+                f"{t['barrier']:.4f} ms, profile {t['profile']:.4f} ms; the barrier adds "
+                f"{t['barrier'] - t['off']:.4f} ms a call, barrier and events "
+                f"{t['profile'] - t['off']:.4f} ms (turns: {json.dumps(ms)})")
+        I.reset_instrumentation()
+        return timings
+    finally:
+        dist.destroy_process_group()
 
 
 def step_args(eng, prompts, n_steps: int, attn_kernel=None):
@@ -1136,18 +1328,21 @@ def main() -> int:
     rng = np.random.default_rng(7)
     # llama3.2-1b and recurrentgemma-2b serve at the reference's default
     # temperature (0.8, sampled); mamba2-130m greedy, the fused-argmax step
-    llama_counts, eng, _ = phase_serving(torch, mods, [
+    llama_counts, eng, _, _ = phase_serving(torch, mods, [
         "--arch", "llama3.2-1b", "--continuous", "--attn-kernel", "cuda",
         "--n-requests", "16", "--prompt-len", "128", "--steps", "32",
         "--slots", "8", "--page-size", "16", "--arrival-rate", "40", "--seed", "0"],
         (16, 2048, 32, 8, 128256))
+    default_clock = step_clock_ms(eng)
     phase_step_check(torch, eng, [rng.integers(0, eng.cfg.vocab, 128).astype(np.int32)
                                   for _ in range(8)])
     del eng
     torch.cuda.empty_cache()
     phase_small_model(torch, "llama3.2-1b", 2, 14, 10, 40)
+    predictive_counts = phase_predictive(torch, mods, default_clock)
+    torch.cuda.empty_cache()
 
-    rg_counts, eng, _ = phase_serving(torch, mods, [
+    rg_counts, eng, _, _ = phase_serving(torch, mods, [
         "--arch", "recurrentgemma-2b", "--continuous",
         "--n-requests", "12", "--prompt-len", "128", "--steps", "32", "--long-prompt", "2032",
         "--slots", "8", "--page-size", "16", "--arrival-rate", "40", "--seed", "0"],
@@ -1164,7 +1359,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_small_model(torch, "recurrentgemma-2b", 8, 40, 30, 80)
 
-    mamba_counts, eng, _ = phase_serving(torch, mods, [
+    mamba_counts, eng, _, _ = phase_serving(torch, mods, [
         "--arch", "mamba2-130m", "--continuous", "--temperature", "0",
         "--n-requests", "12", "--prompt-len", "128", "--steps", "32", "--long-prompt", "2000",
         "--slots", "8", "--page-size", "16", "--arrival-rate", "40", "--seed", "0"],
@@ -1187,7 +1382,9 @@ def main() -> int:
                  paged_scatter=ops_counts, flash_attention=rg_counts, rmsnorm=mamba_counts,
                  ssd_scan=mamba_counts, rglru_scan=rg_counts)
     require(all(paths[k][k] > 0 for k in KERNELS), paths)
+    phase_collectives(torch, card)
     log("launches on the llama3.2-1b path " + json.dumps(llama_counts)
+        + "; under --theta predictive " + json.dumps(predictive_counts)
         + "; on the recurrentgemma-2b path " + json.dumps(rg_counts)
         + "; on the mamba2-130m path " + json.dumps(mamba_counts)
         + "; on the kernels.ops path " + json.dumps(ops_counts))

@@ -363,13 +363,10 @@ class PredictiveTuner(ThetaTuner):
     def __post_init__(self) -> None:
         super().__post_init__()
         if self.predictor is None:
-            # the online predictor (core/predictor.py, which needs
-            # core/simulator.py) is not ported yet: see ROADMAP.md, queue 1,
-            # "predictor and simulator"
-            raise NotImplementedError(
-                "cntd_predictive / --theta predictive needs the online "
-                "predictor, which repro_torch does not have yet (ROADMAP.md, "
-                "queue 1: predictor and simulator)")
+            # deferred: predictor.py imports simulator; keep this module light
+            from repro_torch.core.predictor import OnlinePredictor
+
+            self.predictor = OnlinePredictor()
         self._guards: Dict[int, _GuardState] = {}
         self.pred_decisions: List[PredictorDecision] = []
         self._arm_eff = self.hw.theta_eff(0.0)

@@ -47,10 +47,11 @@ Word = Union[int, torch.Tensor]
 
 def key(seed: int, device=None) -> torch.Tensor:
     """``jax.random.PRNGKey(seed)`` as the reference runs it, with 64-bit
-    types off (jax's default): the seed is cast to int32 before
-    ``threefry_seed`` splits it, so the words are ``(0, seed & M)``."""
-    if not 0 <= seed < 1 << 64:
-        raise ValueError(f"a key's seed is an unsigned 64-bit integer, got {seed}")
+    types off (jax's default): any seed that fits a signed 64-bit integer
+    keeps its low 32 bits, so the words are ``(0, seed & M)``; outside that
+    range jax raises ``OverflowError``, and so does this."""
+    if not -(1 << 63) <= seed < 1 << 63:
+        raise OverflowError(f"a key's seed is a signed 64-bit integer, got {seed}")
     return torch.tensor([0, seed & M], dtype=torch.int64, device=device)
 
 

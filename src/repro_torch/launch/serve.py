@@ -40,7 +40,7 @@ import argparse
 import dataclasses
 import json
 import time
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -85,9 +85,11 @@ def _make_requests(args, cfg) -> List[Request]:
     return reqs
 
 
-def run_continuous(args) -> Dict[str, Any]:
+def run_continuous(args, subscribers: Sequence[Any] = ()) -> Dict[str, Any]:
     """Serve ``args.n_requests`` Poisson requests; returns the run's numbers
-    together with the engine, governor and report under ``"objects"``."""
+    together with the engine, governor and report under ``"objects"``.
+    ``subscribers`` join the governor on the serve loop's event bus (a
+    phase recorder, an :class:`~repro_torch.core.profiler.EventProfiler`)."""
     device = resolve_device(args.device)
     cfg = get_config(args.arch)
     if args.reduced:
@@ -111,6 +113,8 @@ def run_continuous(args) -> Dict[str, Any]:
     # the governor is just the first subscriber
     bus = EventBus()
     bus.subscribe(gov)
+    for sub in subscribers:
+        bus.subscribe(sub)
     slo = SLOTracker()
     reqs = _make_requests(args, cfg)
     steps_before, joins_before = eng.n_decode_steps, eng.n_joins
@@ -123,7 +127,7 @@ def run_continuous(args) -> Dict[str, Any]:
     n_tok = sum(len(r.out) for r in done)
     return {
         "arch": cfg.name, "device": str(device), "attn_kernel": eng.attn_kernel,
-        "temperature": args.temperature,
+        "temperature": args.temperature, "policy": gov.policy.name,
         "requests": len(done), "tokens": n_tok, "wall_s": dt,
         "tok_per_s": n_tok / dt, "warmup_s": t_warm,
         "decode_steps": eng.n_decode_steps - steps_before,
@@ -167,9 +171,11 @@ def parser() -> argparse.ArgumentParser:
                          "kernels on a CUDA device, plain PyTorch on the CPU; CPU "
                          "tensors always take the plain versions)")
     ap.add_argument("--theta", default="",
-                    help="governor timeout: seconds, 'auto' for the online "
-                         "ThetaTuner, empty = the policy default ('predictive' "
-                         "is not ported yet)")
+                    help="governor timeout: seconds, "
+                         "'auto' for the online ThetaTuner (decode underfill/"
+                         "idle feed its per-site histograms), or 'predictive' "
+                         "for the guarded predictor+timeout hybrid "
+                         "(cntd_predictive); empty = the policy default")
     ap.add_argument("--device", default=None, help="torch device (default: cuda)")
     ap.add_argument("--seed", type=int, default=0)
     return ap

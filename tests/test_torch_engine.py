@@ -308,8 +308,9 @@ def test_serve_cli_continuous_on_cpu(capsys):
                        "cuda", "--n-requests", "4", "--steps", "6", "--prompt-len", "8"])
     assert res["completed"] == 4 and res["tokens"] > 0 and res["priced_slack_ms"] > 0
     assert '"tok_per_s"' in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="predictor"):
-        tserve.main(["--reduced", "--continuous", "--device", "cpu", "--theta", "predictive"])
+    res = tserve.main(["--reduced", "--continuous", "--device", "cpu", "--theta", "predictive"])
+    assert res["policy"] == "cntd_predictive" and res["completed"] == 8
+    assert res["priced_slack_ms"] > 0 and res["objects"]["governor"].n_predictor_decisions > 0
     with pytest.raises(SystemExit):
         tserve.main(["--reduced", "--device", "cpu"])
 

@@ -66,8 +66,20 @@ def test_port_adaptive_governor_matches_reference(kind):
 
 
 def test_predictive_policy_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        Governor(policy=policy_for_theta("predictive"))
+    """Once refused, the predictive policy is ported: ``--theta
+    predictive`` builds the guarded hybrid, whose report and predictor
+    decisions on the bursty stream equal the reference's."""
+    from repro.core.governor import Governor as JGovernor
+
+    gov = Governor(policy=policy_for_theta("predictive"))
+    ref = JGovernor(policy=J_POLICIES["cntd_predictive"])
+    assert gov.policy == policy_for_theta("predictive")
+    assert gov.policy.name == ref.policy.name == "cntd_predictive"
+    for g in (gov, ref):
+        feed(g, "bursty")
+    assert gov.finalize().to_dict() == ref.finalize().to_dict()
+    assert [tuple(d) for d in gov.predictor_log] == [tuple(d) for d in ref.predictor_log]
+    assert gov.n_predictor_decisions == ref.n_predictor_decisions > 0
 
 
 def test_slack_meter_emits_the_reference_phase_records():

@@ -36,15 +36,21 @@ def perturbed(key, logits, temperature):
     return np.asarray(jax.random.gumbel(key, logits.shape, logits.dtype) + logits)
 
 
-@pytest.mark.parametrize("seed", [0, 1, 7, 2**31 - 1, 2**32 + 5])
+@pytest.mark.parametrize("seed", [0, 1, 7, 2**31 - 1, 2**32 + 5, -1, -7, -2**31, -2**31 - 1,
+                                  2**32, 2**40, 2**63 - 1, -2**63])
 def test_key_equals_prngkey(seed):
     assert np.array_equal(JR.key(seed).numpy(), words(jax.random.PRNGKey(seed)))
     assert JR.key(seed).dtype == torch.int64
 
 
 def test_key_refuses_a_negative_seed():
-    with pytest.raises(ValueError, match="unsigned"):
-        JR.key(-1)
+    """The seeds jax refuses: those outside a signed 64-bit integer, the
+    most negative one below -2**63 among them."""
+    for seed in (-2**63 - 1, 2**63):
+        with pytest.raises(OverflowError):
+            jax.random.PRNGKey(seed)
+        with pytest.raises(OverflowError, match="signed 64-bit"):
+            JR.key(seed)
 
 
 def test_fold_in_chains_are_bit_equal():
