@@ -90,20 +90,27 @@ Builds the hand-written kernels from the five sources in this checkout (one
 10. **reduced mamba2 (fp32, 4 layers, chunk 16, a 37-token prompt) against
    the CPU**: greedy tokens equal.
 11. **llama3.2-1b under ``--theta predictive``** (run after phase 4; the
-   guarded predictor+timeout hybrid, ``cntd_predictive``): full width, 8
-   requests (prompt 128, 8-16 new tokens, 8 slots, page 16, seed 0) through
-   the kernels, with phase 2's launch and completion checks; the report's
-   policy and priced slack; the recorded phase stream replayed through a
-   fresh governor of the same policy gives the same report and predictor
-   decisions; an event profiler on the same bus logs its summary; the
-   decode step's host clock (p50, max) is logged beside phase 2's.
+   guarded predictor+timeout hybrid, ``cntd_predictive``): phase 2's
+   arguments with 32 requests, enough phases for the predictor's first
+   forest refit (it waits for 64 observations), served four times through
+   the kernels in turns: default policy, ``--theta predictive`` twice,
+   default policy, each with phase 2's launch and completion checks.  Each
+   predictive run's policy and priced slack; its recorded phase stream
+   replayed through a fresh governor of the same policy gives the same
+   report and predictor decisions and locates each refit, of which there
+   must be at least one; an event profiler on the same bus logs its
+   summary.  Logged: the decode step's host clock (p50, max) of every run,
+   and the host time the governor held each phase (from the phase's end
+   to the subscriber after it on the bus), at the refits and elsewhere.
 12. **the instrumented collectives** (``repro_torch.core.instrument``) on
    NCCL in a world of 1 on cuda:0: every wrapper in the modes off, barrier
    and profile on fp32 tensors of 4 B and 16 MiB equals the plain
    collective and leaves its input untouched; profile mode emits the
-   reference's phase sequence, in order in time; then the median host
-   clock of a completed ``cd_psum`` in each mode, in turns, and the
-   barrier's added cost a call.
+   reference's phase sequence, in order in time; a kernel of tens of ms
+   queued before ``cd_psum``, or between ``cd_psum_async`` and
+   ``cd_wait``, is booked as the rank's own time (overlap for the async
+   pair) and not as slack; then the median host clock of a completed
+   ``cd_psum`` in each mode, in turns, and the barrier's added cost a call.
 
 In phases 1b, 2, 5, 8 and 11 every kernel count is set to 0 just before the run
 and read just after; each must equal the launches the path needs (RMSNorm
@@ -935,63 +942,101 @@ def phase_serving(torch, mods, argv, want_dims, subscribers=()):
     return counts, eng, res, objs
 
 
-def step_clock_ms(eng):
-    """The last serve run's decode-step host clock, p50 and max, in ms."""
-    sec = eng._last_session.step_seconds
-    return float(np.percentile(sec, 50)) * 1e3, float(np.max(sec)) * 1e3
+LLAMA_DIMS = (16, 2048, 32, 8, 128256)
+LLAMA_SERVE = ["--arch", "llama3.2-1b", "--continuous", "--attn-kernel", "cuda",
+               "--n-requests", "16", "--prompt-len", "128", "--steps", "32",
+               "--slots", "8", "--page-size", "16", "--arrival-rate", "40", "--seed", "0"]
+PREDICTIVE_REQUESTS = 32      # about 100 decode phases on an H100: the first refit comes at 64
 
 
-class PhaseTape:
-    """Records the serve loop's phase stream, in bus order."""
+class PhaseClock:
+    """Records the serve loop's phase stream in bus order and, subscribed
+    right after the governor, how long the governor held each phase: the
+    host time from the phase's end, when the meter publishes it, to here."""
 
     def __init__(self):
-        self.records = []
+        self.records, self.held = [], []
 
     def on_phase(self, record):
+        self.held.append(time.monotonic() - record.t_copy_end)
         self.records.append(record)
 
 
-def phase_predictive(torch, mods, default_clock):
-    """Full-width llama3.2-1b under ``--theta predictive`` (the guarded
-    predictor+timeout hybrid): the serving checks, then the recorded phase
-    stream replayed through a fresh governor of the same policy must give
-    the same report and predictor decisions; an event profiler on the same
-    bus logs its summary; the decode step's host clock is logged beside the
-    default policy's run."""
+def check_predictive(res, objs, clock):
+    """The predictive run's policy; its recorded phase stream replayed
+    through a fresh governor of the same policy gives the same report and
+    predictor decisions and locates each forest refit (at least one).
+    Returns the indices of the phases that refit."""
     from repro_torch.core.governor import Governor
     from repro_torch.core.policies import policy_for_theta
-    from repro_torch.core.profiler import EventProfiler, hierarchical_report
 
-    tape, prof = PhaseTape(), EventProfiler()
-    counts, eng, res, objs = phase_serving(torch, mods, [
-        "--arch", "llama3.2-1b", "--continuous", "--attn-kernel", "cuda",
-        "--theta", "predictive", "--n-requests", "8", "--prompt-len", "128",
-        "--steps", "16", "--slots", "8", "--page-size", "16", "--seed", "0"],
-        (16, 2048, 32, 8, 128256), subscribers=(tape, prof))
     gov = objs["governor"]
     require(res["policy"] == gov.policy.name == "cntd_predictive", res)
-    require(len(tape.records) == res["phases"] > 0, (len(tape.records), res["phases"]))
+    require(len(clock.records) == res["phases"] > 0, (len(clock.records), res["phases"]))
     replay = Governor(policy=policy_for_theta("predictive"))
-    for rec in tape.records:
+    refits = []
+    for i, rec in enumerate(clock.records):
+        before = replay.tuner.predictor.n_refits
         replay.on_phase(rec)
+        if replay.tuner.predictor.n_refits > before:
+            refits.append(i)
     require(replay.finalize().to_dict() == objs["report"].to_dict(), "replayed report")
     require(replay.n_predictor_decisions == gov.n_predictor_decisions, "predictor decisions")
     require([tuple(d) for d in replay.predictor_log] == [tuple(d) for d in gov.predictor_log],
             "predictor log")
-    kinds = {}
-    for d in gov.predictor_log:
-        kinds[d.kind] = kinds.get(d.kind, 0) + 1
-    log(f"predictive llama3.2-1b: {len(tape.records)} phases replayed to the same report; "
-        f"{gov.n_predictor_decisions} predictor decisions {json.dumps(kinds)}, "
-        f"{gov.tuner.predictor.n_refits} forest refits over "
-        f"{gov.tuner.predictor.n_observations} observations")
-    log("predictive llama3.2-1b: event profiler summary "
-        + json.dumps(hierarchical_report(prof)["summary"]))
-    p50, worst = step_clock_ms(eng)
-    log(f"decode step host clock, llama3.2-1b: predictive p50 {p50:.3f} ms, max {worst:.3f} "
-        f"ms ({res['decode_steps']} steps, 8 requests); default policy p50 "
-        f"{default_clock[0]:.3f} ms, max {default_clock[1]:.3f} ms (16 requests)")
-    return counts
+    n_refits = gov.tuner.predictor.n_refits
+    require(n_refits >= 1 and len(refits) == n_refits == replay.tuner.predictor.n_refits,
+            f"forest refits: {n_refits} live, {refits} in the replay")
+    return refits
+
+
+def phase_predictive(torch, mods):
+    """Full-width llama3.2-1b at phase 2's load with more requests, served
+    in turns under the default policy and ``--theta predictive`` (the
+    guarded predictor+timeout hybrid): default, predictive, predictive,
+    default.  Each run passes the serving checks and each predictive one
+    ``check_predictive``; an event profiler on the bus logs its summary.
+    Logged: every run's decode-step host clock, and the governor's host
+    time a phase, at the refits and elsewhere."""
+    from repro_torch.core.profiler import EventProfiler, hierarchical_report
+    from repro_torch.serve.slack import SITE_DECODE_STEP
+
+    argv = list(LLAMA_SERVE)
+    argv[argv.index("--n-requests") + 1] = str(PREDICTIVE_REQUESTS)
+    clocks = {"default": [], "predictive": []}
+    for turn in ("default", "predictive", "predictive", "default"):
+        clock, prof = PhaseClock(), EventProfiler()
+        predictive = turn == "predictive"
+        counts, eng, res, objs = phase_serving(
+            torch, mods, argv + ["--theta", "predictive"] if predictive else argv, LLAMA_DIMS,
+            subscribers=(clock, prof) if predictive else ())
+        clocks[turn].append((res["step_ms_p50"], res["step_ms_max"], res["decode_steps"]))
+        if predictive:
+            refits = check_predictive(res, objs, clock)
+            gov = objs["governor"]
+            kinds = {}
+            for d in gov.predictor_log:
+                kinds[d.kind] = kinds.get(d.kind, 0) + 1
+            held = np.asarray(clock.held) * 1e3
+            rest = np.delete(held, refits)
+            site = {SITE_DECODE_STEP: "decode step"}
+            at = ", ".join(f"phase {i} ({site.get(clock.records[i].site, 'idle gap')}) "
+                           f"{held[i]:.3f} ms" for i in refits)
+            log(f"predictive llama3.2-1b: {len(clock.records)} phases replayed to the same "
+                f"report; {gov.n_predictor_decisions} predictor decisions {json.dumps(kinds)}, "
+                f"{len(refits)} forest refits over {gov.tuner.predictor.n_observations} "
+                f"observations; the governor held a phase {np.median(rest):.4f} ms p50, "
+                f"{rest.max():.4f} ms max without a refit; with a refit: {at}")
+            log("predictive llama3.2-1b: event profiler summary "
+                + json.dumps(hierarchical_report(prof)["summary"]))
+            predictive_counts = counts
+        del eng, objs
+        torch.cuda.empty_cache()
+    log(f"decode step host clock, llama3.2-1b, {PREDICTIVE_REQUESTS} requests, phase 2's "
+        f"arguments otherwise, runs in turns default, predictive, predictive, default "
+        f"(p50 ms, max ms, steps): {json.dumps(clocks)}; the step clock ends at the step's "
+        f"synchronise, before the governor's turn")
+    return predictive_counts
 
 
 COLLECTIVE_MODES = ("off", "barrier", "profile")
@@ -1038,6 +1083,51 @@ def median_call_ms(torch, fn, reps):
     return float(np.median(times)) * 1e3
 
 
+SPIN_CYCLES = 50_000_000          # torch.cuda._sleep: tens of ms at the H100's clocks
+
+
+def arrival_check(torch, I, Governor, policy, x):
+    """In a world of 1 no rank waits, so a kernel still queued when the host
+    reaches a collective must not be booked as slack: the enter stamps wait
+    for the device.  Before ``cd_psum`` it is the rank's own time; between
+    ``cd_psum_async`` and ``cd_wait`` it is overlap."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    torch.cuda._sleep(SPIN_CYCLES)
+    end.record()
+    torch.cuda.synchronize()
+    spin = start.elapsed_time(end) / 1e3
+    require(spin > 0.01, f"spin kernel {spin} s")
+    got = {}
+    for pair in ("blocking", "async"):
+        I.reset_instrumentation()
+        gov, events = Governor(policy=policy), {}
+        I.get_event_bus().subscribe(gov)
+        I.set_event_sink(lambda r, p, c, t: events.setdefault(p, t))
+        I.set_mode("profile")
+        I.enable_events(True)
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        if pair == "blocking":
+            torch.cuda._sleep(SPIN_CYCLES)
+            I.cd_psum(x)
+        else:
+            h = I.cd_psum_async(x)
+            torch.cuda._sleep(SPIN_CYCLES)
+            I.cd_wait(h)
+        rep = gov.finalize()
+        enter = "barrier_enter" if pair == "blocking" else "wait_enter"
+        got[pair] = dict(slack_ms=rep.total_slack * 1e3, overlap_ms=rep.total_overlap * 1e3,
+                         enter_after_ms=(events[enter] - t0) * 1e3)
+        require(rep.n_calls == 1 and rep.total_slack < 0.1 * spin, (pair, got[pair], spin))
+        require(events[enter] - t0 >= 0.9 * spin, (pair, got[pair], spin))
+        if pair == "async":
+            require(rep.total_overlap >= 0.9 * spin, (pair, got[pair], spin))
+    I.reset_instrumentation()
+    log(f"collectives: a {spin * 1e3:.3f} ms kernel queued before the call is not slack: "
+        + json.dumps(got))
+
+
 def phase_collectives(torch, card):
     """The instrumented collectives on NCCL in a world of 1 on cuda:0: every
     wrapper in every mode on fp32 tensors of 4 B and 16 MiB equal to the
@@ -1082,6 +1172,7 @@ def phase_collectives(torch, card):
             log(f"collectives, {nbytes} B fp32 on NCCL (world of 1): {len(calls)} wrappers x "
                 f"{len(COLLECTIVE_MODES)} modes equal to the plain collectives, "
                 f"inputs untouched, phase sequences and times in order")
+        arrival_check(torch, I, Governor, COUNTDOWN_SLACK, x)
 
         I.reset_instrumentation()
         timings = {}
@@ -1328,18 +1419,13 @@ def main() -> int:
     rng = np.random.default_rng(7)
     # llama3.2-1b and recurrentgemma-2b serve at the reference's default
     # temperature (0.8, sampled); mamba2-130m greedy, the fused-argmax step
-    llama_counts, eng, _, _ = phase_serving(torch, mods, [
-        "--arch", "llama3.2-1b", "--continuous", "--attn-kernel", "cuda",
-        "--n-requests", "16", "--prompt-len", "128", "--steps", "32",
-        "--slots", "8", "--page-size", "16", "--arrival-rate", "40", "--seed", "0"],
-        (16, 2048, 32, 8, 128256))
-    default_clock = step_clock_ms(eng)
+    llama_counts, eng, _, _ = phase_serving(torch, mods, LLAMA_SERVE, LLAMA_DIMS)
     phase_step_check(torch, eng, [rng.integers(0, eng.cfg.vocab, 128).astype(np.int32)
                                   for _ in range(8)])
     del eng
     torch.cuda.empty_cache()
     phase_small_model(torch, "llama3.2-1b", 2, 14, 10, 40)
-    predictive_counts = phase_predictive(torch, mods, default_clock)
+    predictive_counts = phase_predictive(torch, mods)
     torch.cuda.empty_cache()
 
     rg_counts, eng, _, _ = phase_serving(torch, mods, [

@@ -28,11 +28,15 @@ This is the port of the paper's PMPI interception layer (§4.1-4.2):
   in-flight async payload on the payload's own group would resolve only
   when the transfer had finished, and book wire time as slack.
 
-* Events are stamped when the operation has *completed*.  On NCCL,
-  ``work.wait()`` makes the current stream wait, not the host, so in
-  "profile" mode the stamp follows a synchronise of the payload's stream.
-  In "barrier" mode, which stamps nothing, ``work.wait()`` alone orders
-  the real collective after the barrier.
+* Events are stamped on the device's clock of progress, not the host's.
+  On CUDA the host runs ahead of the card, and on NCCL ``work.wait()``
+  makes the current stream wait, not the host.  So in "profile" mode
+  every stamp follows a synchronise of the payload's stream: an enter
+  stamp (``barrier_enter``, ``dispatch_enter``, ``wait_enter``) when the
+  rank's device has reached the call, so compute still queued before it
+  is not booked as slack, and an exit stamp when the operation has
+  completed.  In "barrier" mode, which stamps nothing, ``work.wait()``
+  alone orders the real collective after the barrier.
 
 * The instrumentation mode is ambient (``set_mode``), mirroring the paper's
   LD_PRELOAD transparency: model / optimizer code always calls the wrappers
@@ -266,13 +270,20 @@ def _barrier_group(group: Group):
     return bg
 
 
+def _arrive(device: torch.device) -> None:
+    """Wait until ``device`` has run what was queued before the call: the
+    rank arrives at a collective when its device does."""
+    if device.type == "cuda":
+        torch.cuda.current_stream(device).synchronize()
+
+
 def _settle(works: Sequence[Any], device: torch.device, synchronize: bool) -> None:
     """Wait on ``works``; with ``synchronize``, also until the device has
     finished them (NCCL's ``wait`` only orders the current stream)."""
     for w in works:
         w.wait()
-    if synchronize and device.type == "cuda":
-        torch.cuda.current_stream(device).synchronize()
+    if synchronize:
+        _arrive(device)
 
 
 def _device(tree: Any) -> torch.device:
@@ -389,6 +400,7 @@ def _instrumented(issue: Callable[[Any], Issued], tree: Any, group: Group,
     profile = mode == "profile" and _EVENTS_ENABLED
     if profile:
         rank = dist.get_rank(group)
+        _arrive(device)
         _emit(rank, 0, call_id)                       # barrier enter (slack start)
     barrier(_probe(tree), group, profile)             # ---- artificial barrier ----
     if profile:
@@ -450,6 +462,7 @@ def _async_start(issue: Callable[[Any], Issued], tree: Any, group: Group) -> Asy
     rank = None
     if profile:
         rank = dist.get_rank(group)
+        _arrive(device)
         _emit(rank, 3, call_id)                       # dispatch enter (overlap start)
     return AsyncCollective(*issue(tree), device, group, call_id, profile, rank,
                            _probe(tree))
@@ -474,6 +487,7 @@ def cd_wait(handle: AsyncCollective) -> Any:
     if handle.call_id == 0:                           # dispatched with mode off
         return _complete(issued, handle.device, False)
     if handle.profile:
+        _arrive(handle.device)                        # the overlapped compute is done
         _emit(handle.rank, 4, handle.call_id)         # wait enter (slack start)
     _all_reduce_barrier(handle.probe, handle.group, handle.profile)  # -- barrier --
     if handle.profile:

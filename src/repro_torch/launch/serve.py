@@ -133,6 +133,7 @@ def run_continuous(args, subscribers: Sequence[Any] = ()) -> Dict[str, Any]:
         "decode_steps": eng.n_decode_steps - steps_before,
         "joins": eng.n_joins - joins_before,
         "step_ms_p50": float(np.percentile(sess.step_seconds, 50)) * 1e3,
+        "step_ms_max": float(np.max(sess.step_seconds)) * 1e3,
         "fill": eng._last_meter.fill_fraction,
         "priced_slack_ms": rep.total_slack * 1e3, "phases": rep.n_calls,
         "downshifts": rep.n_downshifts, "actuations": len(gov.actuation_log),

@@ -16,6 +16,7 @@ not need.)
 import os
 import subprocess
 import sys
+import time
 
 import numpy as np
 import pytest
@@ -23,6 +24,9 @@ import torch
 
 from repro_torch import jrandom
 from repro_torch.configs import get_config, reduced
+from repro_torch.core import instrument as TI
+from repro_torch.core.governor import Governor
+from repro_torch.core.policies import COUNTDOWN_SLACK
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import paged_attention as PA
 from repro_torch.kernels import rglru_scan as RS
@@ -701,3 +705,63 @@ def test_sampler_on_card_matches_cpu(card, vocab):
     scores = jrandom.gumbel(key, logits.shape) + logits
     for r in torch.nonzero(static_cpu != static_card).flatten().tolist():
         assert_near_tie(scores[r])
+
+
+# --------------------------------------------------------------------------
+# the instrumented collectives stamp a rank's arrival when its device arrives
+# --------------------------------------------------------------------------
+
+SPIN_CYCLES = 50_000_000          # torch.cuda._sleep: tens of ms at the H100's clocks
+
+
+@pytest.fixture
+def nccl_world_of_one(card):
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    TI.reset_instrumentation()
+    try:
+        yield torch.ones(1024, device=card)
+    finally:
+        TI.reset_instrumentation()
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("pair", ["blocking", "async"])
+def test_compute_queued_on_the_card_is_not_slack(nccl_world_of_one, pair):
+    """A rank arrives at a collective when its device does.  In a world of
+    1, where no rank waits, a kernel still running when the host reaches
+    ``cd_psum`` delays the enter stamp and leaves the booked slack about 0;
+    one queued between ``cd_psum_async`` and ``cd_wait`` is overlap."""
+    x = nccl_world_of_one
+    TI.set_mode("barrier")
+    TI.cd_psum(x)                       # the communicators, the barrier group's too, warm
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    torch.cuda._sleep(SPIN_CYCLES)
+    end.record()
+    torch.cuda.synchronize()
+    spin = start.elapsed_time(end) / 1e3
+    assert spin > 0.01, spin
+    gov, events = Governor(policy=COUNTDOWN_SLACK), {}
+    TI.get_event_bus().subscribe(gov)
+    TI.set_event_sink(lambda r, p, c, t: events.setdefault(p, t))
+    TI.set_mode("profile")
+    TI.enable_events(True)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    if pair == "blocking":
+        torch.cuda._sleep(SPIN_CYCLES)
+        out = TI.cd_psum(x)
+    else:
+        h = TI.cd_psum_async(x)
+        torch.cuda._sleep(SPIN_CYCLES)
+        out = TI.cd_wait(h)
+    rep = gov.finalize()
+    enter = events["barrier_enter" if pair == "blocking" else "wait_enter"]
+    assert torch.equal(out, x) and rep.n_calls == 1
+    assert enter - t0 >= 0.9 * spin, (events, t0, spin)
+    assert rep.total_slack < 0.1 * spin, (rep.total_slack, spin)
+    if pair == "async":
+        assert rep.total_overlap >= 0.9 * spin, (rep.total_overlap, spin)

@@ -65,10 +65,9 @@ def test_port_adaptive_governor_matches_reference(kind):
     assert mine == live
 
 
-def test_predictive_policy_is_not_ported_yet():
-    """Once refused, the predictive policy is ported: ``--theta
-    predictive`` builds the guarded hybrid, whose report and predictor
-    decisions on the bursty stream equal the reference's."""
+def test_predictive_policy_matches_reference():
+    """``--theta predictive`` builds the guarded hybrid, whose report and
+    predictor decisions on the bursty stream equal the reference's."""
     from repro.core.governor import Governor as JGovernor
 
     gov = Governor(policy=policy_for_theta("predictive"))

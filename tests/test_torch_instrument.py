@@ -10,7 +10,8 @@
   ``cd_all_gather``, ``cd_psum`` and ``cd_pmean`` against numpy, inputs
   untouched by every wrapper, slack booked through the port's governor by
   the ranks that wait on a rank 50 ms late, and compute between
-  ``cd_psum_async`` and ``cd_wait`` booked as overlap, not slack.
+  ``cd_psum_async`` and ``cd_wait`` booked as overlap, not slack.  Both are
+  held to the ranks' own event times, so a loaded host cannot break them.
 
 JAX is imported inside the reference-side helpers only, so the spawned
 ranks, which import this module, load torch alone.
@@ -228,27 +229,44 @@ def check_values(rank):
     TI.reset_instrumentation()
 
 
-def governed(fn):
-    """Run ``fn`` in profile mode with a fresh port governor on the bus."""
-    gov = Governor(policy=COUNTDOWN_SLACK)
+def governed(fn, on_event=None):
+    """Run ``fn`` in profile mode with a fresh port governor on the bus:
+    its report and the one call's event times by phase (``on_event`` sees
+    each event as it is stamped)."""
+    gov, times = Governor(policy=COUNTDOWN_SLACK), {}
     TI.get_event_bus().subscribe(gov)
+
+    def sink(r, phase, c, t):
+        times[phase] = t
+        if on_event is not None:
+            on_event(phase)
+
+    TI.set_event_sink(sink)
     TI.set_mode("profile")
     TI.enable_events(True)
     fn()
     TI.reset_instrumentation()
-    return gov.finalize()
+    return gov.finalize(), times
 
 
 def rank_main(rank, store_path, out_dir):
-    dist.init_process_group("gloo", store=dist.FileStore(store_path, WORLD), rank=rank,
-                            world_size=WORLD, timeout=timedelta(seconds=60))
+    store = dist.FileStore(store_path, WORLD)
+    dist.init_process_group("gloo", store=store, rank=rank, world_size=WORLD,
+                            timeout=timedelta(seconds=60))
     try:
         check_values(rank)
         x = torch.full((1024,), float(rank))
+        others = [f"in{r}" for r in range(WORLD - 1)]
+
+        def arrived(phase):
+            if phase == "barrier_enter":
+                store.set(f"in{rank}", "1")
 
         def late():
-            dist.barrier()
+            # the last rank enters 50 ms after every other rank has stamped
+            # its own entry, however the host schedules the four processes
             if rank == WORLD - 1:
+                store.wait(others, timedelta(seconds=60))
                 time.sleep(0.05)
             TI.cd_psum(x)
 
@@ -258,17 +276,22 @@ def rank_main(rank, store_path, out_dir):
             time.sleep(0.05)                          # compute under the flying sum
             TI.cd_wait(h)
 
-        rep_late, rep_overlap = governed(late), governed(overlapped)
+        rep_late, t_late = governed(late, arrived)
+        rep_overlap, t_overlap = governed(overlapped)
         with open(os.path.join(out_dir, f"{rank}.json"), "w") as f:
             json.dump({"late_slack": rep_late.total_slack,
-                       "late_calls": rep_late.n_calls,
+                       "late_calls": rep_late.n_calls, "late_t": t_late,
                        "overlap": rep_overlap.total_overlap,
-                       "overlap_slack": rep_overlap.total_slack}, f)
+                       "overlap_slack": rep_overlap.total_slack,
+                       "overlap_t": t_overlap}, f)
     finally:
         dist.destroy_process_group()
 
 
 def test_four_gloo_ranks(tmp_path):
+    """Slack and overlap are held to the ranks' own event times (one
+    monotonic clock on one host), so the checks do not depend on how the
+    host schedules the four processes."""
     ctx = mp.start_processes(rank_main, args=(str(tmp_path / "store"), str(tmp_path)),
                              nprocs=WORLD, join=False, start_method="spawn")
     deadline = time.monotonic() + JOIN_LIMIT_S
@@ -281,12 +304,31 @@ def test_four_gloo_ranks(tmp_path):
             if p.is_alive():
                 p.kill()
     res = [json.load(open(tmp_path / f"{r}.json")) for r in range(WORLD)]
+    exact = dict(rel=0, abs=1e-12)
+
+    # a rank 50 ms late: every other rank books, as slack, at least the time
+    # from its own entry to the late rank's, which no rank leaves before
+    enter = [got["late_t"]["barrier_enter"] for got in res]
+    last = enter[-1]
+    assert last >= max(enter[:-1]) + 0.05, enter
     for r, got in enumerate(res):
+        t = got["late_t"]
         assert got["late_calls"] == 1, got
-        # the overlap window is the 50 ms of compute; the wait finds every
-        # rank there, so what it books as slack is far below it
-        assert got["overlap"] >= 0.045, (r, got)
-        assert got["overlap_slack"] < 0.5 * got["overlap"], (r, got)
+        assert list(t) == ["barrier_enter", "barrier_exit", "copy_exit"], t
+        assert got["late_slack"] == pytest.approx(t["barrier_exit"] - t["barrier_enter"], **exact)
+        assert t["barrier_exit"] >= last, (r, t, last)
     waiting = [got["late_slack"] for got in res[:-1]]
-    assert min(waiting) > 0.02, res                   # the ranks that waited on rank 3
-    assert res[-1]["late_slack"] < min(waiting), res
+    assert min(waiting) >= 0.05, res                  # the ranks that waited on rank 3
+    for r in range(WORLD - 1):
+        assert waiting[r] >= last - enter[r], (r, res)
+
+    # compute between dispatch and wait: the whole window is overlap, and
+    # slack starts at the wait, so none of the compute is booked as slack
+    wait = [got["overlap_t"]["wait_enter"] for got in res]
+    for r, got in enumerate(res):
+        t = got["overlap_t"]
+        assert list(t) == ["dispatch_enter", "wait_enter", "barrier_exit", "copy_exit"], t
+        assert got["overlap"] == pytest.approx(t["wait_enter"] - t["dispatch_enter"], **exact)
+        assert got["overlap"] >= 0.05, (r, got)
+        assert got["overlap_slack"] == pytest.approx(t["barrier_exit"] - t["wait_enter"], **exact)
+        assert got["overlap_slack"] >= max(wait) - wait[r], (r, got, wait)

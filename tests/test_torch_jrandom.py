@@ -43,7 +43,7 @@ def test_key_equals_prngkey(seed):
     assert JR.key(seed).dtype == torch.int64
 
 
-def test_key_refuses_a_negative_seed():
+def test_key_refuses_a_seed_outside_int64():
     """The seeds jax refuses: those outside a signed 64-bit integer, the
     most negative one below -2**63 among them."""
     for seed in (-2**63 - 1, 2**63):
