@@ -112,12 +112,34 @@ Builds the hand-written kernels from the five sources in this checkout (one
    pair) and not as slack; then the median host clock of a completed
    ``cd_psum`` in each mode, in turns, and the barrier's added cost a call.
 
-In phases 1b, 2, 5, 8 and 11 every kernel count is set to 0 just before the run
-and read just after; each must equal the launches the path needs (RMSNorm
-once per norm a join and a step: 2 a layer with an MLP, 1 an SSM layer,
-plus the final norm; flash, the RG-LRU scan and the SSD scan once per
-attention / RG-LRU / SSM layer a join; the fused paged kernel once per
-attention layer a step; the unfused paged kernels only on the ops path).
+13. **training parity**: llama3.2-1b at full width (d 2048, vocab 128256)
+   cut to 2 layers, fp32 compute, batch 2 x 64, on the card and on the CPU
+   from the same parameters and batches: the first step's loss and
+   gradients at the fp32 bar; AdamW on the card against the CPU's fed the
+   same gradients, atol 1e-6; three ``make_train_step`` steps, losses rtol
+   1e-4 and grad norms rtol 1e-3 (the parameters' difference logged).
+14. **llama3.2-1b training**: full width (fp32 params, bf16 compute as
+   configured), 8 steps of batch 8 x 128 through
+   ``repro_torch.launch.train``: losses and grad norms finite, the first
+   loss within 1.0 of 12.2 (ln 128256 plus half the logits' variance), the
+   mean of the last 3 below the first; logged: the synchronised step clock
+   (median after step 1), tokens/s, peak memory against 16 bytes a
+   parameter, and model FLOP/s (6 N T) against the fp32 peak.
+15. **the live data-parallel step**: ``--live-events`` on NCCL in a world
+   of 1, 4 steps of full-width llama3.2-1b: the gradients and the loss
+   through ``cd_psum``, 8 calls booked by the governor, the host clock of
+   each ``cd_psum`` over the gradient tree logged; then one
+   ``"compressed"`` pod step on the 2-layer model within the ½-LSB bound
+   of the manual one (the same loss, the gradient norm within the bound,
+   the parameters within 2 lr).
+
+In phases 1b, 2, 5, 8, 11 and 13-15 every kernel count is set to 0 just
+before the run and read just after; each must equal the launches the path
+needs (RMSNorm once per norm a join and a step: 2 a layer with an MLP, 1
+an SSM layer, plus the final norm; flash, the RG-LRU scan and the SSD scan
+once per attention / RG-LRU / SSM layer a join; the fused paged kernel
+once per attention layer a step; the unfused paged kernels only on the ops
+path; none on the training path, which runs plain PyTorch under autograd).
 Each step check profiles the step: device time by kernel, the paged
 kernels' walk and combine together and apart.
 Prints the card's name and power limit, then one JSON line of kernel
@@ -1376,12 +1398,255 @@ def phase_small_model(torch, arch, n_layers, prompt_len, n_steps, max_len):
         f"== CPU tokens over {tuple(out.shape)}, positions up to {prompt_len + n_steps - 1}")
 
 
-def _to(tree, torch, device):
+# --------------------------------------------------------------------------
+# training
+# --------------------------------------------------------------------------
+
+FIRST_LOSS = 12.2             # ln 128256 plus half the variance of the logits (std ~0.9)
+BYTES_PER_PARAM = 16          # a parameter, its gradient and AdamW's two moments, fp32
+
+
+def llama_two_layers():
+    """llama3.2-1b at full width (d 2048, 32/8 heads, d_ff 8192, vocab
+    128256) cut to 2 layers, computing in fp32."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config("llama3.2-1b"), n_layers=2, compute_dtype="float32")
+
+
+def phase_train_parity(torch, mods):
+    """A 2-layer full-width llama3.2-1b (batch 2, seq 64, fp32 compute) on
+    the card and on the CPU from the same parameters and batches: the
+    first step's loss and gradients at the fp32 bar (loss rtol 1e-5,
+    gradients atol 2e-5 / rtol 2e-4); AdamW on the card against AdamW on
+    the CPU fed the card's gradients (parameters and moments atol 1e-6);
+    then three ``make_train_step`` steps each side: losses rtol 1e-4, grad
+    norms rtol 1e-3, and the parameters' largest difference logged.  No
+    kernel is launched on the card (the training path runs plain PyTorch).
+    AdamW divides each gradient by its own running RMS, so a gradient
+    element within its rounding noise of zero (the embedding holds 262 M,
+    most of their rows with tiny gradients) moves by up to lr whatever its
+    size; the trajectories' parameters are therefore held through their
+    parts, not to a fixed atol."""
+    from repro_torch.models.inputs import make_batch
+    from repro_torch.train import loop as TL
+    from repro_torch.train.optimizer import OptConfig, adamw_update, decay_mask
+    from repro_torch.tree import leaves
+
+    cfg = llama_two_layers()
+    opt_cfg = OptConfig(warmup_steps=1, total_steps=3)
+    cpu = TL.init_state(cfg, opt_cfg, torch.Generator().manual_seed(0), "cpu")
+    card = _to(cpu, torch, "cuda")
+    batches = [make_batch(cfg, 2, 64, seed=20 + i) for i in range(3)]
+    reset(mods)
+
+    loss_g, _, grads_g = TL._grads(cfg, card["params"], _to(batches[0], torch, "cuda"))
+    loss_c, _, grads_c = TL._grads(cfg, cpu["params"], batches[0])
+    np.testing.assert_allclose(float(loss_g), float(loss_c), rtol=1e-5)
+    grad_err = 0.0
+    for a, b in zip(leaves(grads_g), leaves(grads_c)):
+        torch.testing.assert_close(a.cpu(), b, **F32_TOL)
+        grad_err = max(grad_err, float((a.cpu() - b).abs().max()))
+    one_g, one_c = _to(card, torch, "cuda", copy=True), _to(card, torch, "cpu")
+    decay = decay_mask(cfg, card["params"])
+    adamw_update(one_g["params"], grads_g, one_g["opt"], opt_cfg, decay)
+    adamw_update(one_c["params"], _to(grads_g, torch, "cpu"), one_c["opt"], opt_cfg, decay)
+    opt_err = max(float((a.cpu() - b).abs().max())
+                  for a, b in zip(leaves(one_g), leaves(one_c)) if a.dtype.is_floating_point)
+    require(opt_err <= 1e-6, f"AdamW on the card against the CPU's, same gradients: {opt_err}")
+    del grads_g, grads_c, one_g, one_c
+
+    step = TL.make_train_step(cfg, opt_cfg)
+    got, want = [], []
+    for batch in batches:
+        card, mg = step(card, _to(batch, torch, "cuda"))
+        cpu, mc = step(cpu, batch)
+        got.append((float(mg["loss"]), float(mg["grad_norm"])))
+        want.append((float(mc["loss"]), float(mc["grad_norm"])))
+    counts = counts_of(mods)
+    require(not any(counts.values()), f"kernels launched on the training path: {counts}")
+    got, want = np.array(got), np.array(want)
+    require(np.isfinite(got).all(), got)
+    np.testing.assert_allclose(got[:, 0], want[:, 0], rtol=1e-4)
+    np.testing.assert_allclose(got[:, 1], want[:, 1], rtol=1e-3)
+    diffs = [(a.cpu() - b).abs() for a, b in zip(leaves(card["params"]), leaves(cpu["params"]))]
+    err = max(float(d.max()) for d in diffs)
+    over = sum(int((d > 1e-5).sum()) for d in diffs)
+    n = sum(d.numel() for d in diffs)
+    log(f"train parity, llama3.2-1b at full width cut to 2 layers, fp32, batch 2 x 64: "
+        f"step 1 gradients max_abs_err {grad_err:.3g} ({F32_TOL}); AdamW on the card against "
+        f"the CPU's on the same gradients max_abs_err {opt_err:.3g} (atol 1e-6); 3 steps: "
+        f"losses card {got[:, 0].tolist()} cpu {want[:, 0].tolist()}, grad norms card "
+        f"{got[:, 1].tolist()} cpu {want[:, 1].tolist()}, parameters max_abs_err {err:.3g}, "
+        f"{over} of {n} elements past 1e-5")
+
+
+def phase_train(torch, mods, card):
+    """Full-width llama3.2-1b (fp32 params, bf16 compute as configured),
+    8 steps of batch 8 x 128 through ``repro_torch.launch.train``: every
+    loss and grad norm finite, the first loss within 1.0 of 12.2, the mean
+    of the last 3 below the first, no kernel launched.  Logs the median
+    synchronised step clock after step 1, tokens/s, peak memory against 16
+    bytes a parameter, and model FLOP/s (6 N T) against the fp32 peak."""
+    from repro_torch.launch import train
+
+    reset(mods)
+    res = train.run(train.parser().parse_args(["--arch", "llama3.2-1b", "--steps", "8"]))
+    counts = counts_of(mods)
+    require(not any(counts.values()), f"kernels launched on the training path: {counts}")
+    losses, gnorms = res["losses"], res["grad_norms"]
+    require(len(losses) == 8 and np.isfinite(losses + gnorms).all(), res)
+    require(abs(losses[0] - FIRST_LOSS) <= 1.0, f"first loss {losses[0]}")
+    require(np.mean(losses[-3:]) < losses[0], f"losses {losses}")
+    n, t = res["params"], res["batch"] * res["seq"]
+    step_s = res["step_s_median"]
+    flops = 6 * n * t / step_s
+    log(f"train llama3.2-1b, {card}: {n} params, batch {res['batch']} x {res['seq']}, "
+        f"losses {losses}, grad norms {gnorms}; step clock (synchronised) median after "
+        f"step 1 {step_s * 1e3:.3f} ms (all: {[round(x * 1e3, 3) for x in res['step_s']]}), "
+        f"{res['tokens_per_s']:.1f} tokens/s, peak memory {res['peak_mem_bytes'] / 2**30:.3f} "
+        f"GiB against {BYTES_PER_PARAM * n / 2**30:.3f} GiB at {BYTES_PER_PARAM} B a "
+        f"parameter, model FLOP/s (6 N T) {flops / 1e12:.2f} T, "
+        f"{100 * flops / FP32_FLOPS_PER_S:.1f} % of the {FP32_FLOPS_PER_S / 1e12:.0f} TFLOP/s "
+        f"fp32 peak")
+    torch.cuda.empty_cache()
+    profile_train_step(torch, "llama3.2-1b", res["batch"], res["seq"])
+    return res
+
+
+def profile_train_step(torch, arch, batch, seq, n: int = 2):
+    """Where one full-width training step's time goes: the host clock of
+    synchronised ``make_train_step`` steps, then the same steps under
+    ``torch.profiler``: device busy (the time some kernel runs) and each
+    kernel's summed device time, the matrix products (cuBLAS/CUTLASS
+    ``gemm`` kernels) apart."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.long_join import covered_ms
+    from repro_torch.train import loop as TL
+    from repro_torch.train.data import DataLoader
+    from repro_torch.train.optimizer import OptConfig
+
+    cfg = get_config(arch)
+    opt_cfg = OptConfig(warmup_steps=1, total_steps=2 * n + 1)
+    state = TL.init_state(cfg, opt_cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    step = TL.make_train_step(cfg, opt_cfg)
+    loader = DataLoader(cfg, batch=batch, seq_len=seq, seed=0, device="cuda")
+    try:
+        state, _ = step(state, next(loader))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            state, _ = step(state, next(loader))
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / n * 1e3
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                state, _ = step(state, next(loader))
+            torch.cuda.synchronize()
+    finally:
+        loader.close()
+    kernels = sorted(((e.self_device_time_total / n / 1e3, e.count // n, e.key)
+                      for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
+                     reverse=True)
+    spans = [(e.time_range.start, e.time_range.end) for e in prof.events()
+             if e.device_type == DeviceType.CUDA]
+    busy = covered_ms(spans) / n
+    gemm = [k for k in kernels if "gemm" in k[2].lower()]
+    log(f"train step {arch} (batch {batch} x {seq}, full width, make_train_step): wall "
+        f"{wall:.3f} ms, device busy {busy:.3f} ms ({100 * busy / wall:.1f} %; kernel times "
+        f"summed {sum(k[0] for k in kernels):.3f} ms in {sum(k[1] for k in kernels)} "
+        f"launches), matrix products {sum(k[0] for k in gemm):.3f} ms in "
+        f"{sum(k[1] for k in gemm)} launches")
+    for ms, count, key in kernels[:12]:
+        log(f"  {ms:.4f} ms in {count} launches: {key[:110]}")
+
+
+def phase_train_live(torch, mods, card):
+    """``--live-events`` on NCCL in a world of 1 for 4 steps of full-width
+    llama3.2-1b: the gradients and the loss reduce through ``cd_psum``, so
+    the governor books 8 calls; logs the host clock of each ``cd_psum``
+    over the gradient tree, from its ``barrier_enter`` (the card has
+    arrived) to its ``copy_exit``.  Then one ``"compressed"`` pod step on
+    the 2-layer full-width llama lands within the ½-LSB bound of the
+    manual one: the same loss, the gradient norm within the bound carried
+    to the norm, the parameters within 2 lr."""
+    import math
+
+    import torch.distributed as dist
+
+    from repro_torch.core import instrument as I
+    from repro_torch.dist.compression import _quantize
+    from repro_torch.launch import train
+    from repro_torch.models.inputs import make_batch
+    from repro_torch.train import loop as TL
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.tree import leaves
+
+    events = []
+    I.reset_instrumentation()
+    I.set_event_sink(lambda r, p, c, t: events.append((p, c, t)))
+    reset(mods)
+    res = train.run(train.parser().parse_args(
+        ["--arch", "llama3.2-1b", "--steps", "4", "--live-events"]))
+    I.reset_instrumentation()
+    require(not any(counts_of(mods).values()), "kernels launched on the training path")
+    require(res["governor"]["n_calls"] == 8, res["governor"])
+    require(np.isfinite(res["losses"] + res["grad_norms"]).all(), res)
+    at = {(p, c): t for p, c, t in events}
+    grad_ms = [(at["copy_exit", c] - at["barrier_enter", c]) * 1e3 for c in (1, 3, 5, 7)]
+    loss_ms = [(at["copy_exit", c] - at["barrier_enter", c]) * 1e3 for c in (2, 4, 6, 8)]
+    log(f"train --live-events llama3.2-1b, NCCL world of 1, {card}: governor "
+        f"{json.dumps(res['governor'])}; step clock median after step 1 "
+        f"{res['step_s_median'] * 1e3:.3f} ms; cd_psum over the gradient tree "
+        f"({res['param_leaves']} leaves) host clock barrier_enter -> "
+        f"copy_exit per step {[round(x, 4) for x in grad_ms]} ms, over the loss "
+        f"{[round(x, 4) for x in loss_ms]} ms")
+
+    cfg = llama_two_layers()
+    opt_cfg = OptConfig(lr=1e-2, warmup_steps=0, total_steps=10)
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        init = TL.init_state(cfg, opt_cfg, torch.Generator().manual_seed(1), "cpu")
+        batch = _to(make_batch(cfg, 2, 64, seed=30), torch, "cuda")
+        _, _, grads = TL._grads(cfg, _to(init["params"], torch, "cuda"), batch)
+        bound = math.sqrt(sum(g.numel() * (float(_quantize(g)[1]) / 2) ** 2
+                              for g in leaves(grads)))
+        del grads
+        out = {}
+        for how in ("manual", "compressed"):
+            step = TL.make_pod_train_step(cfg, opt_cfg, None, TL.TrainConfig(pod_reduce=how))
+            out[how] = step(_to(init, torch, "cuda"), batch)
+        (sm, mm), (sc, mc) = out["manual"], out["compressed"]
+        require(torch.equal(mm["loss"], mc["loss"]), (mm["loss"], mc["loss"]))
+        dn = abs(float(mc["grad_norm"]) - float(mm["grad_norm"]))
+        require(dn <= bound * (1 + 1e-5), f"grad norm moved {dn}, bound {bound}")
+        lr = float(mm["lr"])
+        dp = max(float((a - b).abs().max())
+                 for a, b in zip(leaves(sc["params"]), leaves(sm["params"])))
+        require(dp <= 2 * lr * (1 + 1e-5), f"parameters moved {dp}, bound {2 * lr}")
+        log(f"compressed pod step, 2-layer full-width llama3.2-1b, NCCL world of 1: loss "
+            f"equal, grad norm {float(mc['grad_norm']):.6g} against {float(mm['grad_norm']):.6g} "
+            f"(|diff| {dn:.3g} <= ½-LSB bound {bound:.3g}), parameters max |diff| {dp:.3g} <= "
+            f"2 lr = {2 * lr:.3g}")
+    finally:
+        dist.destroy_process_group()
+    return grad_ms
+
+
+def _to(tree, torch, device, copy=False):
+    """``tree``'s tensors on ``device`` (copies, with ``copy``, even where
+    they are there already)."""
     if isinstance(tree, dict):
-        return {k: _to(v, torch, device) for k, v in tree.items()}
+        return {k: _to(v, torch, device, copy) for k, v in tree.items()}
     if isinstance(tree, list):
-        return [_to(v, torch, device) for v in tree]
-    return tree.to(device)
+        return [_to(v, torch, device, copy) for v in tree]
+    return tree.to(device, copy=copy)
 
 
 def main() -> int:
@@ -1469,6 +1734,12 @@ def main() -> int:
                  ssd_scan=mamba_counts, rglru_scan=rg_counts)
     require(all(paths[k][k] > 0 for k in KERNELS), paths)
     phase_collectives(torch, card)
+    torch.cuda.empty_cache()
+    phase_train_parity(torch, mods)
+    torch.cuda.empty_cache()
+    phase_train(torch, mods, card)
+    torch.cuda.empty_cache()
+    phase_train_live(torch, mods, card)
     log("launches on the llama3.2-1b path " + json.dumps(llama_counts)
         + "; under --theta predictive " + json.dumps(predictive_counts)
         + "; on the recurrentgemma-2b path " + json.dumps(rg_counts)

@@ -13,6 +13,8 @@ Everything crosses as numpy arrays: a caller holding JAX arrays passes
 ``jax.tree.map(np.asarray, tree)``, and nothing here imports JAX.  bf16
 has no numpy dtype of its own; JAX's numpy view of it (``ml_dtypes``) is
 read and written through its raw 16 bits, so the round trip is bit-exact.
+Training states cross too: the AdamW moments and masters take the
+parameters' layout (:func:`state_from_numpy`, :func:`state_to_numpy`).
 """
 from __future__ import annotations
 
@@ -112,6 +114,36 @@ def params_to_numpy(cfg, params: Params, bf16_dtype=None) -> Params:
     if "head" in params:
         out["head"] = tensor_to_numpy(params["head"], bf16_dtype)
     return out
+
+
+def opt_state_from_numpy(cfg, tree: Params, device) -> Params:
+    """The reference's AdamW state (``m``, ``v``, ``step`` and, for
+    low-precision params, ``master``; numpy leaves) -> the port's, each
+    moment tree in the port's parameter layout."""
+    out: Params = {k: params_from_numpy(cfg, tree[k], device)
+                   for k in ("m", "v", "master") if k in tree}
+    out["step"] = tensor_from_numpy(tree["step"], device)
+    return out
+
+
+def opt_state_to_numpy(cfg, opt: Params, bf16_dtype=None) -> Params:
+    """Inverse of :func:`opt_state_from_numpy`."""
+    out: Params = {k: params_to_numpy(cfg, opt[k], bf16_dtype)
+                   for k in ("m", "v", "master") if k in opt}
+    out["step"] = tensor_to_numpy(opt["step"])
+    return out
+
+
+def state_from_numpy(cfg, tree: Params, device) -> Params:
+    """A reference training state ``{"params", "opt"}`` -> the port's."""
+    return {"params": params_from_numpy(cfg, tree["params"], device),
+            "opt": opt_state_from_numpy(cfg, tree["opt"], device)}
+
+
+def state_to_numpy(cfg, state: Params, bf16_dtype=None) -> Params:
+    """Inverse of :func:`state_from_numpy`."""
+    return {"params": params_to_numpy(cfg, state["params"], bf16_dtype),
+            "opt": opt_state_to_numpy(cfg, state["opt"], bf16_dtype)}
 
 
 def blocks_from_numpy(cfg, tree: Params, device) -> Params:

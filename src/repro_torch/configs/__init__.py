@@ -1,8 +1,9 @@
 """Architecture registry: ``get_config(name)`` / ``ARCHS``.
 
 A copy of the JAX package's registry holding the architectures the port
-serves so far: ``llama3.2-1b`` (dense), ``recurrentgemma-2b`` (hybrid) and
-``mamba2-130m`` (SSM).
+runs so far: ``countdown-100m`` (dense, the trainer's default and the
+paper's own ~100M vehicle), ``llama3.2-1b`` (dense), ``recurrentgemma-2b``
+(hybrid) and ``mamba2-130m`` (SSM).
 Each further family is registered here as its modules are ported
 (ROADMAP.md, queue 1).
 """
@@ -20,7 +21,7 @@ from repro_torch.configs.base import (
     reduced,
 )
 
-ARCHS = ("llama3.2-1b", "recurrentgemma-2b", "mamba2-130m")
+ARCHS = ("countdown-100m", "llama3.2-1b", "recurrentgemma-2b", "mamba2-130m")
 
 _MODULES = {a: a.replace("-", "_").replace(".", "_") for a in ARCHS}
 

@@ -66,6 +66,8 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.core.events import PHASE_NAMES, BatchAccumulator, EventBus
+from repro_torch.tree import leaves as _leaves
+from repro_torch.tree import unflatten as _unflatten
 
 Group = Optional[dist.ProcessGroup]
 
@@ -215,33 +217,8 @@ def _next_call_id() -> int:
 
 
 # --------------------------------------------------------------------------
-# trees, groups, completion
+# groups, completion
 # --------------------------------------------------------------------------
-
-def _leaves(tree: Any) -> List[torch.Tensor]:
-    if isinstance(tree, torch.Tensor):
-        return [tree]
-    if isinstance(tree, dict):
-        return [x for k in tree for x in _leaves(tree[k])]
-    if isinstance(tree, (list, tuple)):
-        return [x for v in tree for x in _leaves(v)]
-    raise TypeError(f"a collective takes tensors or dicts/lists/tuples of them, "
-                    f"not {type(tree).__name__}")
-
-
-def _unflatten(tree: Any, leaves: List[torch.Tensor]) -> Any:
-    """``tree``'s structure with ``leaves`` in :func:`_leaves`' order."""
-    it = iter(leaves)
-
-    def build(t):
-        if isinstance(t, torch.Tensor):
-            return next(it)
-        if isinstance(t, dict):
-            return {k: build(v) for k, v in t.items()}
-        return type(t)(build(v) for v in t)
-
-    return build(tree)
-
 
 def _world(group: Group):
     return dist.group.WORLD if group is None else group
@@ -415,6 +392,19 @@ def _instrumented(issue: Callable[[Any], Issued], tree: Any, group: Group,
 # --------------------------------------------------------------------------
 # public wrappers (the "PMPI interface")
 # --------------------------------------------------------------------------
+
+def warm_up(device: torch.device, group: Group = None) -> None:
+    """Make the communicators of ``group`` and of its barrier group with
+    one uninstrumented 1-element all-reduce on each, completed.  A backend
+    such as NCCL builds a group's communicator on the group's first
+    collective; without this, that setup (hundreds of ms on NCCL) would
+    land inside the first instrumented call's barrier and be booked as
+    slack.  Counts no call and emits no event."""
+    probe = torch.zeros(1, dtype=torch.float32, device=device)
+    for g in (group, _barrier_group(group)):
+        dist.all_reduce(probe, group=g)
+    _arrive(probe.device)
+
 
 def cd_psum(tree: Any, group: Group = None) -> Any:
     """Instrumented all-reduce sum (collective COUNTDOWN Slack barrier §4.2.1)."""

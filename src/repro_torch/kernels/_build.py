@@ -19,7 +19,9 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Optional
+
+import torch
 
 REPO_ROOT = Path(__file__).resolve().parents[3]
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -106,3 +108,15 @@ def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
     and no later synchronisation reports it)."""
     if rc != 0:
         raise RuntimeError(f"{what} launch failed: {lib.repro_cuda_error_string(rc).decode()}")
+
+
+def refuse_autograd(what: str, plain: str, *tensors: Optional[torch.Tensor]) -> None:
+    """Raise when autograd would record a launch of ``what``: a kernel
+    launched through ``ctypes`` returns a tensor with no ``grad_fn``, so
+    the graph would be cut without an error and every parameter before the
+    call would get no gradient.  ``plain`` names the plain version, which
+    autograd can differentiate."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{what}: the kernel has no backward; call it under torch.no_grad(), or "
+            f"use {plain} where gradients are needed")

@@ -91,6 +91,7 @@ def flash_attention(q, k, v, *, positions: Optional[torch.Tensor] = None,
         _check_positions(positions, q.shape[2])
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window)
+    _build.refuse_autograd("flash_attention", "flash_attention_plain", q, k, v)
     if q.device.type != "cuda":
         _fail(f"no kernel for device {q.device}")
     for name, t in (("k", k), ("v", v)):

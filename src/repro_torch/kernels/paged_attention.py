@@ -356,6 +356,8 @@ def paged_attention_scatter(
             q, k_new, v_new, k_pages, v_pages, table, pos, page_idx, off,
             k_scale_new=k_scale_new, v_scale_new=v_scale_new,
             k_scale_pages=k_scale_pages, v_scale_pages=v_scale_pages, window=window)
+    _build.refuse_autograd(fn, "paged_attention_scatter_plain", q, k_new, v_new, k_pages,
+                           v_pages, k_scale_new, v_scale_new, k_scale_pages, v_scale_pages)
     _on_cuda(fn, q)
     _check_attention(fn, q, k_pages, v_pages, table, pos, k_scale_pages, v_scale_pages)
     _check_scatter(fn, k_pages, v_pages, k_scale_pages, v_scale_pages, k_new, v_new,
@@ -390,6 +392,8 @@ def paged_attention(q, k_pages, v_pages, table, pos, *, k_scale_pages=None,
         return paged_attention_plain(q, k_pages, v_pages, table, pos,
                                      k_scale_pages=k_scale_pages,
                                      v_scale_pages=v_scale_pages, window=window)
+    _build.refuse_autograd(fn, "paged_attention_plain", q, k_pages, v_pages, k_scale_pages,
+                           v_scale_pages)
     _on_cuda(fn, q)
     _check_attention(fn, q, k_pages, v_pages, table, pos, k_scale_pages, v_scale_pages)
     splits, run, work = _launch_plan(q, k_pages, table, window)
@@ -423,6 +427,7 @@ def paged_scatter(pages: Sequence[torch.Tensor], new_rows: Sequence[torch.Tensor
                   f"{len(new_rows)}")
     if pages[0].device.type == "cpu":
         return paged_scatter_plain(pages, new_rows, page_idx, off)
+    _build.refuse_autograd(fn, "paged_scatter_plain", *pages, *new_rows)
     _on_cuda(fn, pages[0])
     k_pages, v_pages, k_scale_pages, v_scale_pages = (*pages, None, None)[:4]
     k_new, v_new, k_scale_new, v_scale_new = (*new_rows, None, None)[:4]

@@ -159,6 +159,7 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor,
     synchronised), CPU tensors to the plain version; anything else raises."""
     if a.device.type == "cpu":
         return linear_scan(a, b, h0)[0]
+    _build.refuse_autograd("rglru_scan", "linear_scan", a, b, h0)
     if a.device.type != "cuda":
         _fail(f"no kernel for device {a.device}")
     named = dict(a=a, b=b) if h0 is None else dict(a=a, b=b, h0=h0)

@@ -106,6 +106,7 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Te
     version; anything else raises."""
     if x.device.type == "cpu":
         return rmsnorm_plain(x, scale, eps)
+    _build.refuse_autograd("rmsnorm", "rmsnorm_plain", x, scale)
     if x.device.type != "cuda":
         _fail(f"no kernel for device {x.device}")
     if scale.device != x.device:

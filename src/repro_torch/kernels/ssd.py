@@ -178,6 +178,7 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor, b: torch.Te
     synchronised), CPU tensors to the plain version; anything else raises."""
     if x.device.type == "cpu":
         return ssd_chunked(x, dt, a_log, b, c, chunk, init_state)
+    _build.refuse_autograd("ssd_scan", "ssd_chunked", x, dt, a_log, b, c, init_state)
     if x.device.type != "cuda":
         _fail(f"no kernel for device {x.device}")
     _check_args(x, dt, a_log, b, c, chunk, init_state)

@@ -5,7 +5,8 @@ package's layouts (``x @ w`` with ``w`` stored ``(d_in, d_out)``), so the
 parity tests compare like with like.  Only the subset the dense and hybrid
 families need is here: the RMSNorm, RoPE, GQA attention (naive, chunked
 and banded, chosen as ``attention_forward`` chooses), the linear/ring KV
-cache with its int8 variant, and the SwiGLU MLP.
+cache with its int8 variant, the SwiGLU MLP and the chunked cross-entropy
+of the training loss.
 
 ``kernel`` picks plain PyTorch (``"plain"``) or the hand-written kernels
 (``"cuda"``) for the RMSNorm and the prefill attention; the kernel
@@ -394,3 +395,28 @@ def init_mlp(cfg, gen, dtype, device) -> Params:
 def mlp_forward(cfg, p, x):
     """SwiGLU: ``(silu(x @ w1) * (x @ w3)) @ w2``."""
     return matmul(F.silu(matmul(x, p["w1"])) * matmul(x, p["w3"]), p["w2"])
+
+
+# --------------------------------------------------------------------------
+# chunked cross-entropy (never materializes full (B,S,V) logits)
+# --------------------------------------------------------------------------
+
+def chunked_cross_entropy(x, embed_t, labels, mask, chunk: int = 512) -> torch.Tensor:
+    """x: (B,S,d); embed_t: (d,V); labels, mask: (B,S).  Mean NLL over the
+    mask, the count clamped at 1.  The sequence is cut into chunks of
+    ``min(chunk, S)`` and a remainder; each chunk's logits are made in fp32
+    and dropped after its loss.  The reference's ``use_scan`` split computes
+    the same sum; PyTorch runs eagerly, so the port loops."""
+    s = x.shape[1]
+    chunk = min(chunk, s)
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    count = torch.zeros((), dtype=torch.float32, device=x.device)
+    for lo in range(0, s, chunk):
+        sl = slice(lo, lo + chunk)
+        logits = matmul(x[:, sl], embed_t).float()               # (B,C,V)
+        lse = torch.logsumexp(logits, dim=-1)
+        tgt = torch.gather(logits, -1, labels[:, sl, None].long())[..., 0]
+        mc = mask[:, sl]
+        total = total + torch.sum((lse - tgt) * mc)
+        count = count + torch.sum(mc)
+    return total / torch.clamp(count, min=1.0)

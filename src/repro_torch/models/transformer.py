@@ -10,12 +10,18 @@ caches and page pools are ``{"layers": [...]}`` trees of the same shape.
 :mod:`repro_torch.bridge` converts to and from the stacked layout.  Caches
 are updated in place.
 
-``kernel`` picks plain PyTorch or the hand-written kernels (RMSNorm, flash
-prefill attention, RG-LRU scan, SSD scan); ``None`` follows the device of
-the tokens (:func:`repro_torch.device.resolve_kernel`).
+For serving, ``kernel`` picks plain PyTorch or the hand-written kernels
+(RMSNorm, flash prefill attention, RG-LRU scan, SSD scan); ``None``
+follows the device of the tokens (:func:`repro_torch.device.resolve_kernel`).
+Training (:func:`forward`, :func:`loss_fn`) runs the plain functions on
+every device, under autograd: the reference's ``forward`` reaches no
+Pallas kernel, and the kernels have no backward (their wrappers refuse a
+launch that autograd would record).
 
 Public API:
     init_params(cfg, generator, device)          -> params
+    forward(cfg, params, batch)                  -> (hidden (B,S,d), aux)
+    loss_fn(cfg, params, batch)                  -> (loss, metrics)
     init_cache(cfg, batch, max_len, device)      -> cache
     prefill(cfg, params, batch, cache)           -> (logits_last (B,V), cache)
     decode_step(cfg, params, tok, pos, cache)    -> (logits (B,V), cache)
@@ -26,6 +32,7 @@ import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_kernel
 from repro_torch.models import layers as L
@@ -120,6 +127,79 @@ def logits_fn(cfg, params, hidden) -> torch.Tensor:
         c = cfg.logits_softcap
         logits = c * torch.tanh(logits / c)
     return logits
+
+
+# --------------------------------------------------------------------------
+# forward (train / scoring)
+# --------------------------------------------------------------------------
+
+def _block_forward(cfg, kind: str, p: Params, x):
+    """One block over the full sequence, at positions 0..S-1, on the plain
+    path.  Returns (x, aux)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    h = L.apply_norm(cfg, p["ln1"], x)
+    if kind == "ssm":
+        y, _ = S.ssm_forward(cfg, p["ssm"], h)
+        return x + y, aux
+    if kind == "attn":
+        x = x + L.attention_forward(cfg, p["attn"], h)
+    else:
+        y, _ = R.rglru_forward(cfg, p["rglru"], h)
+        x = x + y
+    h = L.apply_norm(cfg, p["ln2"], x)
+    return x + L.mlp_forward(cfg, p["ffn"], h), aux
+
+
+def _period_forward(cfg, blocks, x):
+    """One period of the pattern: the unit the reference rematerialises."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for kind, p in zip(cfg.pattern, blocks):
+        x, a = _block_forward(cfg, kind, p, x)
+        aux = aux + a
+    return x, aux
+
+
+def forward(cfg, params, batch) -> Tuple[torch.Tensor, torch.Tensor]:
+    """-> (final hidden states (B,S,d), aux loss).  ``batch["tokens"]``:
+    (B,S).  With ``cfg.remat`` each full period runs under
+    ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint``): its
+    activations are recomputed in the backward pass, with the same numbers,
+    since no layer draws random numbers.  The remainder blocks run without
+    it, as in the reference."""
+    x = _embed_inputs(cfg, params, batch["tokens"])
+    n_full, rem_kinds = stack_layout(cfg)
+    plen = len(cfg.pattern)
+    layers = params["layers"]
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(n_full):
+        blocks = layers[i * plen:(i + 1) * plen]
+        if cfg.remat and torch.is_grad_enabled():
+            x, a = checkpoint(_period_forward, cfg, blocks, x, use_reentrant=False)
+        else:
+            x, a = _period_forward(cfg, blocks, x)
+        aux = aux + a
+    for kind, p in zip(rem_kinds, layers[n_full * plen:]):
+        x, a = _block_forward(cfg, kind, p, x)
+        aux = aux + a
+    return L.apply_norm(cfg, params["final_norm"], x), aux
+
+
+def loss_fn(cfg, params, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """batch: tokens (B,S), labels (B,S), mask (B,S).  Returns (loss,
+    {"nll", "aux"}): the mean NLL over the mask plus the aux loss (0 for
+    every family the port registers).  A softcapped arch (recurrentgemma)
+    materialises its logits; the others take the chunked cross-entropy."""
+    hidden, aux = forward(cfg, params, batch)
+    labels = batch["labels"].long()
+    mask = batch["mask"].float()
+    if cfg.logits_softcap:
+        logits = logits_fn(cfg, params, hidden).float()
+        lse = torch.logsumexp(logits, dim=-1)
+        tgt = torch.gather(logits, -1, labels[..., None])[..., 0]
+        nll = torch.sum((lse - tgt) * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    else:
+        nll = L.chunked_cross_entropy(hidden, _unembed_matrix(cfg, params), labels, mask)
+    return nll + aux, {"nll": nll, "aux": aux}
 
 
 # --------------------------------------------------------------------------

@@ -35,6 +35,7 @@ from repro_torch.kernels import ssd as SSD
 from repro_torch.models.transformer import init_params
 from repro_torch.serve import engine as TE
 from repro_torch.serve.engine import ContinuousEngine
+from torch_kernel_calls import wrapper_calls
 
 pytestmark = pytest.mark.cuda
 
@@ -765,3 +766,58 @@ def test_compute_queued_on_the_card_is_not_slack(nccl_world_of_one, pair):
     assert rep.total_slack < 0.1 * spin, (rep.total_slack, spin)
     if pair == "async":
         assert rep.total_overlap >= 0.9 * spin, (rep.total_overlap, spin)
+
+
+# --------------------------------------------------------------------------
+# training: the wrappers refuse autograd; a step on the card equals the CPU's
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("name", list(wrapper_calls("cpu", False)))
+def test_wrapper_refuses_a_launch_autograd_would_record(card, name):
+    """A kernel's output has no ``grad_fn``: with grad enabled and an input
+    that requires grad, the wrapper raises and names the plain version
+    instead of cutting the graph; under ``torch.no_grad`` it launches."""
+    with pytest.raises(RuntimeError, match="the kernel has no backward"):
+        wrapper_calls(card, True)[name]()
+    with torch.no_grad():
+        wrapper_calls(card, True)[name]()
+    torch.cuda.synchronize()
+
+
+def test_train_step_on_card_equals_cpu(card):
+    """Two steps of a tiny fp32 model from one state on the same batches:
+    the card's (plain PyTorch under autograd, no kernel) against the CPU's,
+    losses rtol 1e-5, parameters atol 1e-5."""
+    from repro_torch.train import loop as TLoop
+    from repro_torch.train.data import DataLoader
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.tree import leaves
+
+    cfg = reduced(get_config("countdown-100m"), n_layers=2, d_model=64, n_heads=4,
+                  n_kv_heads=2, d_ff=128, vocab=256)
+    opt_cfg = OptConfig(warmup_steps=1, total_steps=10)
+    cpu = TLoop.init_state(cfg, opt_cfg, torch.Generator().manual_seed(0), "cpu")
+    on_card = TLoop.init_state(cfg, opt_cfg, torch.Generator().manual_seed(0), "cpu")
+    on_card = {"params": _to(on_card["params"], card), "opt": _to(on_card["opt"], card)}
+    step = TLoop.make_train_step(cfg, opt_cfg)
+    loader = DataLoader(cfg, batch=4, seq_len=33, seed=0)
+    counts = [m.launches for m in (RN, FA, RS, SSD)]
+    try:
+        for _ in range(2):
+            batch = next(loader)
+            cpu, mc = step(cpu, batch)
+            on_card, mg = step(on_card, _to(batch, card))
+            np.testing.assert_allclose(float(mg["loss"]), float(mc["loss"]), rtol=1e-5)
+    finally:
+        loader.close()
+    assert [m.launches for m in (RN, FA, RS, SSD)] == counts      # no kernel on the path
+    for a, b in zip(leaves(on_card["params"]), leaves(cpu["params"])):
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), atol=1e-5, rtol=0)
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, device) for v in tree]
+    return tree.to(device)

@@ -40,9 +40,10 @@ from repro_torch.serve.engine import ContinuousEngine, ServeEngine
 from repro_torch.serve.scheduler import Request
 from test_torch_jrandom import assert_near_tie, perturbed
 
-# reduced configs of the three served archs (as test_torch_hybrid / _ssm)
+# reduced configs of the served archs (as test_torch_hybrid / _ssm);
+# countdown-100m, the training launcher's default, serves as a dense arch
 ARCHS = {"llama3.2-1b": {}, "recurrentgemma-2b": dict(n_layers=8, window=16),
-         "mamba2-130m": {}}
+         "mamba2-130m": {}, "countdown-100m": {}}
 
 
 def setup(seed=0, **mods):

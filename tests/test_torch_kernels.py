@@ -29,6 +29,7 @@ from repro_torch.kernels import rglru_scan as RS
 from repro_torch.kernels import rmsnorm as RN
 from repro_torch.models import layers as TL
 from repro_torch.models import rglru as TR
+from torch_kernel_calls import wrapper_calls
 
 F32 = dict(atol=2e-5, rtol=2e-4)
 BF16 = dict(atol=3e-2, rtol=3e-2)
@@ -246,3 +247,27 @@ def test_wrappers_check_device():
     q = torch.zeros(1, 2, 4, 8, device="meta")
     with pytest.raises(ValueError, match="no kernel for device meta"):
         FA.flash_attention(q, q, q)
+
+
+@pytest.mark.parametrize("name", list(wrapper_calls("cpu", False)))
+def test_wrappers_refuse_a_launch_autograd_would_record(name):
+    """Off the CPU a wrapper launches its kernel, whose output has no
+    ``grad_fn``: with grad enabled and an input that requires grad it
+    raises and names the plain version, before looking at the device; under
+    ``torch.no_grad`` it gets past that check."""
+    with pytest.raises(RuntimeError, match="the kernel has no backward.*_plain|"
+                                           "the kernel has no backward.*(linear_scan|"
+                                           "ssd_chunked)"):
+        wrapper_calls("meta", True)[name]()
+    with torch.no_grad(), pytest.raises(ValueError, match="no kernel for device meta"):
+        wrapper_calls("meta", True)[name]()
+
+
+@pytest.mark.parametrize("name", ["rmsnorm", "flash_attention", "rglru_scan", "ssd_scan"])
+def test_wrappers_on_cpu_tensors_keep_the_graph(name):
+    """On CPU tensors a wrapper takes its plain version, which autograd
+    differentiates."""
+    out = wrapper_calls("cpu", True)[name]()
+    out = out[0] if isinstance(out, tuple) else out
+    assert out.grad_fn is not None
+    out.sum().backward()

@@ -76,7 +76,9 @@ def test_every_module_imports_with_jax_and_repro_blocked():
         assert not bad, bad
         for n in ("models.ssm", "kernels.ssd", "kernels.ops", "configs.mamba2_130m", "jrandom",
                   "core.simulator", "core.predictor", "core.workloads", "core.profiler",
-                  "core.instrument"):
+                  "core.instrument", "train.loop", "train.optimizer", "train.data",
+                  "dist.compression", "launch.train", "models.inputs", "obs.log", "tree",
+                  "configs.countdown_100m"):
             assert "repro_torch." + n in names, n
         print(len(names))
     """)
@@ -96,11 +98,47 @@ def test_no_source_names_jax_or_the_reference_package():
     assert len(files) > 25 and not hits, hits
 
 
+def test_copied_logger_renders_as_the_original():
+    """``repro_torch.obs.log`` renders every record as the reference's
+    logger does, in text and JSON (but the timestamp), honours the level,
+    and installs the same flags."""
+    import argparse
+    import io
+    import json
+
+    from repro.obs import log as JLog
+    from repro_torch.obs import log as TLog
+
+    def rendered(mod):
+        lines = []
+        try:
+            for json_logs in (False, True):
+                buf = io.StringIO()
+                mod.configure(level="info", json_logs=json_logs, stream=buf)
+                lg = mod.get_logger("train")
+                lg.info("step", step=3, loss=1.2345678, name="a b", empty="", ok=True)
+                lg.warning("device_failed", step=12, device=[1, 2])
+                lg.debug("hidden", y=1)
+                lines += buf.getvalue().splitlines()
+        finally:
+            mod.configure()
+        return [dict(json.loads(x), t=0) if x.startswith("{") else x for x in lines]
+
+    def flags(mod):
+        ap = argparse.ArgumentParser()
+        mod.add_flags(ap)
+        return sorted(a.dest for a in ap._actions)
+
+    assert rendered(TLog) == rendered(JLog)
+    assert len(rendered(TLog)) == 4
+    assert flags(TLog) == flags(JLog)
+
+
 def test_copied_config_equals_reference():
     for mods in ({}, {"kv_quant": True}):
         jcfg, tcfg = cfgs(**mods)
         assert dataclasses.asdict(jcfg) == dataclasses.asdict(tcfg)
-    for arch in ("llama3.2-1b", "recurrentgemma-2b", "mamba2-130m"):
+    for arch in ("countdown-100m", "llama3.2-1b", "recurrentgemma-2b", "mamba2-130m"):
         assert dataclasses.asdict(jget_config(arch)) == dataclasses.asdict(get_config(arch))
         assert dataclasses.asdict(jreduced(jget_config(arch), n_layers=8)) == \
             dataclasses.asdict(reduced(get_config(arch), n_layers=8))
