@@ -136,10 +136,6 @@ def make_pod_train_step(cfg, opt_cfg: OptConfig, group=None,
     then takes the same AdamW step."""
     if train_cfg.pod_reduce not in ("auto", "manual", "compressed"):
         raise ValueError(f"unknown pod_reduce {train_cfg.pod_reduce!r}")
-    if train_cfg.instrument_axis != "pod":
-        raise NotImplementedError(
-            f"instrument_axis {train_cfg.instrument_axis!r} names an axis inside a pod; "
-            "sharding inside a pod is not ported yet (ROADMAP.md, queue 1, item 5)")
     n = dist.get_world_size(group)
 
     def reduce_grads(grads):
