@@ -3,11 +3,14 @@
 The reference keeps every per-layer leaf stacked on a leading ``n_full``
 axis: ``{"stack": {"0": {...}, ...}, "rem": {...}}`` (``stack_layout``).
 The port walks its layers in a Python loop and keeps them **split**: a
-list ``"layers"`` of per-layer dicts in layer order.  The dense family (pattern
-``("attn",)``, so ``n_full == n_layers`` and no ``rem``), the SSM family
-(mamba2: ``("ssm",)``, likewise homogeneous) and the hybrid family
-(recurrentgemma: periods of ``("rglru", "rglru", "attn")`` and, at 26
-layers, a remainder ``("rglru", "rglru")`` under ``"rem"``) are handled.
+list ``"layers"`` of per-layer dicts in layer order.  The dense, MoE, vlm
+and audio families (pattern ``("attn",)``, so ``n_full == n_layers`` and
+no ``rem``), the SSM family (mamba2: ``("ssm",)``, likewise homogeneous)
+and the hybrid family (recurrentgemma: periods of ``("rglru", "rglru",
+"attn")`` and, at 26 layers, a remainder ``("rglru", "rglru")`` under
+``"rem"``) are handled.  Whatever a block holds crosses as it is: the MoE
+FFN's ``router``, ``w1``, ``w3`` and ``w2``, LayerNorm's ``bias``, and the
+nonparametric norm's empty dicts, which stay empty both ways.
 
 Everything crosses as numpy arrays: a caller holding JAX arrays passes
 ``jax.tree.map(np.asarray, tree)``, and nothing here imports JAX.  bf16

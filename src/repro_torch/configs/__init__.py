@@ -1,11 +1,12 @@
 """Architecture registry: ``get_config(name)`` / ``ARCHS``.
 
-A copy of the JAX package's registry holding the architectures the port
-runs so far: ``countdown-100m`` (dense, the trainer's default and the
-paper's own ~100M vehicle), ``llama3.2-1b`` (dense), ``recurrentgemma-2b``
-(hybrid) and ``mamba2-130m`` (SSM).
-Each further family is registered here as its modules are ported
-(ROADMAP.md, queue 1).
+A copy of the JAX package's registry, every architecture it registers:
+the dense ``llama3.2-1b``, ``glm4-9b``, ``internlm2-1.8b`` and
+``olmo-1b`` (nonparametric norm, MHA), the MoE ``granite-moe-3b-a800m``
+and ``mixtral-8x22b`` (window 4096), the frontend-prefix ``internvl2-1b``
+(vlm) and ``musicgen-large`` (audio: LayerNorm, the GELU MLP), the hybrid
+``recurrentgemma-2b``, the SSM ``mamba2-130m`` and ``countdown-100m``
+(dense, the trainer's default and the paper's own ~100M vehicle).
 """
 from __future__ import annotations
 
@@ -21,7 +22,20 @@ from repro_torch.configs.base import (
     reduced,
 )
 
-ARCHS = ("countdown-100m", "llama3.2-1b", "recurrentgemma-2b", "mamba2-130m")
+ARCHS = (
+    "musicgen-large",
+    "granite-moe-3b-a800m",
+    "mixtral-8x22b",
+    "internvl2-1b",
+    "recurrentgemma-2b",
+    "llama3.2-1b",
+    "glm4-9b",
+    "olmo-1b",
+    "internlm2-1.8b",
+    "mamba2-130m",
+    # the paper's own evaluation vehicle: a ~100M dense LM used by examples/
+    "countdown-100m",
+)
 
 _MODULES = {a: a.replace("-", "_").replace(".", "_") for a in ARCHS}
 

@@ -21,13 +21,29 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \\
       --continuous --temperature 0
 
+  # MoE at full width and depth: capacity routing at each join, dropless
+  # decode over all 40 experts
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch granite-moe-3b-a800m --continuous --n-requests 16 \\
+      --prompt-len 128 --steps 32 --slots 8 --page-size 16
+
+  # a frontend arch: each request carries its 256 prefix embeddings
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch internvl2-1b \\
+      --continuous --n-requests 4 --prompt-len 128 --steps 16 --slots 8 \\
+      --page-size 16
+
+  # mixtral-8x22b at full width, cut to 2 of its 56 layers to fit one card
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x22b \\
+      --continuous --n-layers 2 --n-requests 4 --prompt-len 128 --steps 16
+
   # a small model on the CPU, plain PyTorch (the default there)
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \\
       --reduced --continuous --device cpu
 
 Only the ``--continuous`` path of ``repro.launch.serve`` is ported: the
 static batch, the fleet, the trace/telemetry outputs and the power cap
-come in later slices.  Weights are random, drawn from ``--seed``.  Tokens
+come in later slices.  ``--n-layers`` is the port's own: it cuts the
+depth and keeps every width.  Weights are random, drawn from ``--seed``.  Tokens
 are drawn at ``--temperature`` (0.8 by default, as the reference's) with
 the reference's ``jax.random`` keys and draws (``repro_torch.jrandom``).  One
 warm-up generate runs before the clock starts (it also builds the CUDA
@@ -63,7 +79,10 @@ def _make_requests(args, cfg) -> List[Request]:
     more request of an N-token prompt and ``--steps`` new tokens, arriving
     with the first.  With a temperature, request ``i`` samples with the key
     ``fold_in(key(--seed), i)``, as the reference's, and the long one with
-    ``fold_in(key(--seed), --n-requests)``."""
+    ``fold_in(key(--seed), --n-requests)``.  A frontend arch's request gets
+    ``prefix_embeds``, normal(0, 0.02) of shape (n_prefix, d), drawn right
+    after its new-token count as the reference draws them, so the streams
+    stay equal."""
     rng = np.random.default_rng(args.seed)
     arrivals = poisson_arrivals(args.n_requests, args.arrival_rate, seed=args.seed,
                                 burst_every=max(args.slots, 2), burst_gap=0.05)
@@ -77,12 +96,19 @@ def _make_requests(args, cfg) -> List[Request]:
         prompt = rng.integers(0, cfg.vocab, size=args.prompt_len).astype(np.int32)
         max_new = int(rng.integers(max(2, args.steps // 2), args.steps + 1))
         reqs.append(Request(prompt=prompt, max_new=max_new, arrival=float(arrivals[i]),
-                            key=key(i)))
+                            key=key(i), prefix_embeds=prefix_embeds(rng, cfg)))
     if args.long_prompt:
         prompt = rng.integers(0, cfg.vocab, size=args.long_prompt).astype(np.int32)
         reqs.append(Request(prompt=prompt, max_new=args.steps, arrival=float(arrivals[0]),
-                            key=key(args.n_requests)))
+                            key=key(args.n_requests), prefix_embeds=prefix_embeds(rng, cfg)))
     return reqs
+
+
+def prefix_embeds(rng: np.random.Generator, cfg) -> Optional[np.ndarray]:
+    """A frontend arch's stub prefix, (n_prefix, d) fp32; None without one."""
+    if not cfg.n_prefix:
+        return None
+    return rng.normal(0, 0.02, size=(cfg.n_prefix, cfg.d_model)).astype(np.float32)
 
 
 def run_continuous(args, subscribers: Sequence[Any] = ()) -> Dict[str, Any]:
@@ -94,18 +120,23 @@ def run_continuous(args, subscribers: Sequence[Any] = ()) -> Dict[str, Any]:
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduced(cfg)
+    if args.n_layers:
+        cfg = dataclasses.replace(cfg, n_layers=args.n_layers)
     if args.kv_int8:
         cfg = dataclasses.replace(cfg, kv_quant=True)
     params = init_params(cfg, torch.Generator(device=device).manual_seed(args.seed), device)
-    max_len = max(args.prompt_len, args.long_prompt) + args.steps + args.page_size
+    max_len = (max(args.prompt_len, args.long_prompt) + cfg.n_prefix + args.steps
+               + args.page_size)
     max_len += (-max_len) % args.page_size
     eng = ContinuousEngine(cfg, params, n_slots=args.slots, max_len=max_len,
                            page=args.page_size, temperature=args.temperature,
                            attn_kernel=args.attn_kernel, device=device)
-    warm = np.random.default_rng(args.seed + 1).integers(
-        0, cfg.vocab, size=(1, args.prompt_len)).astype(np.int32)
+    warm_rng = np.random.default_rng(args.seed + 1)
+    warm = {"tokens": warm_rng.integers(0, cfg.vocab, size=(1, args.prompt_len)).astype(np.int32)}
+    if cfg.n_prefix:
+        warm["prefix_embeds"] = prefix_embeds(warm_rng, cfg)[None]
     t0 = time.time()
-    eng.generate({"tokens": warm}, n_steps=2)
+    eng.generate(warm, n_steps=2)
     t_warm = time.time() - t0
 
     gov = Governor(policy=policy_for_theta(args.theta))
@@ -126,7 +157,8 @@ def run_continuous(args, subscribers: Sequence[Any] = ()) -> Dict[str, Any]:
     s = slo.summary()
     n_tok = sum(len(r.out) for r in done)
     return {
-        "arch": cfg.name, "device": str(device), "attn_kernel": eng.attn_kernel,
+        "arch": cfg.name, "n_layers": cfg.n_layers, "device": str(device),
+        "attn_kernel": eng.attn_kernel,
         "temperature": args.temperature, "policy": gov.policy.name,
         "requests": len(done), "tokens": n_tok, "wall_s": dt,
         "tok_per_s": n_tok / dt, "warmup_s": t_warm,
@@ -148,8 +180,12 @@ def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--arch", default="llama3.2-1b",
-                    help="llama3.2-1b, recurrentgemma-2b or mamba2-130m")
+                    help="any arch of repro_torch.configs.ARCHS")
     ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--n-layers", type=int, default=0,
+                    help="cut the model to its first N layers, widths kept (0: the "
+                         "config's depth); for a model whose every layer would not fit "
+                         "one card")
     ap.add_argument("--continuous", action="store_true",
                     help="continuous batching over the paged KV pool (the only "
                          "mode ported so far)")

@@ -1,7 +1,7 @@
 """Synthetic batches, ported from ``repro.models.inputs``.
 
 :func:`make_batch` draws the reference's numpy stream in the reference's
-order, so its tokens, labels and mask are bit-equal to
+order, so its tokens, prefix embeddings, labels and mask are bit-equal to
 ``repro.models.inputs.make_batch``'s for the same config, sizes and seed.
 The shape specs (``input_specs`` and its siblings) belong to the dry-run and
 are not ported yet (ROADMAP.md, queue 1).

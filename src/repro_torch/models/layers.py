@@ -2,10 +2,10 @@
 
 Plain functions over explicit parameter dicts of tensors, in the JAX
 package's layouts (``x @ w`` with ``w`` stored ``(d_in, d_out)``), so the
-parity tests compare like with like.  Only the subset the dense and hybrid
-families need is here: the RMSNorm, RoPE, GQA attention (naive, chunked
-and banded, chosen as ``attention_forward`` chooses), the linear/ring KV
-cache with its int8 variant, the SwiGLU MLP and the chunked cross-entropy
+parity tests compare like with like: the RMSNorm, LayerNorm and
+nonparametric norms, RoPE, GQA attention (naive, chunked and banded,
+chosen as ``attention_forward`` chooses), the linear/ring KV cache with
+its int8 variant, the SwiGLU and GELU MLPs and the chunked cross-entropy
 of the training loss.
 
 ``kernel`` picks plain PyTorch (``"plain"``) or the hand-written kernels
@@ -86,14 +86,37 @@ def embed_init(gen: torch.Generator, vocab: int, d: int, dtype, device) -> torch
 # --------------------------------------------------------------------------
 
 def init_norm(cfg, d: int, dtype, device) -> Params:
-    if cfg.norm != "rmsnorm":
-        raise NotImplementedError(f"norm {cfg.norm!r} is not ported yet")
+    """RMSNorm: a scale; LayerNorm: a scale and a bias; the nonparametric
+    norm (olmo): no parameter at all, ``{}``."""
+    if cfg.norm == "nonparametric":
+        return {}
+    if cfg.norm == "layernorm":
+        return {"scale": torch.ones((d,), dtype=dtype, device=device),
+                "bias": torch.zeros((d,), dtype=dtype, device=device)}
     return {"scale": torch.ones((d,), dtype=dtype, device=device)}
 
 
+def layer_norm(x: torch.Tensor, scale: Optional[torch.Tensor] = None,
+               bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """LayerNorm over the last axis, mean and variance in fp32, eps 1e-5;
+    without ``scale`` and ``bias`` the nonparametric norm."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mu).square().mean(dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + 1e-5)
+    if scale is not None:
+        y = y * scale.float() + bias.float()
+    return y.to(x.dtype)
+
+
 def apply_norm(cfg, p: Params, x: torch.Tensor, kernel: str = "plain") -> torch.Tensor:
-    if cfg.norm != "rmsnorm":
-        raise NotImplementedError(f"norm {cfg.norm!r} is not ported yet")
+    """The config's norm in ``x``'s dtype.  ``kernel="cuda"`` reaches the
+    RMSNorm kernel, and only for ``cfg.norm == "rmsnorm"``: the reference
+    computes LayerNorm and the nonparametric norm in XLA, with no Pallas
+    kernel, so they are plain PyTorch on every device and no kernel is
+    missing for them."""
+    if cfg.norm in ("layernorm", "nonparametric"):
+        return layer_norm(x, p.get("scale"), p.get("bias"))
     if kernel == "cuda":
         return RN.rmsnorm(x.contiguous(), p["scale"])
     return RN.rmsnorm_plain(x, p["scale"])
@@ -384,7 +407,12 @@ def attention_decode(cfg, p, x, pos, cache):
 # --------------------------------------------------------------------------
 
 def init_mlp(cfg, gen, dtype, device) -> Params:
+    """SwiGLU's three matrices; the ``audio`` family (musicgen) has the
+    classic two-matrix GELU MLP."""
     d, f = cfg.d_model, cfg.d_ff
+    if cfg.family == "audio":
+        return {"w1": dense_init(gen, d, f, dtype, device),
+                "w2": dense_init(gen, f, d, dtype, device)}
     return {
         "w1": dense_init(gen, d, f, dtype, device),
         "w3": dense_init(gen, d, f, dtype, device),
@@ -393,7 +421,11 @@ def init_mlp(cfg, gen, dtype, device) -> Params:
 
 
 def mlp_forward(cfg, p, x):
-    """SwiGLU: ``(silu(x @ w1) * (x @ w3)) @ w2``."""
+    """SwiGLU, ``(silu(x @ w1) * (x @ w3)) @ w2``, or, without ``w3``,
+    ``gelu(x @ w1) @ w2`` with ``jax.nn.gelu``'s default tanh approximation
+    (the exact erf form differs by about 1e-3)."""
+    if "w3" not in p:
+        return matmul(F.gelu(matmul(x, p["w1"]), approximate="tanh"), p["w2"])
     return matmul(F.silu(matmul(x, p["w1"])) * matmul(x, p["w3"]), p["w2"])
 
 

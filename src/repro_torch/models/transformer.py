@@ -1,14 +1,22 @@
-"""Model assembly for the dense, hybrid and SSM families, ported from ``repro.models.transformer``.
+"""Model assembly for every family, ported from ``repro.models.transformer``.
 
 The reference stacks the layers on a leading ``n_full`` axis of periods of
-the config's block pattern (dense: ``("attn",)``; mamba2: ``("ssm",)``;
-recurrentgemma: ``("rglru", "rglru", "attn")``), scans over them, and
+the config's block pattern (dense, MoE, vlm and audio: ``("attn",)``;
+mamba2: ``("ssm",)``; recurrentgemma: ``("rglru", "rglru", "attn")``),
+scans over them, and
 unrolls a remainder ``"rem"``.  PyTorch runs eagerly, so the port walks the layers in a Python
 loop and keeps them **split**: ``params["layers"]`` is a list of per-layer
 dicts in layer order (``cfg.layer_kinds()`` names each one's kind), and
 caches and page pools are ``{"layers": [...]}`` trees of the same shape.
 :mod:`repro_torch.bridge` converts to and from the stacked layout.  Caches
 are updated in place.
+
+An MoE arch (``cfg.is_moe``) routes every attention block's FFN through
+:func:`repro_torch.models.moe.moe_forward`: capacity routing, which drops
+assignments past an expert's capacity, over a whole sequence (forward,
+prefill), and dropless routing at decode (capacity ``B·S``), as the
+reference does.  A frontend arch (``cfg.n_prefix``: vlm, audio) takes
+``batch["prefix_embeds"]`` (B, n_prefix, d) before its tokens.
 
 For serving, ``kernel`` picks plain PyTorch or the hand-written kernels
 (RMSNorm, flash prefill attention, RG-LRU scan, SSD scan); ``None``
@@ -36,6 +44,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_kernel
 from repro_torch.models import layers as L
+from repro_torch.models import moe as M
 from repro_torch.models import rglru as R
 from repro_torch.models import ssm as S
 
@@ -45,21 +54,22 @@ BLOCK_KINDS = ("attn", "rglru", "ssm")
 
 
 def check_supported(cfg) -> None:
-    """Admit the families the port serves: dense (``("attn",)``), SSM
-    (``("ssm",)``) and hybrid (attention and RG-LRU blocks); refuse MoE and
-    frontend prefixes."""
-    ok = cfg.family in ("dense", "hybrid", "ssm") and set(cfg.pattern) <= set(BLOCK_KINDS)
-    if cfg.family == "dense":
+    """Admit the families the reference registers: dense, MoE, vlm and
+    audio (``("attn",)``), SSM (``("ssm",)``) and hybrid (attention and
+    RG-LRU blocks); refuse other combinations."""
+    ok = set(cfg.pattern) <= set(BLOCK_KINDS)
+    if cfg.family in ("dense", "moe", "vlm", "audio"):
         ok = ok and cfg.pattern == ("attn",)
     elif cfg.family == "ssm":
         ok = ok and cfg.pattern == ("ssm",)
-    else:
+    elif cfg.family == "hybrid":
         ok = ok and "ssm" not in cfg.pattern
-    if not ok or cfg.is_moe or cfg.n_prefix:
+    else:
+        ok = False
+    if not ok:
         raise NotImplementedError(
             f"arch {cfg.name!r} (family {cfg.family!r}, pattern {cfg.pattern}) is not "
-            "ported; only the dense, the SSM and the attention/RG-LRU hybrid families "
-            "are (ROADMAP.md, queue 1: other families)")
+            "a combination the reference builds")
 
 
 def stack_layout(cfg) -> Tuple[int, Tuple[str, ...]]:
@@ -73,8 +83,8 @@ def stack_layout(cfg) -> Tuple[int, Tuple[str, ...]]:
 # --------------------------------------------------------------------------
 
 def _init_block(cfg, kind: str, gen, dtype, device) -> Params:
-    """An SSM block has ``ln1`` only; the others a norm and an MLP after
-    their mixer."""
+    """An SSM block has ``ln1`` only; the others a norm and an MLP (the
+    MoE FFN in an MoE arch's attention blocks) after their mixer."""
     d = cfg.d_model
     p = {"ln1": L.init_norm(cfg, d, dtype, device)}
     if kind == "ssm":
@@ -85,7 +95,8 @@ def _init_block(cfg, kind: str, gen, dtype, device) -> Params:
     else:
         p["rglru"] = R.init_rglru(cfg, gen, dtype, device)
     p["ln2"] = L.init_norm(cfg, d, dtype, device)
-    p["ffn"] = L.init_mlp(cfg, gen, dtype, device)
+    moe = cfg.is_moe and kind == "attn"
+    p["ffn"] = M.init_moe(cfg, gen, dtype, device) if moe else L.init_mlp(cfg, gen, dtype, device)
     return p
 
 
@@ -108,10 +119,25 @@ def init_params(cfg, generator: torch.Generator, device) -> Params:
     return params
 
 
-def _embed_inputs(cfg, params, tokens: torch.Tensor) -> torch.Tensor:
-    """Embedding rows cast to the compute dtype, then times sqrt(d)."""
-    x = params["embed"][tokens.long()].to(L.dtype_of(cfg.compute_dtype))
+def _embed_inputs(cfg, params, tokens: torch.Tensor,
+                  prefix: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Embedding rows cast to the compute dtype, after the frontend's prefix
+    embeddings (B, n_prefix, d) where the config has a prefix and one is
+    given, then times sqrt(d)."""
+    dtype = L.dtype_of(cfg.compute_dtype)
+    x = params["embed"][tokens.long()].to(dtype)
+    if cfg.n_prefix and prefix is not None:
+        x = torch.cat([prefix.to(dtype), x], dim=1)
     return L.scale_by(x, math.sqrt(cfg.d_model))
+
+
+def _ffn(cfg, kind: str, p: Params, h, decode: bool = False):
+    """The FFN after a block's mixer -> (y, aux or None): the MLP, or in an
+    MoE arch's attention blocks the MoE layer, capacity-routed over a
+    sequence and dropless at decode."""
+    if kind == "attn" and cfg.is_moe:
+        return M.moe_forward(cfg, p, h, cap_override=h.shape[0] * h.shape[1] if decode else 0)
+    return L.mlp_forward(cfg, p, h), None
 
 
 def _unembed_matrix(cfg, params) -> torch.Tensor:
@@ -147,7 +173,8 @@ def _block_forward(cfg, kind: str, p: Params, x):
         y, _ = R.rglru_forward(cfg, p["rglru"], h)
         x = x + y
     h = L.apply_norm(cfg, p["ln2"], x)
-    return x + L.mlp_forward(cfg, p["ffn"], h), aux
+    y, a = _ffn(cfg, kind, p["ffn"], h)
+    return x + y, aux if a is None else a
 
 
 def _period_forward(cfg, blocks, x):
@@ -166,7 +193,7 @@ def forward(cfg, params, batch) -> Tuple[torch.Tensor, torch.Tensor]:
     activations are recomputed in the backward pass, with the same numbers,
     since no layer draws random numbers.  The remainder blocks run without
     it, as in the reference."""
-    x = _embed_inputs(cfg, params, batch["tokens"])
+    x = _embed_inputs(cfg, params, batch["tokens"], batch.get("prefix_embeds"))
     n_full, rem_kinds = stack_layout(cfg)
     plen = len(cfg.pattern)
     layers = params["layers"]
@@ -185,9 +212,10 @@ def forward(cfg, params, batch) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 def loss_fn(cfg, params, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """batch: tokens (B,S), labels (B,S), mask (B,S).  Returns (loss,
-    {"nll", "aux"}): the mean NLL over the mask plus the aux loss (0 for
-    every family the port registers).  A softcapped arch (recurrentgemma)
+    """batch: tokens (B,S'), labels (B,S), mask (B,S) [, prefix_embeds
+    (B, S - S', d)].  Returns (loss, {"nll", "aux"}): the mean NLL over the
+    mask plus the aux loss (MoE's load-balance loss summed over the
+    layers; 0 for the other families).  A softcapped arch (recurrentgemma)
     materialises its logits; the others take the chunked cross-entropy."""
     hidden, aux = forward(cfg, params, batch)
     labels = batch["labels"].long()
@@ -238,7 +266,8 @@ def _block_prefill(cfg, kind, p, x, bc, kernel):
         bc.update(state)
     x = x + y
     h = L.apply_norm(cfg, p["ln2"], x, kernel)
-    return x + L.mlp_forward(cfg, p["ffn"], h), bc
+    y, _ = _ffn(cfg, kind, p["ffn"], h)
+    return x + y, bc
 
 
 def _block_decode(cfg, kind, p, x, pos, bc, attn_fn, kernel):
@@ -259,16 +288,18 @@ def _block_decode(cfg, kind, p, x, pos, bc, attn_fn, kernel):
         y, bc = attn_fn(p["attn"], h, bc)
     x = x + y
     h = L.apply_norm(cfg, p["ln2"], x, kernel)
-    return x + L.mlp_forward(cfg, p["ffn"], h), bc
+    y, _ = _ffn(cfg, kind, p["ffn"], h, decode=True)
+    return x + y, bc
 
 
 def prefill(cfg, params, batch, cache, *, kernel: Optional[str] = None
             ) -> Tuple[torch.Tensor, Params]:
-    """Full-sequence prefill of ``batch["tokens"]`` (B,S).  Fills ``cache``
-    in place; returns (last-token logits (B,V), cache)."""
+    """Full-sequence prefill of ``batch["tokens"]`` (B,S), after
+    ``batch["prefix_embeds"]`` where the config has a prefix.  Fills
+    ``cache`` in place; returns (last-token logits (B,V), cache)."""
     tokens = batch["tokens"]
     kernel = resolve_kernel(kernel, tokens.device)
-    x = _embed_inputs(cfg, params, tokens)
+    x = _embed_inputs(cfg, params, tokens, batch.get("prefix_embeds"))
     for kind, p, bc in zip(cfg.layer_kinds(), params["layers"], cache["layers"]):
         x, _ = _block_prefill(cfg, kind, p, x, bc, kernel)
     x = L.apply_norm(cfg, params["final_norm"], x, kernel)

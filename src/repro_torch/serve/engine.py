@@ -95,12 +95,17 @@ class ServeEngine:
     @torch.no_grad()
     def generate(self, batch: Dict[str, Any], n_steps: int,
                  key: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """Greedy/sampled continuation of ``batch['tokens']`` (B,S) for n_steps."""
+        """Greedy/sampled continuation of ``batch['tokens']`` (B,S) for
+        n_steps, after ``batch['prefix_embeds']`` where there is one."""
         tokens = torch.as_tensor(np.asarray(batch["tokens"]), device=self.device)
         b, s = tokens.shape
         prompt_len = s + self.cfg.n_prefix
+        inputs = {"tokens": tokens}
+        if "prefix_embeds" in batch:
+            inputs["prefix_embeds"] = torch.as_tensor(np.array(batch["prefix_embeds"]),
+                                                      device=self.device)
         cache = init_cache(self.cfg, b, self.max_len, self.device)
-        logits, cache = _prefill(self.cfg, self.params, {"tokens": tokens}, cache)
+        logits, cache = _prefill(self.cfg, self.params, inputs, cache)
         tok = self._select(logits, key, 0)
         out = [tok]
         for i in range(1, n_steps):
@@ -181,8 +186,11 @@ class ContinuousEngine:
     position budget (multiple of ``page``), ``num_pages`` optionally
     shrinks the pool below full occupancy.  For windowed archs prompts
     must fit inside the window (the pool stores positions linearly and
-    masks by window at read).  ``device`` is ``cuda`` unless the caller
-    names another; the params must already be there.
+    masks by window at read).  A frontend arch's request (``cfg.n_prefix``)
+    carries ``prefix_embeds`` (n_prefix, d), prefilled before its prompt
+    and counted in its positions; one without is refused when submitted.
+    ``device`` is ``cuda`` unless the caller names another; the params
+    must already be there.
     """
 
     cfg: Any
@@ -232,9 +240,11 @@ class ContinuousEngine:
                 f"paged serving stores positions linearly: prompt pages {lpad} "
                 f"must fit the attention window {cfg.window}"
             )
+        batch = {"tokens": self._to_device(prompt[None])}
+        if req.prefix_embeds is not None:
+            batch["prefix_embeds"] = self._to_device(np.array(req.prefix_embeds)[None])
         cache = init_cache(cfg, 1, lpad, self.device)
-        logits, cache = _prefill(cfg, self.params, {"tokens": self._to_device(prompt[None])},
-                                 cache, kernel=self.attn_kernel)
+        logits, cache = _prefill(cfg, self.params, batch, cache, kernel=self.attn_kernel)
         self.n_joins += 1
         req.pages = self.pool.alloc(req.rid, n_used)
         slot = req.slot
@@ -314,7 +324,8 @@ class ContinuousEngine:
 
         Greedy output matches ``ServeEngine.generate`` token for token.
         Sampled output gives row ``i`` the key ``fold_in(key, i)``, as the
-        reference (not the static engine's one key a step).
+        reference (not the static engine's one key a step).  Row ``i`` of
+        ``batch["prefix_embeds"]``, where there is one, is request ``i``'s.
         """
         tokens = np.asarray(batch["tokens"])
         b = tokens.shape[0]
@@ -323,6 +334,10 @@ class ContinuousEngine:
         reqs = [Request(prompt=tokens[i], max_new=n_steps, arrival=0.0,
                         key=None if key is None else jrandom.fold_in(key, i))
                 for i in range(b)]
+        if "prefix_embeds" in batch:
+            pre = np.asarray(batch["prefix_embeds"])
+            for i, req in enumerate(reqs):
+                req.prefix_embeds = pre[i]
         order = {r.rid: i for i, r in enumerate(reqs)}
         done = sorted(self.serve(reqs), key=lambda r: order[r.rid])
         return torch.as_tensor(np.stack([np.asarray(r.out[:n_steps], np.int32) for r in done]))
@@ -376,6 +391,13 @@ class EngineSession:
 
     # ---- lifecycle -------------------------------------------------------
     def submit(self, req: Request) -> None:
+        cfg = self.engine.cfg
+        if cfg.n_prefix and req.prefix_embeds is None:
+            # without the prefix, positions [S, S+n_prefix) would never be
+            # written and the page mask would attend their zero K/V
+            raise ValueError(
+                f"arch {cfg.name!r} has n_prefix={cfg.n_prefix}: "
+                f"request {req.rid} must carry prefix_embeds")
         self.sched.submit(req)
 
     def admit(self, now: Optional[float] = None) -> List[Request]:

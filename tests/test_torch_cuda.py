@@ -304,6 +304,11 @@ def test_rglru_scan_refuses_what_the_kernel_does_not_take(card):
     (1, 32, 8, 128, 64, 0, torch.float32),         # llama3.2-1b prefill
     (2, 4, 2, 45, 32, 16, torch.float32),          # ragged tiles, window < tile
     (1, 8, 2, 100, 64, 0, torch.bfloat16),
+    (1, 24, 8, 128, 64, 0, torch.float32),         # granite-moe-3b-a800m, G 3
+    (1, 14, 2, 384, 64, 0, torch.float32),         # internvl2-1b with its prefix, G 7
+    (1, 32, 2, 128, 128, 0, torch.float32),        # glm4-9b, G 16, D 128
+    (1, 16, 16, 128, 128, 0, torch.float32),       # olmo-1b, MHA, D 128
+    (1, 48, 8, 128, 128, 4096, torch.float32),     # mixtral-8x22b, G 6, window 4096
 ])
 def test_flash_kernel_matches_plain_on_card(card, b, hq, hkv, s, d, window, dtype):
     q = randn(card, b, hq, s, d, dtype=dtype, seed=5)
@@ -558,6 +563,76 @@ def test_mamba2_engine_launches_ssd_and_rmsnorm_by_default(card):
 
 
 # --------------------------------------------------------------------------
+# the other families: MoE on the card, the engines' launches and tokens
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("routing", ["capacity", "dropless"])
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "mixtral-8x22b"])
+def test_moe_layer_on_card_matches_cpu(card, arch, routing):
+    """The MoE layer at granite's full width (d 1536, 40 experts top-8, 512
+    wide) and at reduced mixtral, fp32: 128 tokens skewed toward one
+    direction (capacity routing drops assignments) or 8 (dropless, as at
+    decode).  Routing equal to the CPU's, out and aux at the fp32 bar, and
+    no host synchronisation on the way."""
+    from repro_torch.models import moe as TM
+    from repro_torch.models.layers import dtype_of
+
+    cfg = get_config(arch) if arch.startswith("granite") else reduced(get_config(arch))
+    params = TM.init_moe(cfg, torch.Generator().manual_seed(0), dtype_of("float32"), "cpu")
+    rng = np.random.default_rng(1)
+    t = 8 if routing == "dropless" else 128
+    x = (rng.normal(0, 1, (1, t, cfg.d_model)) + 1.5 * rng.normal(0, 1, cfg.d_model))
+    x = torch.from_numpy(x.astype(np.float32))
+    cap = t if routing == "dropless" else 0
+    want, want_aux = TM.moe_forward(cfg, params, x, cap_override=cap)
+    on_card = {k: v.to(card) for k, v in params.items()}
+    x_card = x.to(card)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got, aux = TM.moe_forward(cfg, on_card, x_card, cap_override=cap)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    _, _, idx = TM.route(cfg, on_card, x_card.reshape(t, -1))
+    _, _, want_idx = TM.route(cfg, params, x.reshape(t, -1))
+    assert torch.equal(idx.cpu(), want_idx)
+    _, keep = TM.positions(want_idx, cfg.n_experts, cap or TM.capacity(cfg, t))
+    assert bool(keep.all()) == (routing == "dropless")
+    torch.testing.assert_close(got.cpu(), want, atol=2e-5, rtol=2e-4)
+    torch.testing.assert_close(aux.cpu(), want_aux, atol=2e-5, rtol=2e-4)
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "mixtral-8x22b", "internvl2-1b",
+                                  "musicgen-large", "olmo-1b"])
+def test_family_engine_on_card_matches_cpu(card, arch):
+    """A reduced model of each other family on the card with no kernel
+    named: the paged kernel once per layer a step, flash once per layer a
+    join, RMSNorm 2 * layers + 1 times a join and a step where the norm is
+    RMSNorm and never otherwise; greedy tokens equal the CPU plain path's
+    (the prefix archs with their prefix embeddings)."""
+    cfg = reduced(get_config(arch))
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    rng = np.random.default_rng(15)
+    batch = {"tokens": rng.integers(0, cfg.vocab, (2, 12)).astype(np.int32)}
+    if cfg.n_prefix:
+        batch["prefix_embeds"] = rng.normal(0, 0.02, (2, cfg.n_prefix, cfg.d_model)).astype(
+            np.float32)
+    eng = ContinuousEngine(cfg, _to(params, card), n_slots=2, max_len=40, page=8, device=card)
+    for mod in (RN, FA, PA):
+        mod.launches = 0
+    got = eng.generate(batch, n_steps=6)
+    joins, steps = eng.n_joins, eng.n_decode_steps
+    assert (joins, steps) == (2, 5)
+    norms = 2 * cfg.n_layers + 1 if cfg.norm == "rmsnorm" else 0
+    assert RN.launches == (joins + steps) * norms
+    assert FA.launches == joins * cfg.n_layers
+    assert PA.launches == steps * cfg.n_layers
+    want = ContinuousEngine(cfg, params, n_slots=2, max_len=40, page=8, device="cpu").generate(
+        batch, n_steps=6)
+    assert torch.equal(got, want)
+
+
+# --------------------------------------------------------------------------
 # the split walk (S blocks per (slot, kv head), then the combine)
 # --------------------------------------------------------------------------
 
@@ -568,6 +643,14 @@ SPLIT_SHAPES = {
     "one split": dict(b=64, hkv=8, g=4, d=64, page=16, m=40),
     # odd G (a warp's second head idle), rows not whole 16-byte chunks
     "odd shapes": dict(b=6, hkv=2, g=3, d=20, page=8, m=6),
+    # the other families' decode shapes
+    "granite-moe-3b-a800m": dict(b=8, hkv=8, g=3, d=64, page=16, m=11),
+    "internvl2-1b": dict(b=8, hkv=2, g=7, d=64, page=16, m=11),
+    "glm4-9b": dict(b=8, hkv=2, g=16, d=128, page=16, m=11),
+    "internlm2-1.8b": dict(b=8, hkv=8, g=2, d=128, page=16, m=11),
+    "olmo-1b": dict(b=8, hkv=16, g=1, d=128, page=16, m=11),
+    "mixtral-8x22b": dict(b=8, hkv=8, g=6, d=128, page=16, m=272),
+    "musicgen-large": dict(b=8, hkv=32, g=1, d=64, page=16, m=11),
 }
 
 
@@ -597,7 +680,9 @@ def splits_of(card, shape, window):
 
 
 SPLIT_CASES = [("llama3.2-1b", 0), ("llama3.2-1b", 40), ("recurrentgemma-2b", 2048),
-               ("one split", 0), ("odd shapes", 12)]
+               ("one split", 0), ("odd shapes", 12), ("granite-moe-3b-a800m", 0),
+               ("internvl2-1b", 0), ("glm4-9b", 0), ("internlm2-1.8b", 0), ("olmo-1b", 0),
+               ("mixtral-8x22b", 4096), ("musicgen-large", 0)]
 SPLIT_TOL = {torch.float32: dict(atol=2e-5, rtol=2e-4), torch.int8: dict(atol=2e-5, rtol=2e-4),
              torch.bfloat16: dict(atol=3e-2, rtol=3e-2)}
 SLOT_REL_TOL = 2e-2      # bf16 pages: a slot's max error over that slot's output RMS

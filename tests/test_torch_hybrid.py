@@ -9,6 +9,7 @@ numpy seeds.  Every check runs the port both on its plain path and with
 ``kernel="cuda"``, whose wrappers take their plain versions for CPU tensors
 (the same arithmetic as the kernels, as ``chip_smoke.py`` holds them).
 """
+import dataclasses
 import inspect
 
 import jax
@@ -71,9 +72,10 @@ def test_reduced_hybrid_has_a_remainder():
     full = get_config("recurrentgemma-2b")
     assert TT.stack_layout(full) == (8, ("rglru", "rglru"))
     assert full.layer_kinds().count("attn") == 8 and full.layer_kinds().count("rglru") == 18
-    for name in ("internvl2-1b", "granite-moe-3b-a800m"):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            TT.check_supported(jget_config(name))
+    for name in ("internvl2-1b", "granite-moe-3b-a800m"):     # ported since
+        TT.check_supported(jget_config(name))
+    with pytest.raises(NotImplementedError, match="reference builds"):
+        TT.check_supported(dataclasses.replace(full, family="ssm"))
 
 
 @pytest.mark.parametrize("param_dtype", ["float32", "bfloat16"])

@@ -78,7 +78,9 @@ def test_every_module_imports_with_jax_and_repro_blocked():
                   "core.simulator", "core.predictor", "core.workloads", "core.profiler",
                   "core.instrument", "train.loop", "train.optimizer", "train.data",
                   "dist.compression", "launch.train", "models.inputs", "obs.log", "tree",
-                  "configs.countdown_100m"):
+                  "configs.countdown_100m", "models.moe", "configs.glm4_9b",
+                  "configs.internlm2_1_8b", "configs.olmo_1b", "configs.granite_moe_3b_a800m",
+                  "configs.mixtral_8x22b", "configs.internvl2_1b", "configs.musicgen_large"):
             assert "repro_torch." + n in names, n
         print(len(names))
     """)
@@ -138,14 +140,18 @@ def test_copied_config_equals_reference():
     for mods in ({}, {"kv_quant": True}):
         jcfg, tcfg = cfgs(**mods)
         assert dataclasses.asdict(jcfg) == dataclasses.asdict(tcfg)
-    for arch in ("countdown-100m", "llama3.2-1b", "recurrentgemma-2b", "mamba2-130m"):
+    from repro.configs import ARCHS as JARCHS
+    from repro_torch.configs import ARCHS
+
+    assert ARCHS == JARCHS                            # every arch, in the same order
+    for arch in JARCHS:
         assert dataclasses.asdict(jget_config(arch)) == dataclasses.asdict(get_config(arch))
+        assert dataclasses.asdict(jreduced(jget_config(arch))) == \
+            dataclasses.asdict(reduced(get_config(arch)))
         assert dataclasses.asdict(jreduced(jget_config(arch), n_layers=8)) == \
             dataclasses.asdict(reduced(get_config(arch), n_layers=8))
-    assert dataclasses.asdict(jreduced(jget_config("mamba2-130m"))) == \
-        dataclasses.asdict(reduced(get_config("mamba2-130m")))
     with pytest.raises(KeyError):
-        get_config("mixtral-8x22b")                   # not ported yet
+        get_config("gpt-2")                           # in neither registry
 
 
 def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
