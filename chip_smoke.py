@@ -166,7 +166,33 @@ Builds the hand-written kernels from the five sources in this checkout (one
    layers) at full depth; glm4-9b cut to 8 of 40 layers and mixtral-8x22b
    to 2 of 56, each cut logged with its reason.
 
-In phases 1b, 2, 5, 8, 11, 13-16 and 18 every kernel count is set to 0 just
+19. **the prefix cache** (run after phase 11): full-width llama3.2-1b
+   with ``ContinuousEngine.enable_prefix_cache``, 8 slots, page 16: 4
+   groups sharing a 120-token prefix (7 pages and a partial page of 8),
+   each a priming request of the bare prefix (one new token) and 4 members
+   with suffixes of 8-20 tokens and 16-28 new tokens, all at t 0, so later
+   members join on resident pages: shared full pages, a copy-on-write
+   clone of the partial one, the suffix replayed as forced decode steps.
+   Cold (no cache) and warm, greedy and at T 0.8: hits and clones, exact
+   launch counts (flash once a layer a cold join only, the paged kernel
+   once a layer a step, forced steps included), no page held at the end
+   but the resident ones; warm tokens against cold request by request
+   (where they part, the step and both runs' top-2 logit margins logged),
+   and both runs teacher-forced with the cold tokens, every draw's logits
+   held at the bf16 bar (3e-2).  Logged: matched tokens, hits, clones,
+   step p50 and the joins' host time, warm beside cold.
+20. **telemetry** (run last): phase 2's serve with and without
+   ``--trace-out --perfetto-out --metrics-out --power-cap 300 --dashboard``
+   in turns (off, on, on, off), each with phase 2's checks: the port's
+   validators accept the files, one slack span a booked phase, a join and
+   an evict instant a request, the metrics' last report and the trace's
+   replay equal the run's report; the tenant's watts are logged as
+   modelled (``core.pstate.DEFAULT_HW``), beside the card's name and power
+   limit.  Then two ``launch.train`` steps of full-width llama3.2-1b with
+   ``--live-events`` and the same flags: no kernel, the files valid, the
+   trace replayed to the run's report.
+
+In phases 1b, 2, 5, 8, 11, 13-16 and 18-20 every kernel count is set to 0 just
 before the run and read just after; each must equal the launches the path
 needs (RMSNorm once per norm a join and a step where the norm is RMSNorm,
 none for LayerNorm and the nonparametric norm: 2 a layer with an MLP, 1
@@ -1883,6 +1909,297 @@ def phase_train_live(torch, mods, card):
     return grad_ms
 
 
+# --------------------------------------------------------------------------
+# phase 19: the prefix cache
+# --------------------------------------------------------------------------
+
+PREFIX_LEN = 120          # 7 pages of 16 and a partial page of 8
+PREFIX_GROUPS = 4
+PREFIX_MEMBERS = 4        # requests a group after its priming request
+PREFIX_MAX_LEN = 192      # the longest request: 120 + 20 prompt tokens, 28 new
+
+
+def prefix_stream(vocab, rng, prefix_len=PREFIX_LEN, groups=PREFIX_GROUPS,
+                  members=PREFIX_MEMBERS):
+    """(prompt, new tokens) in arrival order, all at t 0: each group's
+    priming request of its bare prefix (one new token, so the trie ends in
+    the partial page), then round by round one member of every group, the
+    prefix and a suffix of its own (8, 12, ... tokens; 16, 20, ... new)."""
+    prefixes = [rng.integers(0, vocab, prefix_len).astype(np.int32) for _ in range(groups)]
+    stream = [(p, 1) for p in prefixes]
+    for m in range(members):
+        for p in prefixes:
+            suffix = rng.integers(0, vocab, 8 + 4 * m).astype(np.int32)
+            stream.append((np.concatenate([p, suffix]), 16 + 4 * m))
+    return stream
+
+
+def teacher_forced(torch, base):
+    """``base`` (a ``ContinuousEngine`` class) feeding request ``i`` of
+    ``order`` (rid -> i) the tokens ``script[i]`` in place of its own draws
+    and keeping the logits of every such draw on the device by (i, n);
+    other requests draw as ``base`` draws."""
+
+    class TeacherForced(base):
+        order, script, draws = {}, None, None
+
+        def _select_step(self, logits, active):
+            tok = super()._select_step(logits, active)
+            for slot, req in active:
+                i, n = self.order.get(req.rid), req.n_generated
+                if i is not None:
+                    self.draws[i, n] = logits[slot].float()
+                    tok[slot] = int(self.script[i][n])
+            return tok
+
+    return TeacherForced
+
+
+def serve_prefix(torch, mods, cfg, params, device, stream, temperature, with_cache,
+                 script=None, kernel="cuda"):
+    """Serve ``stream`` on a fresh engine (8 slots, page 16), with the
+    prefix cache or without, sampled at ``temperature`` (request i's key
+    ``fold_in(key(0), i)``) or, given ``script``, teacher-forced.  Checks
+    every request's length, the launch counts (flash once a layer a cold
+    join, the paged kernel once a layer a step, forced steps included,
+    RMSNorm once a norm a cold join and a step) and that no page is held
+    at the end but the cache's resident ones.  Returns the run."""
+    from repro_torch import jrandom
+    from repro_torch.serve.engine import ContinuousEngine
+    from repro_torch.serve.scheduler import Request
+
+    cls = ContinuousEngine if script is None else teacher_forced(torch, ContinuousEngine)
+    eng = cls(cfg, params, n_slots=8, max_len=PREFIX_MAX_LEN, page=16,
+              temperature=temperature if script is None else 1.0, attn_kernel=kernel,
+              device=device)
+    eng.generate({"tokens": stream[-1][0][None]}, n_steps=2)      # warm-up, untimed
+    cache = eng.enable_prefix_cache() if with_cache else None
+    base = jrandom.key(0)
+    reqs = [Request(prompt=p, max_new=n, arrival=0.0,
+                    key=jrandom.fold_in(base, i) if temperature > 0 else None)
+            for i, (p, n) in enumerate(stream)]
+    if script is not None:
+        eng.order, eng.script, eng.draws = {r.rid: i for i, r in enumerate(reqs)}, script, {}
+    joins = []
+    join = eng._join_request
+
+    def timed_join(req):
+        t0 = time.monotonic()
+        join(req)                        # each join ends once the device is done
+        joins.append((req.prefix_match is not None and req.prefix_match.n_tokens > 0,
+                      time.monotonic() - t0))
+
+    eng._join_request = timed_join
+    j0, s0 = eng.n_joins, eng.n_decode_steps
+    reset(mods)
+    t0 = time.monotonic()
+    eng.serve(reqs)
+    wall = time.monotonic() - t0
+    counts = counts_of(mods)
+    dj, ds = eng.n_joins - j0, eng.n_decode_steps - s0
+    n_attn = cfg.layer_kinds().count("attn")
+    if kernel == "cuda":
+        want = dict(paged_attention_scatter=ds * n_attn, paged_attention=0, paged_scatter=0,
+                    flash_attention=dj * n_attn, rmsnorm=(dj + ds) * (2 * cfg.n_layers + 1),
+                    ssd_scan=0, rglru_scan=0)
+        require(counts == want, f"prefix path launches {counts}, want {want}")
+    for r, (_, n) in zip(reqs, stream):
+        require(len(r.out) == n and all(0 <= t < cfg.vocab for t in r.out), r.rid)
+    pool = eng.pool
+    resident = cache.n_resident_pages if cache is not None else 0
+    require(not pool._reserved and not pool._allocated and not eng._forced
+            and len(pool._free) == pool.capacity_pages - resident,
+            f"pages held after the run: {len(pool._free)} free of {pool.capacity_pages}, "
+            f"{resident} resident")
+    hits = [r for r in reqs if r.prefix_match is not None and r.prefix_match.n_tokens > 0]
+    require(dj == len(reqs) - len(hits), (dj, len(hits)))
+    return dict(outs=[list(r.out) for r in reqs], counts=counts, joins=dj, steps=ds,
+                hits=len(hits), clones=sum(r.prefix_match.partial_page is not None
+                                           for r in hits),
+                matched=cache.tokens_matched if cache is not None else 0,
+                looked_up=cache.tokens_looked_up if cache is not None else 0,
+                resident=resident, wall_s=wall,
+                tok_per_s=sum(len(r.out) for r in reqs) / wall,
+                step_ms_p50=float(np.median(eng._last_session.step_seconds)) * 1e3,
+                cold_join_ms=[t * 1e3 for warm, t in joins if not warm],
+                prefix_join_ms=[t * 1e3 for warm, t in joins if warm],
+                draws=getattr(eng, "draws", None))
+
+
+def top2_margin(torch, logits) -> float:
+    top = torch.topk(logits, 2).values
+    return float(top[0] - top[1])
+
+
+def phase_prefix(torch, mods, cfg=None, params=None, device="cuda", kernel="cuda"):
+    """Full-width llama3.2-1b (fp32 params, bf16 compute, random weights
+    from seed 0) with the prefix cache, through the kernels: 4 groups of
+    requests sharing a 120-token prefix (7 pages of 16 and a partial one),
+    each a priming request and 4 members with suffixes of their own, over
+    8 slots, so later members join on pages an earlier request left
+    resident.  Cold (no cache) and warm, greedy and at T 0.8: hits and at
+    least one copy-on-write clone, the launch counts, no page leaked.  The
+    warm run's tokens must equal the cold run's request by request; where
+    they part, the first parting step and both runs' top-2 logit margins
+    there are logged.  Both runs are then teacher-forced with the cold
+    run's tokens, and every draw's logits are held to the cold run's at the
+    bf16 bar (3e-2).  Logs the matched tokens, hits, clones, the decode
+    step p50 and the joins' host time, warm beside cold.  Returns the warm
+    greedy run's launch counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import init_params
+
+    if cfg is None:
+        cfg = get_config("llama3.2-1b")
+        params = init_params(cfg, torch.Generator(device=device).manual_seed(0), device)
+    stream = prefix_stream(cfg.vocab, np.random.default_rng(19))
+    summary = {}
+    for temperature in (0.0, 0.8):
+        cold = serve_prefix(torch, mods, cfg, params, device, stream, temperature, False,
+                            kernel=kernel)
+        warm = serve_prefix(torch, mods, cfg, params, device, stream, temperature, True,
+                            kernel=kernel)
+        require(warm["hits"] > 0 and warm["clones"] > 0, f"hits {warm['hits']}, "
+                f"clones {warm['clones']}")
+        parted = {i: next(k for k, (a, b) in enumerate(zip(w, c)) if a != b)
+                  for i, (w, c) in enumerate(zip(warm["outs"], cold["outs"])) if w != c}
+        # teacher forcing: both paths fed the cold run's tokens, logits compared
+        forced = [serve_prefix(torch, mods, cfg, params, device, stream, temperature,
+                               with_cache, script=cold["outs"], kernel=kernel)
+                  for with_cache in (False, True)]
+        fc, fw = forced[0]["draws"], forced[1]["draws"]
+        require(set(fc) == set(fw) == {(i, n) for i, o in enumerate(cold["outs"])
+                                       for n in range(len(o))}, "teacher-forced draws")
+        if temperature == 0:
+            require(all(int(torch.argmax(fc[i, n])) == t for i, o in enumerate(cold["outs"])
+                        for n, t in enumerate(o)), "the forced cold run's argmax is not the "
+                    "cold run's greedy token")
+        err = 0.0
+        for key in fc:
+            torch.testing.assert_close(fw[key], fc[key], **BF16_TOL)
+            err = max(err, float((fw[key] - fc[key]).abs().max()))
+        margins = {i: dict(step=k, cold_top2=top2_margin(torch, fc[i, k]),
+                           warm_top2=top2_margin(torch, fw[i, k])) for i, k in parted.items()}
+        mode = "greedy" if temperature == 0 else f"T {temperature}"
+        log(f"prefix {cfg.name} {mode}: {len(stream)} requests, warm tokens equal cold for "
+            f"{len(stream) - len(parted)}; parted (request: first step, top-2 logit margins "
+            f"cold/warm there) {json.dumps(margins)}; teacher-forced logits, warm against "
+            f"cold, max_abs_err {err:.4g} over {len(fc)} draws (atol/rtol 3e-2)")
+        for name, run in (("cold", cold), ("warm", warm)):
+            log(f"prefix {cfg.name} {mode} {name}: hits {run['hits']}, clones "
+                f"{run['clones']}, matched {run['matched']} of {run['looked_up']} prompt "
+                f"tokens, resident pages {run['resident']}, {run['joins']} prefills, "
+                f"{run['steps']} decode steps, serve wall {run['wall_s'] * 1e3:.3f} ms "
+                f"({run['tok_per_s']:.2f} tok/s), step p50 {run['step_ms_p50']:.3f} ms, join "
+                f"host ms median: prefill {np.median(run['cold_join_ms']):.3f} over "
+                f"{len(run['cold_join_ms'])}"
+                + (f", prefix {np.median(run['prefix_join_ms']):.3f} over "
+                   f"{len(run['prefix_join_ms'])}" if run["prefix_join_ms"] else "")
+                + f"; launches {json.dumps(run['counts'])}")
+        summary[mode] = dict(parted=len(parted), forced_err=err)
+        if temperature == 0:
+            counts = warm["counts"]
+    return counts, summary
+
+
+# --------------------------------------------------------------------------
+# phase 20: telemetry
+# --------------------------------------------------------------------------
+
+def check_serve_telemetry(res, objs):
+    """The files of a served run with every telemetry flag: the port's
+    validators accept them, the metrics' last report is the run's, the
+    Perfetto trace has one slack span a booked phase and a join and an
+    evict instant a request, and the trace replays to the run's report."""
+    from repro_torch.cluster.trace import load, replay
+    from repro_torch.obs.export import validate_metrics_jsonl
+    from repro_torch.obs.tracer import validate_trace
+
+    rep = objs["report"].to_dict()
+    require(validate_metrics_jsonl(res["metrics_out"]) == [], res["metrics_out"])
+    with open(res["metrics_out"]) as f:
+        last = json.loads(f.readlines()[-1])
+    require(last["report"] == json.loads(json.dumps(rep)), "metrics report")
+    with open(res["perfetto_out"]) as f:
+        trace = json.load(f)
+    require(validate_trace(trace, require_tracks=("ranks", "serve")) == [], "perfetto")
+    events = trace["traceEvents"]
+    n_slack = sum(e["ph"] == "X" and e["name"] == "slack" for e in events)
+    n_join = sum(e["ph"] == "i" and e["name"] == "join" for e in events)
+    n_evict = sum(e["ph"] == "i" and e["name"] == "evict" for e in events)
+    require(n_slack == res["phases"] == rep["n_calls"], (n_slack, res["phases"]))
+    require(n_join == n_evict == res["requests"], (n_join, n_evict))
+    header, records = load(res["trace_out"])
+    require(header["meta"]["report"] == rep and replay(records)[1].to_dict() == rep,
+            "trace replay")
+    require(res["power"]["watts"].startswith("modelled") and res["dashboard_frames"] == 1,
+            res["power"])
+    return n_slack, len(records)
+
+
+def phase_telemetry(torch, mods, card):
+    """Full-width llama3.2-1b served (phase 2's arguments) with and without
+    ``--trace-out --perfetto-out --metrics-out --power-cap 300 --dashboard``
+    in turns (off, on, on, off), each with phase 2's launch checks, every
+    telemetry run's files checked (``check_serve_telemetry``); logs the
+    step p50 and tok/s of each turn and the tenant's watts, modelled from
+    ``core.pstate.DEFAULT_HW`` and not the card's.  Then two
+    ``launch.train`` steps of full-width llama3.2-1b with ``--live-events``
+    and the same flags: no kernel launched, the files valid, the trace
+    replayed to the run's report."""
+    import tempfile
+
+    from repro_torch.cluster.trace import load, replay
+    from repro_torch.launch import train
+    from repro_torch.obs.export import validate_metrics_jsonl
+    from repro_torch.obs.tracer import validate_trace
+
+    turns = {"off": [], "on": []}
+    with tempfile.TemporaryDirectory() as d:
+        flags = ["--trace-out", os.path.join(d, "trace.jsonl"),
+                 "--perfetto-out", os.path.join(d, "perfetto.json"),
+                 "--metrics-out", os.path.join(d, "metrics.jsonl"),
+                 "--power-cap", "300", "--dashboard"]
+        for turn in ("off", "on", "on", "off"):
+            counts, eng, res, objs = phase_serving(
+                torch, mods, LLAMA_SERVE + (flags if turn == "on" else []), LLAMA_DIMS)
+            turns[turn].append((res["step_ms_p50"], res["tok_per_s"]))
+            if turn == "on":
+                spans, records = check_serve_telemetry(res, objs)
+                log(f"telemetry llama3.2-1b: {spans} slack spans = booked phases, "
+                    f"{res['perfetto_events']} Perfetto captures, {records} trace records "
+                    f"replayed to the run's report, {res['metrics_lines']} metrics line; "
+                    f"power cap {res['power']['cap_w']} W, MODELLED draw "
+                    f"{res['power']['power_w']:.3f} W (core.pstate.DEFAULT_HW, a CPU-node "
+                    f"model, not the card's; the card: {card})")
+            del eng, objs
+            torch.cuda.empty_cache()
+        log("decode step p50 ms and tok/s, llama3.2-1b, telemetry off and on in turns "
+            "(off, on, on, off): " + json.dumps(turns))
+
+        reset(mods)
+        res = train.run(train.parser().parse_args(
+            ["--arch", "llama3.2-1b", "--steps", "2", "--live-events"] + flags))
+        counts = counts_of(mods)
+        require(not any(counts.values()), f"kernels launched on the training path: {counts}")
+        rep = res["governor"]
+        require(rep["n_calls"] == 4, rep)
+        require(validate_metrics_jsonl(res["metrics_out"]) == [], "train metrics")
+        with open(res["metrics_out"]) as f:
+            require(json.loads(f.readlines()[-1])["report"] == rep, "train metrics report")
+        require(validate_trace(res["perfetto_out"], require_tracks=("governor",)) == [],
+                "train perfetto")
+        require(replay(load(res["trace_out"])[1])[1].to_dict() == rep, "train trace replay")
+        require(len(res["power"]["epochs"]) == 2, res["power"])
+        log(f"telemetry train llama3.2-1b, 2 steps with --live-events: {rep['n_calls']} "
+            f"cd_psum calls booked, {res['perfetto_events']} Perfetto captures, "
+            f"{res['trace_records']} trace records replayed to the report, "
+            f"{res['metrics_lines']} metrics lines; MODELLED energy "
+            f"{res['power']['energy_j']:.3f} J over {res['power']['wall_s']:.3f} s "
+            f"(core.pstate.DEFAULT_HW, not the card's; the card: {card})")
+    return turns
+
+
 def _to(tree, torch, device, copy=False):
     """``tree``'s tensors on ``device`` (copies, with ``copy``, even where
     they are there already)."""
@@ -1939,6 +2256,8 @@ def main() -> int:
     phase_small_model(torch, "llama3.2-1b", 2, 14, 10, 40)
     predictive_counts = phase_predictive(torch, mods)
     torch.cuda.empty_cache()
+    prefix_counts, _ = phase_prefix(torch, mods)
+    torch.cuda.empty_cache()
 
     rg_counts, eng, _, _ = phase_serving(torch, mods, [
         "--arch", "recurrentgemma-2b", "--continuous",
@@ -1994,8 +2313,11 @@ def main() -> int:
     phase_train(torch, mods, card)
     torch.cuda.empty_cache()
     phase_train_live(torch, mods, card)
+    torch.cuda.empty_cache()
+    phase_telemetry(torch, mods, card)
     log("launches on the llama3.2-1b path " + json.dumps(llama_counts)
         + "; under --theta predictive " + json.dumps(predictive_counts)
+        + "; with the prefix cache (warm, greedy) " + json.dumps(prefix_counts)
         + "; on the recurrentgemma-2b path " + json.dumps(rg_counts)
         + "; on the mamba2-130m path " + json.dumps(mamba_counts)
         + "; on the granite-moe-3b-a800m path " + json.dumps(granite_counts)

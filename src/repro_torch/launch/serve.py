@@ -1,4 +1,5 @@
-"""Serving entry point of the port: continuous batching, governor report.
+"""Serving entry point of the port: static batch or continuous batching,
+with the governor's report and the reference's telemetry outputs.
 
   # on the card, through the hand-written kernels (the default there)
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \\
@@ -40,15 +41,33 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \\
       --reduced --continuous --device cpu
 
-Only the ``--continuous`` path of ``repro.launch.serve`` is ported: the
-static batch, the fleet, the trace/telemetry outputs and the power cap
-come in later slices.  ``--n-layers`` is the port's own: it cuts the
+  # telemetry: a replayable governor trace, a Perfetto trace, metrics
+  # snapshots, the dashboard, and a power-capped tenant
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \\
+      --reduced --continuous --device cpu --trace-out trace.jsonl \\
+      --perfetto-out serve.json --metrics-out metrics.jsonl --dashboard \\
+      --power-cap 300
+
+  # the legacy static batch: one prefill, --steps decode steps for all
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \\
+      --reduced --batch 4 --prompt-len 32 --steps 16 --device cpu
+
+The static and continuous modes of ``repro.launch.serve`` are ported, with
+the continuous mode's ``--trace-out``, ``--perfetto-out``,
+``--metrics-out``, ``--dashboard``, ``--power-cap``, ``--tpot-target`` and
+``--ingest``.  The fleet flags and ``--model-parallel`` are parsed with the
+reference's defaults and refused when set: they wait for later slices
+(ROADMAP.md, queue 1).  ``--power-cap`` reports the watts of
+``core.pstate.DEFAULT_HW``'s CPU-node model, not the card's draw; the
+result says so.  ``--n-layers`` is the port's own: it cuts the
 depth and keeps every width.  Weights are random, drawn from ``--seed``.  Tokens
 are drawn at ``--temperature`` (0.8 by default, as the reference's) with
-the reference's ``jax.random`` keys and draws (``repro_torch.jrandom``).  One
-warm-up generate runs before the clock starts (it also builds the CUDA
-kernel on first use); its time is reported as ``warmup_s``.  Each result
-line is one JSON object.
+the reference's ``jax.random`` keys and draws (``repro_torch.jrandom``); the
+static batch samples with the key ``key(1)``, as the reference's
+``PRNGKey(1)``.  One warm-up generate runs before the clock starts (it
+also builds the CUDA kernel on first use); its time is reported as
+``warmup_s``.  The last line of output is the run's result as one JSON
+object.
 """
 from __future__ import annotations
 
@@ -67,10 +86,24 @@ from repro_torch.core.events import EventBus
 from repro_torch.core.governor import Governor
 from repro_torch.core.policies import policy_for_theta
 from repro_torch.device import resolve_device
+from repro_torch.models.inputs import make_batch
 from repro_torch.models.transformer import init_params
-from repro_torch.serve.engine import ContinuousEngine
+from repro_torch.obs import log as obslog
+from repro_torch.serve.engine import ContinuousEngine, ServeEngine
 from repro_torch.serve.scheduler import Request, poisson_arrivals
 from repro_torch.serve.slo import SLOTracker
+
+log = obslog.get_logger("serve")
+
+# flags parsed with the reference's defaults and refused when set: the
+# ROADMAP item each waits for
+WAITING = {
+    "model_parallel": (1, "queue 1, item 5 (sharding)"),
+    "fleet": (0, "queue 1, item 7 (the fleet)"),
+    "autoscale": (False, "queue 1, item 7 (the fleet)"),
+    "fleet_trace": ("flash-crowd", "queue 1, item 7 (the fleet)"),
+    "fleet_duration": (10.0, "queue 1, item 7 (the fleet)"),
+}
 
 
 def _make_requests(args, cfg) -> List[Request]:
@@ -111,11 +144,8 @@ def prefix_embeds(rng: np.random.Generator, cfg) -> Optional[np.ndarray]:
     return rng.normal(0, 0.02, size=(cfg.n_prefix, cfg.d_model)).astype(np.float32)
 
 
-def run_continuous(args, subscribers: Sequence[Any] = ()) -> Dict[str, Any]:
-    """Serve ``args.n_requests`` Poisson requests; returns the run's numbers
-    together with the engine, governor and report under ``"objects"``.
-    ``subscribers`` join the governor on the serve loop's event bus (a
-    phase recorder, an :class:`~repro_torch.core.profiler.EventProfiler`)."""
+def _model(args):
+    """(device, config, random weights from ``--seed``) for the run."""
     device = resolve_device(args.device)
     cfg = get_config(args.arch)
     if args.reduced:
@@ -125,6 +155,41 @@ def run_continuous(args, subscribers: Sequence[Any] = ()) -> Dict[str, Any]:
     if args.kv_int8:
         cfg = dataclasses.replace(cfg, kv_quant=True)
     params = init_params(cfg, torch.Generator(device=device).manual_seed(args.seed), device)
+    return device, cfg, params
+
+
+def run_static(args) -> Dict[str, Any]:
+    """The reference's static batch: ``make_batch(kind="prefill")`` of
+    ``--batch`` prompts of ``--prompt-len`` positions, ``--steps`` tokens
+    each through :class:`ServeEngine`, sampled with ``key(1)``; one
+    warm-up generate, then the timed one.  Returns the run's numbers and
+    its tokens."""
+    device, cfg, params = _model(args)
+    eng = ServeEngine(cfg, params, max_len=args.prompt_len + args.steps + 8,
+                      temperature=args.temperature, device=device)
+    batch = make_batch(cfg, batch=args.batch, seq_len=args.prompt_len, kind="prefill")
+    t0 = time.time()
+    eng.generate(batch, n_steps=args.steps, key=jrandom.key(1)).cpu()
+    t_warm = time.time() - t0
+    t0 = time.time()
+    out = eng.generate(batch, n_steps=args.steps, key=jrandom.key(1)).cpu()
+    dt = time.time() - t0
+    return {
+        "mode": "static", "arch": cfg.name, "n_layers": cfg.n_layers, "device": str(device),
+        "temperature": args.temperature, "shape": list(out.shape), "wall_s": dt,
+        "tok_per_s": args.batch * args.steps / dt, "warmup_s": t_warm,
+        "kv_int8": args.kv_int8, "tokens": out.tolist(),
+    }
+
+
+def run_continuous(args, subscribers: Sequence[Any] = ()) -> Dict[str, Any]:
+    """Serve ``args.n_requests`` Poisson requests; returns the run's numbers
+    together with the engine, governor and report under ``"objects"``.
+    ``subscribers`` join the governor on the serve loop's event bus (a
+    phase recorder, an :class:`~repro_torch.core.profiler.EventProfiler`).
+    The telemetry flags wire as the reference's: the trace recorder, the
+    span tracer and the bus metrics ride the governor's recorder slot."""
+    device, cfg, params = _model(args)
     max_len = (max(args.prompt_len, args.long_prompt) + cfg.n_prefix + args.steps
                + args.page_size)
     max_len += (-max_len) % args.page_size
@@ -139,23 +204,109 @@ def run_continuous(args, subscribers: Sequence[Any] = ()) -> Dict[str, Any]:
     eng.generate(warm, n_steps=2)
     t_warm = time.time() - t0
 
-    gov = Governor(policy=policy_for_theta(args.theta))
+    recorder = trace_rec = None
+    if args.trace_out:
+        from repro_torch.cluster.trace import TraceRecorder
+
+        recorder = trace_rec = TraceRecorder(
+            meta={"driver": "serve", "arch": args.arch,
+                  "n_requests": args.n_requests,
+                  "theta": args.theta or "default"})
+
+    registry = tracer = collector = writer = dash = None
+    if args.perfetto_out or args.metrics_out or args.dashboard:
+        from repro_torch.obs.export import ConsoleDashboard, MetricsJsonlWriter
+        from repro_torch.obs.metrics import BusMetrics, GovernorCollector, MetricsRegistry
+        from repro_torch.obs.tracer import GovernorTap, RecorderFanout, SpanTracer
+
+        registry = MetricsRegistry()
+        busmetrics = BusMetrics(registry)
+        if args.perfetto_out:
+            tracer = SpanTracer(meta={"driver": "serve", "arch": args.arch,
+                                      "n_requests": args.n_requests})
+            eng.tracer = tracer
+        # metrics and tracer ride the governor's recorder slot (ingested
+        # phases, retired occurrences, theta decisions): exactly one phase
+        # source each, never a second bus subscription, or every phase
+        # would count twice
+        tap = GovernorTap(tracer, metrics=busmetrics)
+        recorder = RecorderFanout([recorder, tap]) if recorder is not None else tap
+
+    gov = Governor(policy=policy_for_theta(args.theta), recorder=recorder)
     # the engine publishes decode phases onto a bus, not into a governor:
     # the governor is just the first subscriber
     bus = EventBus()
     bus.subscribe(gov)
     for sub in subscribers:
         bus.subscribe(sub)
-    slo = SLOTracker()
+    if args.ingest == "batched":
+        from repro_torch.core import instrument
+
+        instrument.set_ingest_mode("batched")
+    if registry is not None:
+        collector = GovernorCollector(registry, gov)
+        if args.ingest == "batched":
+            from repro_torch.obs.metrics import IngestMetrics
+
+            IngestMetrics(registry, bus)
+        if args.metrics_out:
+            writer = MetricsJsonlWriter(args.metrics_out, registry, collector)
+        if args.dashboard:
+            # the power rows show the tenant's modelled watts, not the card's
+            title = f"serve {args.arch}" + (
+                " (power: modelled, core.pstate.DEFAULT_HW)" if args.power_cap > 0 else "")
+            dash = ConsoleDashboard(registry, title=title)
+    tenant = None
+    if args.power_cap > 0:
+        from repro_torch.cluster.job import ServeJob
+
+        tenant = ServeJob("serve", eng, gov, cap_w=args.power_cap, n_ranks=1)
+        if registry is not None:
+            tenant.attach_obs(registry, tracer, clock=time.monotonic)
+    slo = SLOTracker(tpot_target=args.tpot_target or None)
+    if registry is not None:
+        registry.add_collector(lambda: slo.export_metrics(registry))
     reqs = _make_requests(args, cfg)
     steps_before, joins_before = eng.n_decode_steps, eng.n_joins
     t0 = time.time()
     done = eng.serve(reqs, governor=bus, slo=slo)
     dt = time.time() - t0
+    if args.ingest == "batched":
+        from repro_torch.core import instrument
+
+        instrument.flush_events()
+        instrument.set_ingest_mode("event")
     rep = gov.finalize()
     sess = eng._last_session
     s = slo.summary()
     n_tok = sum(len(r.out) for r in done)
+    outputs: Dict[str, Any] = {}
+    if tracer is not None:
+        tnow = time.monotonic()
+        tracer.sample("slo", "ttft_p95_ms", tnow, s["ttft"]["p95"] * 1e3)
+        tracer.sample("slo", "tpot_p95_ms", tnow, s["tpot"]["p95"] * 1e3)
+    if tenant is not None:
+        stats = collector.collect() if collector is not None else None
+        er = tenant.run_epoch(args.power_cap, stats=stats)
+        # the tenant's watts come from core.pstate.DEFAULT_HW, a CPU-node
+        # model from the paper, and are not the card's draw
+        outputs["power"] = {"watts": "modelled (core.pstate.DEFAULT_HW), not the card's",
+                            **dataclasses.asdict(er), "fill": tenant.fill_fraction}
+    if writer is not None:
+        writer.write()
+        writer.close()
+        outputs.update(metrics_out=args.metrics_out, metrics_lines=writer.n_lines)
+    if dash is not None:
+        dash.tick()
+        outputs["dashboard_frames"] = dash.n_renders
+    if tracer is not None:
+        tracer.ingest_governor(gov)         # spine-log actuations, once
+        outputs.update(perfetto_out=tracer.save(args.perfetto_out),
+                       perfetto_events=tracer.n_seen, perfetto_dropped=tracer.n_dropped)
+    if trace_rec is not None:
+        trace_rec.meta["report"] = rep.to_dict()
+        outputs.update(trace_out=trace_rec.save(args.trace_out),
+                       trace_records=trace_rec.n_seen, trace_dropped=trace_rec.n_dropped)
     return {
         "arch": cfg.name, "n_layers": cfg.n_layers, "device": str(device),
         "attn_kernel": eng.attn_kernel,
@@ -171,7 +322,7 @@ def run_continuous(args, subscribers: Sequence[Any] = ()) -> Dict[str, Any]:
         "downshifts": rep.n_downshifts, "actuations": len(gov.actuation_log),
         "energy_saving_pct": rep.energy_saving_pct,
         "ttft_p95_ms": s["ttft"]["p95"] * 1e3, "tpot_p95_ms": s["tpot"]["p95"] * 1e3,
-        "completed": s["completed"],
+        "completed": s["completed"], **outputs,
         "objects": {"engine": eng, "governor": gov, "report": rep, "requests": done},
     }
 
@@ -186,9 +337,15 @@ def parser() -> argparse.ArgumentParser:
                     help="cut the model to its first N layers, widths kept (0: the "
                          "config's depth); for a model whose every layer would not fit "
                          "one card")
+    ap.add_argument("--batch", type=int, default=4, help="static mode: the batch")
     ap.add_argument("--continuous", action="store_true",
-                    help="continuous batching over the paged KV pool (the only "
-                         "mode ported so far)")
+                    help="continuous batching over the paged KV pool")
+    ap.add_argument("--model-parallel", type=int, default=1)
+    ap.add_argument("--fleet", type=int, default=0)
+    ap.add_argument("--autoscale", action="store_true")
+    ap.add_argument("--fleet-trace", choices=["flash-crowd", "diurnal", "session-reuse"],
+                    default="flash-crowd")
+    ap.add_argument("--fleet-duration", type=float, default=10.0)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--long-prompt", type=int, default=0,
                     help="add one request with a prompt this long (0: none); it "
@@ -207,22 +364,64 @@ def parser() -> argparse.ArgumentParser:
                     help="plain PyTorch or the hand-written kernels (default: the "
                          "kernels on a CUDA device, plain PyTorch on the CPU; CPU "
                          "tensors always take the plain versions)")
+    ap.add_argument("--tpot-target", type=float, default=0.0,
+                    help="TPOT SLO target (s); 0 disables throttling")
     ap.add_argument("--theta", default="",
-                    help="governor timeout: seconds, "
+                    help="governor timeout (continuous mode only): seconds, "
                          "'auto' for the online ThetaTuner (decode underfill/"
                          "idle feed its per-site histograms), or 'predictive' "
                          "for the guarded predictor+timeout hybrid "
                          "(cntd_predictive); empty = the policy default")
+    ap.add_argument("--trace-out", default="",
+                    help="record the governor's event stream to this JSONL file "
+                         "(continuous mode; replayable via repro_torch.cluster.trace)")
+    ap.add_argument("--power-cap", type=float, default=0.0,
+                    help="job power cap in watts: attach a cluster.ServeJob tenant "
+                         "+ RAPL-style cap actuator and report its modelled draw vs "
+                         "the cap (core.pstate.DEFAULT_HW's watts, not the card's)")
+    ap.add_argument("--perfetto-out", default="",
+                    help="write a Chrome-trace/Perfetto JSON of the run "
+                         "(continuous mode: decode phase track, governor "
+                         "counters, serve join/evict instants)")
+    ap.add_argument("--metrics-out", default="",
+                    help="write metrics-registry snapshots (with the exact "
+                         "cumulative GovernorReport) to this JSONL file "
+                         "(continuous mode)")
+    ap.add_argument("--dashboard", action="store_true",
+                    help="render the telemetry dashboard after the run "
+                         "(continuous mode)")
+    ap.add_argument("--ingest", choices=["event", "batched"], default="event",
+                    help="instrument-layer event ingestion: 'batched' "
+                         "accumulates raw 5-phase events into fixed-dtype "
+                         "EventBatch chunks and exports ingest-health metrics "
+                         "(events/s, occupancy, queue depth); the continuous "
+                         "engine's own phase stream is occurrence-granular "
+                         "and unaffected")
     ap.add_argument("--device", default=None, help="torch device (default: cuda)")
     ap.add_argument("--seed", type=int, default=0)
     return ap
 
 
+def _refuse_waiting(args) -> None:
+    for name, (default, item) in WAITING.items():
+        if getattr(args, name) != default:
+            flag = "--" + name.replace("_", "-")
+            raise SystemExit(f"{flag} is not ported to repro_torch yet (ROADMAP.md, {item})")
+
+
 def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     args = parser().parse_args(argv)
-    if not args.continuous:
-        raise SystemExit("only --continuous serving is ported to repro_torch so far")
-    res = run_continuous(args)
+    _refuse_waiting(args)
+    if args.continuous:
+        res = run_continuous(args)
+    else:
+        if (args.theta or args.trace_out or args.power_cap > 0 or args.perfetto_out
+                or args.metrics_out or args.dashboard):
+            # static mode builds no governor: these flags would be silent no-ops
+            log.warning("flags_ignored",
+                        why="--theta/--trace-out/--power-cap/telemetry need the "
+                            "continuous engine's governor (add --continuous)")
+        res = run_static(args)
     print(json.dumps({k: v for k, v in res.items() if k != "objects"}))
     return res
 

@@ -12,6 +12,13 @@ report.
   # a small model on the CPU
   PYTHONPATH=src python -m repro_torch.launch.train --reduced --steps 20 --device cpu
 
+  # telemetry: a replayable governor trace, a Perfetto trace, metrics
+  # snapshots, the dashboard and a power-capped tenant, over the live step
+  PYTHONPATH=src python -m repro_torch.launch.train --reduced --steps 4 \\
+      --device cpu --live-events --trace-out trace.jsonl \\
+      --perfetto-out train.json --metrics-out metrics.jsonl --dashboard \\
+      --power-cap 300
+
 The defaults are the reference's (``repro.launch.train``): countdown-100m,
 batch 8, sequence 128, remat on, and AdamW warming up over
 ``min(100, steps // 10 + 1)`` steps and decaying to ``steps``.  Weights are
@@ -23,11 +30,14 @@ through ``cd_psum``, silent unless instrumented); ``--live-events`` runs
 (two instrumented calls a step) with host phase events on, so the governor
 prices them.  The process group comes from ``torchrun``'s environment
 when it is set, else it is a world of 1 (NCCL on the card, gloo on the
-CPU).  The checkpoint, failure, trace, power-cap and telemetry flags are
-parsed with the reference's defaults and refused when set: they wait for
-later slices (ROADMAP.md, queue 1).  Logs the reference's ``step`` and
-``governor`` lines; the last line of output is the run's result as one
-JSON object.
+CPU).  ``--trace-out``, ``--perfetto-out``, ``--metrics-out``,
+``--dashboard`` and ``--power-cap`` wire as the reference's (each turns on
+profile mode; the tenant's watts are ``core.pstate.DEFAULT_HW``'s model,
+not the card's draw).  The checkpoint, failure and model-parallel flags
+are parsed with the reference's defaults and refused when set: they wait
+for a later slice (ROADMAP.md, queue 1).  Logs the reference's ``step``,
+``governor`` and ``power`` lines; the last line of output is the run's
+result as one JSON object.
 """
 from __future__ import annotations
 
@@ -65,11 +75,6 @@ WAITING = {
     "resume": (False, "queue 1, item 5 (checkpoints)"),
     "fail_at": (0, "queue 1, item 5 (elastic restart)"),
     "model_parallel": (1, "queue 1, item 5 (sharding inside a pod)"),
-    "trace_out": ("", "queue 1, item 7 (cluster traces)"),
-    "power_cap": (0.0, "queue 1, item 7 (the cluster's power cap)"),
-    "perfetto_out": ("", "queue 1, item 8 (observability)"),
-    "metrics_out": ("", "queue 1, item 8 (observability)"),
-    "dashboard": (False, "queue 1, item 8 (observability)"),
 }
 
 
@@ -120,11 +125,20 @@ def parser() -> argparse.ArgumentParser:
                          "'predictive' for the guarded predictor+timeout "
                          "hybrid (cntd_predictive); empty = the policy default "
                          "(500 us fixed)")
-    ap.add_argument("--trace-out", default="")
-    ap.add_argument("--power-cap", type=float, default=0.0)
-    ap.add_argument("--perfetto-out", default="")
-    ap.add_argument("--metrics-out", default="")
-    ap.add_argument("--dashboard", action="store_true")
+    ap.add_argument("--trace-out", default="",
+                    help="record the governor's event stream to this JSONL file "
+                         "(replayable via repro_torch.cluster.trace)")
+    ap.add_argument("--power-cap", type=float, default=0.0,
+                    help="job power cap in watts: a cluster.GovernorJob tenant "
+                         "books each logged step's modelled draw against it "
+                         "(core.pstate.DEFAULT_HW's watts, not the card's)")
+    ap.add_argument("--perfetto-out", default="",
+                    help="write a Chrome-trace/Perfetto JSON of the run")
+    ap.add_argument("--metrics-out", default="",
+                    help="write metrics-registry snapshots (with the exact "
+                         "cumulative GovernorReport) to this JSONL file")
+    ap.add_argument("--dashboard", action="store_true",
+                    help="render the telemetry dashboard at each logged step")
     ap.add_argument("--ingest", choices=["event", "batched"], default="event",
                     help="event-bus ingestion: 'event' publishes each phase "
                          "event as it fires; 'batched' accumulates fixed-dtype "
@@ -183,18 +197,66 @@ def run(args) -> Dict[str, Any]:
     cfg = dataclasses.replace(cfg, remat=True)
     opt_cfg = OptConfig(lr=args.lr, warmup_steps=min(100, args.steps // 10 + 1),
                         total_steps=args.steps)
-    if (args.theta or args.live_events) and args.instrument != "profile":
-        # the governor prices phase events, and only profile mode stamps them
+    obs_on = bool(args.perfetto_out or args.metrics_out or args.dashboard)
+    if (args.trace_out or args.power_cap > 0 or args.theta or obs_on
+            or args.live_events) and args.instrument != "profile":
+        # the recorder records events, the tenant polls interval snapshots,
+        # the telemetry consumes both, and the governor prices them: all
+        # empty without profile mode's phase events
         log.info("instrument_upgrade", requested=args.instrument, using="profile",
-                 why="--theta/--live-events need phase events")
+                 why="--trace-out/--power-cap/--theta/--live-events/telemetry "
+                     "need phase events")
         args.instrument = "profile"
 
+    recorder = trace_rec = None
+    if args.trace_out:
+        from repro_torch.cluster.trace import TraceRecorder
+
+        recorder = trace_rec = TraceRecorder(meta={"driver": "train", "arch": args.arch,
+                                                   "steps": args.steps,
+                                                   "theta": args.theta or "default"})
+    registry = tracer = collector = writer = dash = None
+    if obs_on:
+        from repro_torch.obs.export import ConsoleDashboard, MetricsJsonlWriter
+        from repro_torch.obs.metrics import BusMetrics, GovernorCollector, MetricsRegistry
+        from repro_torch.obs.tracer import GovernorTap, RecorderFanout, SpanTracer
+
+        registry = MetricsRegistry()
+        busmetrics = BusMetrics(registry)
+        if args.perfetto_out:
+            tracer = SpanTracer(meta={"driver": "train", "arch": args.arch,
+                                      "steps": args.steps})
+        # the telemetry rides the governor's recorder slot (retired
+        # occurrences and theta decisions), never the per-event bus
+        tap = GovernorTap(tracer, metrics=busmetrics)
+        recorder = RecorderFanout([recorder, tap]) if recorder is not None else tap
     made_group = _join_group(device)
-    governor = Governor(policy=policy_for_theta(args.theta))
+    governor = Governor(policy=policy_for_theta(args.theta), recorder=recorder)
     bus = instrument.get_event_bus()
     loader = None
     try:
         world = dist.get_world_size()
+        if registry is not None:
+            collector = GovernorCollector(registry, governor)
+            if args.ingest == "batched":
+                from repro_torch.obs.metrics import IngestMetrics
+
+                IngestMetrics(registry, bus)
+            if args.metrics_out:
+                writer = MetricsJsonlWriter(args.metrics_out, registry, collector)
+            if args.dashboard:
+                # the power rows show the tenant's modelled watts, not the card's
+                title = f"train {args.arch}" + (
+                    " (power: modelled, core.pstate.DEFAULT_HW)" if args.power_cap > 0
+                    else "")
+                dash = ConsoleDashboard(registry, title=title)
+        tenant = None
+        if args.power_cap > 0:
+            from repro_torch.cluster.job import GovernorJob
+
+            tenant = GovernorJob("train", governor, n_ranks=world, cap_w=args.power_cap)
+            if registry is not None:
+                tenant.attach_obs(registry, tracer, clock=time.monotonic)
         if args.instrument != "off":
             instrument.set_mode(args.instrument)
             if args.live_events:
@@ -224,6 +286,7 @@ def run(args) -> Dict[str, Any]:
         grad_norms: List[float] = []
         lrs: List[float] = []
         step_s: List[float] = []
+        power: List[Dict[str, Any]] = []
         t_start = time.time()
         for step in range(1, args.steps + 1):
             batch = next(loader)
@@ -238,6 +301,28 @@ def run(args) -> Dict[str, Any]:
             if step % max(1, args.steps // 20) == 0 or step == args.steps:
                 log.info("step", step=step, loss=losses[-1], grad_norm=grad_norms[-1],
                          lr=lrs[-1], s_per_step=(time.time() - t_start) / step)
+                stats = collector.collect() if collector is not None else None
+                if tenant is not None:
+                    # the collector's poll is handed over: the governor keeps
+                    # one snapshot mark, so tenant and collector share one
+                    # interval stream
+                    er = tenant.run_epoch(args.power_cap, stats=stats)
+                    power.append(dataclasses.asdict(er))
+                    log.info("power", cap_w=er.cap_w, modelled_draw_w=er.power_w,
+                             exploited_pct=100 * er.exploited_ratio, phases=er.n_calls)
+                if tracer is not None and stats is not None:
+                    tnow = time.monotonic()
+                    busy = max(stats.busy, 1e-30)
+                    tracer.sample("governor", "slack_ratio_pct", tnow,
+                                  100.0 * stats.slack / busy)
+                    tracer.sample("governor", "overlap_ratio_pct", tnow,
+                                  100.0 * stats.overlap / busy)
+                    saving = registry.get_value("governor_energy_saving_pct")
+                    tracer.sample("governor", "energy_saving_pct", tnow, saving or 0.0)
+                if writer is not None:
+                    writer.write(step=step)
+                if dash is not None:
+                    dash.tick(step=step)
         if args.ingest == "batched":
             # drain the partial accumulator while the governor is subscribed
             instrument.flush_events()
@@ -258,6 +343,38 @@ def run(args) -> Dict[str, Any]:
                              theta_hi_us=thetas[-1] * 1e6)
                 else:
                     log.info("theta_auto", sites=0)
+        outputs: Dict[str, Any] = {}
+        if tenant is not None:
+            log.info("power_total", modelled_energy_j=tenant.total_energy_j,
+                     wall_s=tenant.total_wall_s, cap_commits=len(tenant.actuator.commits),
+                     suppressed=tenant.actuator.n_suppressed)
+            # core.pstate.DEFAULT_HW's CPU-node model, not the card's draw
+            outputs["power"] = {"watts": "modelled (core.pstate.DEFAULT_HW), not the card's",
+                                "epochs": power, "energy_j": tenant.total_energy_j,
+                                "wall_s": tenant.total_wall_s}
+        if writer is not None:
+            # one terminal snapshot: its embedded report is the run's final one
+            writer.write(step=args.steps)
+            writer.close()
+            log.info("metrics_out", path=args.metrics_out, lines=writer.n_lines)
+            outputs.update(metrics_out=args.metrics_out, metrics_lines=writer.n_lines)
+        if dash is not None:
+            dash.tick(step=args.steps)
+            outputs["dashboard_frames"] = dash.n_renders
+        if tracer is not None:
+            tracer.ingest_governor(governor)    # spine-log actuations, once
+            path = tracer.save(args.perfetto_out)
+            log.info("perfetto_out", path=path, events=tracer.n_seen,
+                     dropped=tracer.n_dropped)
+            outputs.update(perfetto_out=path, perfetto_events=tracer.n_seen,
+                           perfetto_dropped=tracer.n_dropped)
+        if trace_rec is not None:
+            trace_rec.meta["report"] = report
+            path = trace_rec.save(args.trace_out)
+            log.info("trace_out", records=trace_rec.n_seen, dropped=trace_rec.n_dropped,
+                     path=path)
+            outputs.update(trace_out=path, trace_records=trace_rec.n_seen,
+                           trace_dropped=trace_rec.n_dropped)
         after_first = step_s[1:] or step_s
         step_median = float(np.median(after_first))
         return {
@@ -269,7 +386,7 @@ def run(args) -> Dict[str, Any]:
             "tokens_per_s": args.batch * args.seq / step_median,
             "peak_mem_bytes": (torch.cuda.max_memory_allocated(device)
                                if device.type == "cuda" else None),
-            "governor": report,
+            "governor": report, **outputs,
         }
     finally:
         if loader is not None:

@@ -26,10 +26,22 @@ of ``jax.random`` on torch tensors): a request's ``n``-th token is
 ``categorical(fold_in(req.key, n), logits / T)``, and a decode step draws
 every keyed slot at once on the logits' device and copies the ``(B,)``
 tokens to the host once.  A temperature with no key is greedy, as in the
-reference.  The prefix cache and the tracer hooks are not ported yet.
+reference.
+
+``enable_prefix_cache`` attaches a
+:class:`~repro_torch.serve.fleet.prefix.PrefixCache` to the pool, as the
+reference's: a request whose prompt begins with resident pages joins
+without prefill, sharing the full pages, writing into a copy-on-write
+clone of a partial one, and replaying the rest of its prompt through the
+decode step as *forced* tokens; a retiring request's pages join the trie.
+``tracer`` (a :class:`~repro_torch.obs.tracer.SpanTracer`) receives the
+``join`` and ``evict`` instants, stamped on ``time.monotonic`` as the
+decode phases are (the reference stamps them on the session's clock, so
+its trace puts them apart from the phases; ROADMAP.md, queue 3).
 """
 from __future__ import annotations
 
+import collections
 import time
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Optional
@@ -45,6 +57,7 @@ from repro_torch.models.transformer import prefill as _prefill
 from repro_torch.serve.kvcache import (
     SCRATCH_PAGE,
     PagedKVPool,
+    make_clone_pages,
     paged_attention_decode,
     scatter_prefill_attn,
 )
@@ -190,7 +203,9 @@ class ContinuousEngine:
     carries ``prefix_embeds`` (n_prefix, d), prefilled before its prompt
     and counted in its positions; one without is refused when submitted.
     ``device`` is ``cuda`` unless the caller names another; the params
-    must already be there.
+    must already be there.  ``tracer`` (duck-typed: ``.serve_event``) gets
+    each join and evict instant; ``prefix_cache`` is attached by
+    :meth:`enable_prefix_cache`.
     """
 
     cfg: Any
@@ -202,6 +217,8 @@ class ContinuousEngine:
     temperature: float = 0.0
     attn_kernel: Optional[str] = None
     device: Any = None
+    tracer: Any = None
+    prefix_cache: Any = None
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
@@ -216,6 +233,7 @@ class ContinuousEngine:
         self._decode = make_paged_decode_step(self.cfg, self.attn_kernel,
                                               self._fused_sample)
         self._join = make_join_step(self.cfg)
+        self._clone = make_clone_pages(self.cfg)
         m = self.pool.max_pages_per_req
         self._table = np.full((self.n_slots, m), SCRATCH_PAGE, np.int32)
         self._lengths = np.zeros((self.n_slots,), np.int32)
@@ -224,12 +242,38 @@ class ContinuousEngine:
         self.n_joins = 0                       # every prefill this engine ran
         self._last_meter: Optional[DecodeSlackMeter] = None
         self._last_session: Optional["EngineSession"] = None
+        # slot -> deque of prompt-suffix tokens still to force-decode after
+        # a prefix-cache join (no sampling/appending until drained)
+        self._forced: Dict[int, collections.deque] = {}
+
+    def enable_prefix_cache(self, max_pages: Optional[int] = None):
+        """Attach a :class:`~repro_torch.serve.fleet.prefix.PrefixCache` to
+        the pool.
+
+        Only attention K/V lives in shareable pages: recurrent state
+        (SSM/RG-LRU) is per-slot and position-dependent, and frontend
+        prefixes occupy positions the trie cannot key, so prefix reuse is
+        restricted to all-attention archs with ``n_prefix == 0``.
+        """
+        if self.cfg.n_prefix:
+            raise ValueError("prefix cache requires n_prefix == 0 "
+                             "(frontend prefixes are not token-addressable)")
+        if any(k != "attn" for k in self.cfg.pattern):
+            raise ValueError("prefix cache requires an all-attention arch "
+                             "(recurrent state is per-slot, not paged)")
+        from repro_torch.serve.fleet.prefix import PrefixCache
+        self.prefix_cache = PrefixCache(self.pool, max_pages=max_pages)
+        return self.prefix_cache
 
     def _to_device(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
 
     # ---- request lifecycle ----------------------------------------------
     def _join_request(self, req: Request) -> None:
+        m = req.prefix_match
+        if m is not None and m.n_tokens > 0:
+            self._join_via_prefix(req)
+            return
         cfg = self.cfg
         prompt = np.asarray(req.prompt, np.int32)
         total = len(prompt) + cfg.n_prefix
@@ -256,6 +300,33 @@ class ContinuousEngine:
         req.out.append(tok)
         self._lengths[slot] = total
         self._tokens[slot] = tok
+
+    def _join_via_prefix(self, req: Request) -> None:
+        """Join without prefill: resident pages cover ``m.n_tokens`` prompt
+        positions, the remaining suffix is replayed through the paged decode
+        step as *forced* tokens (exact K/V, no sampling); the first sampled
+        token only lands once the suffix drains.  Returns once the device
+        has finished the clone, so the join's instant is not early."""
+        m = req.prefix_match
+        prompt = np.asarray(req.prompt, np.int32)
+        pages = list(m.full_pages)
+        if m.partial_page is not None:
+            # copy-on-write: this request extends the half-filled page in
+            # place, so it writes into a private clone while other referents
+            # keep reading the shared original
+            (pid,) = self.pool.alloc(req.rid, 1)
+            self.pool.blocks = self._clone(self.pool.blocks, m.partial_page, pid)
+            pages.append(pid)
+        req.pages = pages
+        slot = req.slot
+        self._table[slot] = SCRATCH_PAGE
+        self._table[slot, :len(pages)] = pages
+        self._lengths[slot] = m.n_tokens              # next write position
+        self._tokens[slot] = int(prompt[m.n_tokens])  # next input token
+        rest = prompt[m.n_tokens + 1:]
+        if len(rest):
+            self._forced[slot] = collections.deque(int(t) for t in rest)
+        _sync(self.device)
 
     def _select_one(self, logits: torch.Tensor, req: Request) -> int:
         """A join's first token from its (V,) logits, drawn as a step draws."""
@@ -285,6 +356,20 @@ class ContinuousEngine:
             slo.on_finish(req, now)
         else:
             req.t_done = now
+        if self.tracer is not None:
+            # on the phases' clock (time.monotonic), not the session's
+            self.tracer.serve_event("evict", self._last_session.t_start + now,
+                                    req.rid, req.slot)
+        drained = self._forced.pop(req.slot, None) is None
+        if self.prefix_cache is not None and req.pages and drained:
+            # adopt this request's written pages into the resident trie:
+            # positions 0..lengths-1 hold K/V of prompt + out[:-1] (the last
+            # sampled token was never decoded, so its K/V was never written)
+            n_written = int(self._lengths[req.slot])
+            tokens = np.concatenate([
+                np.asarray(req.prompt, np.int64), np.asarray(req.out, np.int64)
+            ])[:n_written]
+            self.prefix_cache.insert(tokens, req.pages)
         self._table[req.slot] = SCRATCH_PAGE
         self._tokens[req.slot] = 0
         self._lengths[req.slot] = 0
@@ -357,7 +442,7 @@ class EngineSession:
         self.engine = engine
         self.slo = slo
         self.sched = Scheduler(engine.pool, engine.n_slots, n_prefix=engine.cfg.n_prefix,
-                               slo=slo)
+                               slo=slo, prefix_cache=engine.prefix_cache)
         self.meter = DecodeSlackMeter(governor) if governor is not None else None
         engine._last_meter = self.meter
         engine._last_session = self
@@ -407,10 +492,16 @@ class EngineSession:
         for req in joins:
             eng._join_request(req)
             tnow = self.now()
-            if self.slo is not None:
-                self.slo.on_first_token(req, tnow)
-            else:
-                req.t_first = req.t_prev = tnow
+            if eng.tracer is not None:
+                # on the phases' clock (time.monotonic), not the session's
+                eng.tracer.serve_event("join", self.t_start + tnow, req.rid, req.slot)
+            if req.out:
+                # prefill joins produce the first token immediately; prefix
+                # joins stay silent until the forced suffix drains
+                if self.slo is not None:
+                    self.slo.on_first_token(req, tnow)
+                else:
+                    req.t_first = req.t_prev = tnow
             if not req.wants_more():
                 eng._retire(req, self.sched, self.slo, tnow)
                 self.finished.append(req)
@@ -460,11 +551,22 @@ class EngineSession:
             self.meter.step(t0, t1, sched.n_active, eng.n_slots)
         active = list(sched.active.items())
         if not eng._fused_sample:
-            out = eng._select_step(out, active)
+            # a slot still replaying its prompt suffix discards this step's
+            # token, so it draws nothing
+            out = eng._select_step(out, [(slot, req) for slot, req in active
+                                         if slot not in eng._forced])
         tokens = out.cpu().numpy()             # the step's one copy to the host
         tnow = self.now()
         for slot, req in active:
             eng._lengths[slot] += 1
+            forced = eng._forced.get(slot)
+            if forced:
+                # prompt-suffix replay after a prefix join: exact K/V was
+                # just written for the fed token, next one goes in verbatim
+                eng._tokens[slot] = forced.popleft()
+                if not forced:
+                    del eng._forced[slot]
+                continue
             tok = int(tokens[slot])
             first = not req.out
             req.out.append(tok)

@@ -20,13 +20,14 @@ Ported from ``repro.serve.kvcache``:
   through the kernel wrapper of :mod:`repro_torch.kernels.paged_attention`.
   Both quantise (or round to the page dtype) the new K/V rows first, so the
   stored pages are bit-identical, and both update the pages **in place**.
-
-The prefix cache's copy-on-write page clone (``make_clone_pages``) is not
-ported yet (ROADMAP.md, queue 1).
+* :func:`make_clone_pages` — the prefix cache's copy-on-write page clone:
+  one page copied onto another in every attention layer's page leaves, in
+  place on the pool's device (the reference clones with XLA's
+  ``.at[dst].set(leaf[src])``; it has no Pallas kernel for it).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 import torch
 
@@ -124,6 +125,33 @@ def paged_attention_decode(cfg, p, x, pos, table, block, kernel: Optional[str] =
             page_idx, off, window=window, dequant_dtype=x.dtype, **new)
     out = out.to(x.dtype).reshape(b, 1, cfg.n_heads * hd)
     return L.matmul(out, p["wo"]), block
+
+
+PAGE_LEAVES = ("k_pages", "v_pages", "k_scale_pages", "v_scale_pages")
+
+
+def make_clone_pages(cfg) -> Callable:
+    """clone(blocks, src, dst) -> blocks with page ``dst`` a copy of page
+    ``src`` in every attention leaf, written in place.
+
+    The copy-on-write primitive for prefix sharing: a joiner extending a
+    *partially filled* cached page writes into fresh storage while every
+    other referent keeps reading the original.  Recurrent-state blocks are
+    per-slot, not paged, so only attention leaves participate (the prefix
+    cache is gated to attention-only archs anyway).  The copies are queued
+    on the pool's stream ahead of any later write to ``dst``.
+    """
+    kinds = cfg.layer_kinds()
+
+    def clone(blocks, src: int, dst: int):
+        for kind, block in zip(kinds, blocks["layers"]):
+            if kind == "attn":
+                for name in PAGE_LEAVES:
+                    if name in block:
+                        block[name][dst].copy_(block[name][src])
+        return blocks
+
+    return clone
 
 
 def scatter_prefill_attn(block, cache_block, page_ids: torch.Tensor) -> Params:

@@ -900,6 +900,77 @@ def test_train_step_on_card_equals_cpu(card):
         np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), atol=1e-5, rtol=0)
 
 
+# --------------------------------------------------------------------------
+# the prefix cache: the copy-on-write clone and prefix joins on the card
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("mods", [{}, {"compute_dtype": "bfloat16"}, {"kv_quant": True}])
+def test_clone_pages_on_card_equals_cpu(card, mods):
+    """``make_clone_pages`` on a pool on the card (fp32, bf16, int8 pages
+    with fp32 scale pages) leaves every leaf bit-equal to the same clone on
+    the CPU."""
+    import dataclasses
+
+    from repro_torch.serve import kvcache as TK
+
+    cfg = dataclasses.replace(reduced(get_config("llama3.2-1b")), **mods)
+    gen = torch.Generator().manual_seed(3)
+    blocks = TK.PagedKVPool(cfg, 2, 32, 8, device="cpu").blocks
+    for layer in blocks["layers"]:
+        for name, t in layer.items():
+            if t.dtype == torch.int8:
+                t.copy_(torch.randint(-127, 128, t.shape, generator=gen, dtype=torch.int8))
+            else:
+                t.copy_(torch.randn(t.shape, generator=gen).to(t.dtype))
+    on_card = _to(blocks, card)
+    clone = TK.make_clone_pages(cfg)
+    clone(blocks, 3, 6)
+    clone(on_card, 3, 6)
+    torch.cuda.synchronize()
+    for mine, want in zip(on_card["layers"], blocks["layers"]):
+        assert set(mine) == set(want)
+        for name in want:
+            assert torch.equal(mine[name].cpu(), want[name]), name
+
+
+def test_prefix_serve_on_card_equals_cpu(card):
+    """A reduced fp32 llama with the prefix cache on the card, through the
+    kernels: two priming requests of a 20-token prefix (two pages of 8 and
+    a partial one), then four that extend it; the greedy tokens equal the
+    CPU's prefix-cache run and the card's cold run, every member hits, a
+    hit runs no prefill (flash once a layer a cold join only), forced
+    steps go through the paged kernel (once a layer a step), and no page
+    is held at the end but the resident ones."""
+    cfg = reduced(get_config("llama3.2-1b"))
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    rng = np.random.default_rng(0)
+    prefixes = [rng.integers(0, cfg.vocab, 20).astype(np.int32) for _ in range(2)]
+    stream = [(p, 1) for p in prefixes] + [
+        (np.concatenate([prefixes[g], rng.integers(0, cfg.vocab, 4).astype(np.int32)]), 6)
+        for _ in range(2) for g in range(2)]
+
+    def serve(device, p, with_cache):
+        eng = ContinuousEngine(cfg, p, n_slots=2, max_len=48, page=8, device=device)
+        if with_cache:
+            eng.enable_prefix_cache()
+        reqs = [TE.Request(prompt=q, max_new=n) for q, n in stream]
+        for mod in (RN, FA, PA):
+            mod.launches = 0
+        eng.serve(reqs)
+        return eng, [list(r.out) for r in reqs]
+
+    on_card = _to(params, card)
+    eng, warm = serve(card, on_card, True)
+    assert eng.prefix_cache.n_hits == 4 and eng.n_joins == 2
+    assert FA.launches == eng.n_joins * cfg.n_layers
+    assert PA.launches == eng.n_decode_steps * cfg.n_layers
+    assert RN.launches == (eng.n_joins + eng.n_decode_steps) * (2 * cfg.n_layers + 1)
+    pool = eng.pool
+    assert len(pool._free) == pool.capacity_pages - eng.prefix_cache.n_resident_pages
+    assert warm == serve("cpu", params, True)[1]
+    assert warm == serve(card, on_card, False)[1]
+
+
 def _to(tree, device):
     if isinstance(tree, dict):
         return {k: _to(v, device) for k, v in tree.items()}

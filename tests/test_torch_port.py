@@ -80,7 +80,10 @@ def test_every_module_imports_with_jax_and_repro_blocked():
                   "dist.compression", "launch.train", "models.inputs", "obs.log", "tree",
                   "configs.countdown_100m", "models.moe", "configs.glm4_9b",
                   "configs.internlm2_1_8b", "configs.olmo_1b", "configs.granite_moe_3b_a800m",
-                  "configs.mixtral_8x22b", "configs.internvl2_1b", "configs.musicgen_large"):
+                  "configs.mixtral_8x22b", "configs.internvl2_1b", "configs.musicgen_large",
+                  "obs", "obs.metrics", "obs.tracer", "obs.export", "cluster", "cluster.power",
+                  "cluster.arbiter", "cluster.job", "cluster.trace", "cluster.coschedule",
+                  "serve.fleet", "serve.fleet.prefix"):
             assert "repro_torch." + n in names, n
         print(len(names))
     """)

@@ -455,10 +455,16 @@ def test_launcher_runs_make_train_step_on_the_reference_defaults():
 
 @pytest.mark.parametrize("flag", [["--checkpoint-dir", "ckpt"], ["--save-every", "5"],
                                   ["--resume"], ["--fail-at", "3"], ["--model-parallel", "2"],
-                                  ["--trace-out", "t.jsonl"], ["--power-cap", "300"],
-                                  ["--perfetto-out", "p.json"], ["--metrics-out", "m.jsonl"],
-                                  ["--dashboard"]])
+                                  ["serve", "--model-parallel", "2"], ["serve", "--fleet", "2"],
+                                  ["serve", "--autoscale"], ["serve", "--fleet-trace", "diurnal"],
+                                  ["serve", "--fleet-duration", "3"]])
 def test_launcher_refuses_the_flags_that_wait(flag):
+    """The train launcher's checkpoint, failure and model-parallel flags, and
+    the serve launcher's model-parallel and fleet flags (a leading
+    ``"serve"``), are refused naming their ROADMAP item."""
+    from repro_torch.launch import serve as lserve
+
+    main, argv = (lserve.main, flag[1:]) if flag[0] == "serve" else (ltrain.main, flag)
     with pytest.raises(SystemExit, match=r"not ported to repro_torch yet \(ROADMAP.md, queue 1, "
                                          r"item [578]"):
-        ltrain.main(["--reduced", "--steps", "1", "--device", "cpu"] + flag)
+        main(["--reduced", "--steps", "1", "--device", "cpu"] + argv)
