@@ -181,7 +181,7 @@ Builds the hand-written kernels from the five sources in this checkout (one
    and both runs teacher-forced with the cold tokens, every draw's logits
    held at the bf16 bar (3e-2).  Logged: matched tokens, hits, clones,
    step p50 and the joins' host time, warm beside cold.
-20. **telemetry** (run last): phase 2's serve with and without
+20. **telemetry**: phase 2's serve with and without
    ``--trace-out --perfetto-out --metrics-out --power-cap 300 --dashboard``
    in turns (off, on, on, off), each with phase 2's checks: the port's
    validators accept the files, one slack span a booked phase, a join and
@@ -191,8 +191,23 @@ Builds the hand-written kernels from the five sources in this checkout (one
    limit.  Then two ``launch.train`` steps of full-width llama3.2-1b with
    ``--live-events`` and the same flags: no kernel, the files valid, the
    trace replayed to the run's report.
+21. **restart after failure** (run last; files under the gitignored
+   ``build/``, removed at the end): full-width llama3.2-1b's training
+   state (fp32 params and both AdamW moments, 14.8 GB) after two steps,
+   saved synchronously and loaded into a skeleton on the card, every leaf
+   bit-equal; saved asynchronously with a step taken at once, the file
+   bit-equal to the state before that step; the state's bytes, the time
+   ``save`` blocks, the whole write, the load and GB/s logged.  The train
+   launcher on full-width countdown-100m: 12 steps with ``--save-every
+   4`` (files 4, 8, 12), then ``--resume --steps 16`` starting at 12, its
+   learning rates the schedule's from the restored step counter and its
+   first loss the step-12 file's on a fresh loader's first batch (rtol
+   1e-6); ``--fail-at 6`` in the card's world of 1 raises the reference's
+   two ``RuntimeError``s, with and without ``--checkpoint-dir``.  Then
+   ``examples/torch_train_lm.py --preset 100m --steps 100``: the mean of
+   the last ten losses at least 0.25 below the first ten's.
 
-In phases 1b, 2, 5, 8, 11, 13-16 and 18-20 every kernel count is set to 0 just
+In phases 1b, 2, 5, 8, 11, 13-16 and 18-21 every kernel count is set to 0 just
 before the run and read just after; each must equal the launches the path
 needs (RMSNorm once per norm a join and a step where the norm is RMSNorm,
 none for LayerNorm and the nonparametric norm: 2 a layer with an MLP, 1
@@ -2200,6 +2215,190 @@ def phase_telemetry(torch, mods, card):
     return turns
 
 
+# --------------------------------------------------------------------------
+# phase 21: restart after failure
+# --------------------------------------------------------------------------
+
+CKPT_DIR = os.path.join(ROOT, "build", "chip_smoke_ckpt")     # gitignored, removed after
+
+
+def same_bits(torch, a, b) -> bool:
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8))
+
+
+def run_error(run) -> str:
+    """The message of the ``RuntimeError`` ``run()`` raises, else ""."""
+    try:
+        run()
+    except RuntimeError as e:
+        return str(e)
+    return ""
+
+
+def phase_checkpoint(torch, mods, card):
+    """Restart after failure (``repro_torch.dist.checkpoint``, the train
+    launcher's ``--checkpoint-dir``/``--save-every``/``--resume``/
+    ``--fail-at``, ``examples/torch_train_lm.py``), under the gitignored
+    ``build/``, every file removed at the end:
+
+    - full-width llama3.2-1b's training state on the card (fp32 params and
+      both AdamW moments): two ``make_train_step`` steps, a synchronous
+      save (``keep=1``) loaded into a skeleton on the card, every leaf
+      bit-equal; then an async save with a step taken at once, in place:
+      after ``wait()`` the file is bit-equal to the state before that step
+      (and the step did change it).  Logged: the state's bytes, the time
+      ``save`` blocks, the whole write, the load, and GB/s;
+    - the launcher on full-width countdown-100m (its default arch): 12
+      steps saving every 4 (files 4, 8, 12), then ``--resume --steps 16``:
+      it starts at 12, its learning rates continue the schedule from the
+      restored step counter (rtol 1e-6), and its first loss is the loss of
+      the step-12 file's parameters on a fresh loader's first batch (rtol
+      1e-6); ``--fail-at 6 --save-every 4`` in the card's world of 1 raises
+      the reference's ``RuntimeError`` (no survivor to rebuild from), and
+      without ``--checkpoint-dir`` its other one;
+    - ``examples/torch_train_lm.py --preset 100m --steps 100``: the mean of
+      the last ten losses at least 0.25 below that of the first ten.
+
+    No kernel is launched (training runs plain PyTorch)."""
+    import dataclasses
+    import importlib.util
+    import shutil
+
+    from repro_torch import bridge
+    from repro_torch.configs import get_config
+    from repro_torch.dist.checkpoint import CheckpointManager
+    from repro_torch.launch import train
+    from repro_torch.train import loop as TL
+    from repro_torch.train.data import DataLoader
+    from repro_torch.train.optimizer import OptConfig, schedule
+    from repro_torch.tree import leaves, tree_map
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    reset(mods)
+    try:
+        # -- full-width llama3.2-1b's state: sync and async round trips --
+        cfg = get_config("llama3.2-1b")
+        opt_cfg = OptConfig(warmup_steps=1, total_steps=10)
+        state = TL.init_state(cfg, opt_cfg, torch.Generator(device="cuda").manual_seed(0),
+                              "cuda")
+        step = TL.make_train_step(cfg, opt_cfg)
+        loader = DataLoader(cfg, batch=2, seq_len=128, seed=0, device="cuda")
+        try:
+            for _ in range(2):
+                state, _ = step(state, next(loader))
+            torch.cuda.synchronize()
+            nbytes = sum(t.numel() * t.element_size() for t in leaves(state))
+            mgr = CheckpointManager(os.path.join(CKPT_DIR, "sync"), keep=1)
+            t0 = time.perf_counter()
+            mgr.save(2, state)
+            sync_s = time.perf_counter() - t0
+            file_bytes = os.path.getsize(os.path.join(mgr.directory, "step_00000002.npz"))
+            skel = tree_map(torch.empty_like, state)
+            t0 = time.perf_counter()
+            loaded = mgr.load(2, skel)
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t0
+            del skel
+            require(all(same_bits(torch, a, b) for a, b in zip(leaves(state), leaves(loaded))),
+                    "the synchronous save did not load back bit-equal")
+            del loaded
+            shutil.rmtree(mgr.directory)
+
+            before = tree_map(torch.clone, state)
+            amgr = CheckpointManager(os.path.join(CKPT_DIR, "async"), keep=1, async_save=True)
+            t0 = time.perf_counter()
+            amgr.save(2, state)
+            block_s = time.perf_counter() - t0
+            state, _ = step(state, next(loader))           # in place, at once
+            torch.cuda.synchronize()
+            amgr.wait()
+            async_s = time.perf_counter() - t0
+            require(not same_bits(torch, state["params"]["embed"], before["params"]["embed"]),
+                    "the step after the async save changed nothing")
+            loaded = amgr.load(2, tree_map(torch.empty_like, state))
+            require(all(same_bits(torch, a, b) for a, b in zip(leaves(before), leaves(loaded))),
+                    "the async save wrote values from after the next step")
+            del loaded, before
+            shutil.rmtree(amgr.directory)
+        finally:
+            loader.close()
+        del state, step
+        torch.cuda.empty_cache()
+        gb = nbytes / 1e9
+        log(f"checkpoint llama3.2-1b full width (fp32 params, m, v; {card}): state "
+            f"{nbytes} bytes ({gb:.3f} GB), file {file_bytes} bytes; synchronous save "
+            f"{sync_s:.3f} s ({gb / sync_s:.3f} GB/s), load onto the card {load_s:.3f} s "
+            f"({gb / load_s:.3f} GB/s), bit-equal; async save blocked {block_s:.3f} s "
+            f"({gb / block_s:.3f} GB/s to host memory), whole write with one step taken "
+            f"meanwhile {async_s:.3f} s ({gb / async_s:.3f} GB/s), the file bit-equal to "
+            f"the state before that step")
+
+        # -- the launcher on full-width countdown-100m: save, resume, fail --
+        d = os.path.join(CKPT_DIR, "launcher")
+        args = ["--steps", "12", "--save-every", "4", "--checkpoint-dir", d]
+        first = train.run(train.parser().parse_args(args))
+        require(CheckpointManager(d).all_steps() == [4, 8, 12] and
+                first["checkpoint_steps"] == [4, 8, 12], first["checkpoint_steps"])
+        res = train.run(train.parser().parse_args(
+            ["--steps", "16", "--save-every", "4", "--checkpoint-dir", d, "--resume"]))
+        require(res["start_step"] == 12 and len(res["losses"]) == 4, res["start_step"])
+        opt_cfg = OptConfig(lr=3e-4, warmup_steps=2, total_steps=16)
+        want_lrs = [float(schedule(opt_cfg, torch.tensor(s, device="cuda")))
+                    for s in (13, 14, 15, 16)]
+        np.testing.assert_allclose(res["lrs"], want_lrs, rtol=1e-6)
+        cfg = dataclasses.replace(get_config("countdown-100m"), remat=True)
+        fresh = TL.init_state(cfg, opt_cfg, torch.Generator(device="cuda").manual_seed(1),
+                              "cuda")
+        restored = bridge.state_from_numpy(
+            cfg, CheckpointManager(d).load(12, bridge.state_to_numpy(cfg, fresh)), "cuda")
+        require(int(restored["opt"]["step"]) == 12, "the step-12 file's step counter")
+        loader = DataLoader(cfg, batch=8, seq_len=128, seed=0, device="cuda")
+        try:
+            want_loss = float(TL._grads(cfg, restored["params"], next(loader))[0])
+        finally:
+            loader.close()
+        del fresh, restored
+        np.testing.assert_allclose(res["losses"][0], want_loss, rtol=1e-6)
+        errors = {}
+        for name, extra, msg in (
+                ("with a directory", ["--checkpoint-dir", os.path.join(CKPT_DIR, "fail")],
+                 "ElasticMesh: no healthy devices left to build from"),
+                ("without", [], "node failure without checkpointing enabled")):
+            err = run_error(lambda: train.run(train.parser().parse_args(
+                ["--steps", "8", "--fail-at", "6", "--save-every", "4"] + extra)))
+            require(msg in err, f"--fail-at 6 {name} --checkpoint-dir: {err!r}")
+            errors[name] = err
+        log(f"launcher countdown-100m full width ({card}): 12 steps saving every 4 -> files "
+            f"{first['checkpoint_steps']}, step clock median {first['step_s_median'] * 1e3:.3f} "
+            f"ms; --resume --steps 16 started at {res['start_step']}, lrs {res['lrs']} "
+            f"(schedule {want_lrs}), first loss {res['losses'][0]!r} against the step-12 "
+            f"file's {want_loss!r}; --fail-at 6 in a world of 1: {json.dumps(errors)}")
+
+        # -- the example --
+        path = os.path.join(ROOT, "examples", "torch_train_lm.py")
+        spec = importlib.util.spec_from_file_location("torch_train_lm", path)
+        example = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(example)
+        t0 = time.perf_counter()
+        losses = example.main(["--preset", "100m", "--steps", "100", "--checkpoint-dir",
+                               os.path.join(CKPT_DIR, "example")])
+        example_s = time.perf_counter() - t0
+        drop = float(np.mean(losses[:10]) - np.mean(losses[-10:]))
+        require(np.isfinite(losses).all() and drop >= 0.25, f"loss drop {drop}")
+        require(CheckpointManager(os.path.join(CKPT_DIR, "example")).all_steps() == [100],
+                "the example's checkpoint")
+        log(f"examples/torch_train_lm.py --preset 100m --steps 100 ({card}): loss "
+            f"{np.mean(losses[:10]):.4f} -> {np.mean(losses[-10:]):.4f} (first and last "
+            f"ten, drop {drop:.4f}) in {example_s:.3f} s")
+    finally:
+        shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    counts = counts_of(mods)
+    require(not any(counts.values()), f"kernels launched on the training path: {counts}")
+    log(f"restart-after-failure phase took {time.perf_counter() - t_phase:.1f} s")
+
+
 def _to(tree, torch, device, copy=False):
     """``tree``'s tensors on ``device`` (copies, with ``copy``, even where
     they are there already)."""
@@ -2315,6 +2514,8 @@ def main() -> int:
     phase_train_live(torch, mods, card)
     torch.cuda.empty_cache()
     phase_telemetry(torch, mods, card)
+    torch.cuda.empty_cache()
+    phase_checkpoint(torch, mods, card)
     log("launches on the llama3.2-1b path " + json.dumps(llama_counts)
         + "; under --theta predictive " + json.dumps(predictive_counts)
         + "; with the prefix cache (warm, greedy) " + json.dumps(prefix_counts)

@@ -1,1 +1,27 @@
-"""Command-line entry points of the port (``python -m repro_torch.launch.serve``)."""
+"""``repro_torch.launch`` — runnable drivers (each is a ``python -m`` entry point).
+
+``train``      training: checkpoint/restart and recovery from injected
+               rank failures over a rebuilt process group.
+``serve``      serving driver: legacy static batch or continuous batching
+               with paged KV, Poisson arrivals, and governor-priced slack.
+``long_join``  one long prompt's join timed through the kernels and plain.
+
+Submodules load lazily (PEP 562), as the reference's do, so that
+``import repro_torch.launch`` stays cheap for tooling.  Not yet here: the
+reference's ``dryrun`` (ROADMAP.md, queue 1, item 5) and ``mesh`` (item 4).
+"""
+import importlib
+
+_SUBMODULES = ("long_join", "serve", "train")
+
+__all__ = list(_SUBMODULES)
+
+
+def __getattr__(name: str):
+    if name in _SUBMODULES:
+        return importlib.import_module(f"repro_torch.launch.{name}")
+    raise AttributeError(f"module 'repro_torch.launch' has no attribute {name!r}")
+
+
+def __dir__():
+    return sorted(set(globals()) | set(_SUBMODULES))

@@ -98,11 +98,11 @@ log = obslog.get_logger("serve")
 # flags parsed with the reference's defaults and refused when set: the
 # ROADMAP item each waits for
 WAITING = {
-    "model_parallel": (1, "queue 1, item 5 (sharding)"),
-    "fleet": (0, "queue 1, item 7 (the fleet)"),
-    "autoscale": (False, "queue 1, item 7 (the fleet)"),
-    "fleet_trace": ("flash-crowd", "queue 1, item 7 (the fleet)"),
-    "fleet_duration": (10.0, "queue 1, item 7 (the fleet)"),
+    "model_parallel": (1, "queue 1, item 4 (sharding)"),
+    "fleet": (0, "queue 1, item 1 (the fleet)"),
+    "autoscale": (False, "queue 1, item 1 (the fleet)"),
+    "fleet_trace": ("flash-crowd", "queue 1, item 1 (the fleet)"),
+    "fleet_duration": (10.0, "queue 1, item 1 (the fleet)"),
 }
 
 

@@ -19,6 +19,16 @@ report.
       --perfetto-out train.json --metrics-out metrics.jsonl --dashboard \\
       --power-cap 300
 
+  # restart after failure: saves every 5 steps, rank 3 fails at step 12,
+  # the 3 survivors restore step 10 and finish (4 gloo ranks on the CPU)
+  PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
+      --reduced --steps 20 --batch 12 --seq 32 --device cpu \\
+      --checkpoint-dir ckpt --save-every 5 --fail-at 12
+
+  # resume from the newest checkpoint in a directory
+  PYTHONPATH=src python -m repro_torch.launch.train --steps 16 \\
+      --checkpoint-dir ckpt --save-every 4 --resume
+
 The defaults are the reference's (``repro.launch.train``): countdown-100m,
 batch 8, sequence 128, remat on, and AdamW warming up over
 ``min(100, steps // 10 + 1)`` steps and decaying to ``steps``.  Weights are
@@ -33,9 +43,26 @@ when it is set, else it is a world of 1 (NCCL on the card, gloo on the
 CPU).  ``--trace-out``, ``--perfetto-out``, ``--metrics-out``,
 ``--dashboard`` and ``--power-cap`` wire as the reference's (each turns on
 profile mode; the tenant's watts are ``core.pstate.DEFAULT_HW``'s model,
-not the card's draw).  The checkpoint, failure and model-parallel flags
-are parsed with the reference's defaults and refused when set: they wait
-for a later slice (ROADMAP.md, queue 1).  Logs the reference's ``step``,
+not the card's draw).
+
+Restart after failure is the reference's mesh-epoch loop.
+``--checkpoint-dir`` keeps the newest 3 checkpoints (the first rank of the
+group writes them, in the reference's layout and file format:
+:mod:`repro_torch.bridge`, :mod:`repro_torch.dist.checkpoint`), one after
+each multiple of ``--save-every`` steps; ``--resume`` starts from the
+newest.  ``--fail-at N`` fails the last rank before step N + 1: every rank
+drains, marks it failed, restores the newest checkpoint (or initialises
+from ``--seed`` when there is none), rebuilds the group from the survivors
+(:class:`repro_torch.dist.elastic.ElasticMesh`) and the step over it, and
+rewinds; the failed rank takes no further step and waits for the end.  A
+failure without ``--checkpoint-dir`` raises, and so does one in a world of
+1 (no survivor to rebuild from), as the reference's do.  Kept for parity
+with the reference: after a failure the loader runs on, so the rewound
+steps take the stream's next batches; ``--resume`` starts a fresh loader
+from ``--seed``.  The survivors' count must divide ``--batch``
+(:func:`repro_torch.train.loop.shard_of`).  ``--model-parallel`` is parsed
+with the reference's default and refused when set (ROADMAP.md, queue 1,
+item 4).  Logs the reference's ``step``, ``device_failed``, ``resumed``,
 ``governor`` and ``power`` lines; the last line of output is the run's
 result as one JSON object.
 """
@@ -52,11 +79,14 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from repro_torch import bridge
 from repro_torch.configs import get_config, reduced
 from repro_torch.core import instrument
 from repro_torch.core.governor import Governor
 from repro_torch.core.policies import policy_for_theta
 from repro_torch.device import resolve_device
+from repro_torch.dist.checkpoint import CheckpointManager
+from repro_torch.dist.elastic import ElasticMesh, FailureInjector
 from repro_torch.obs import log as obslog
 from repro_torch.train.data import DataLoader
 from repro_torch.train.loop import (
@@ -70,11 +100,7 @@ log = obslog.get_logger("train")
 # flags parsed with the reference's defaults and refused when set: the
 # ROADMAP item each waits for
 WAITING = {
-    "checkpoint_dir": ("", "queue 1, item 5 (checkpoints)"),
-    "save_every": (50, "queue 1, item 5 (checkpoints)"),
-    "resume": (False, "queue 1, item 5 (checkpoints)"),
-    "fail_at": (0, "queue 1, item 5 (elastic restart)"),
-    "model_parallel": (1, "queue 1, item 5 (sharding inside a pod)"),
+    "model_parallel": (1, "queue 1, item 4 (sharding inside a pod)"),
 }
 
 
@@ -265,19 +291,42 @@ def run(args) -> Dict[str, Any]:
                 bus.subscribe(governor)
             if args.ingest == "batched":
                 instrument.set_ingest_mode("batched")
-        if args.live_events or world > 1:
-            instrument.warm_up(device)     # communicator setup is not a step's slack
-        state = init_state(cfg, opt_cfg, torch.Generator(device=device).manual_seed(args.seed),
-                           device)
+        rank = dist.get_rank()
+        em = ElasticMesh(axis_names=("data", "model"))
+        mesh = em.build(model_parallel=args.model_parallel)
+        injector = FailureInjector(fail_at_steps=[args.fail_at] if args.fail_at else [],
+                                   device_ids=[world - 1])
+        mgr = CheckpointManager(args.checkpoint_dir, keep=3) if args.checkpoint_dir else None
+
+        def fresh_state():
+            return init_state(cfg, opt_cfg,
+                              torch.Generator(device=device).manual_seed(args.seed), device)
+
+        def restore(step: int, like: Dict[str, Any]) -> Dict[str, Any]:
+            tree = mgr.load(step, bridge.state_to_numpy(cfg, like))
+            return bridge.state_from_numpy(cfg, tree, device)
+
+        def build(group):
+            if args.live_events or world > 1:
+                instrument.warm_up(device, group)   # communicator setup is not a step's slack
+            if args.live_events:
+                return build_live(cfg, opt_cfg, group), "build_live"
+            if world > 1:
+                return make_pod_train_step(cfg, opt_cfg, group, TrainConfig()), "pod"
+            return make_train_step(cfg, opt_cfg), "build"
+
+        state = fresh_state()
+        start_step = 0
+        if mgr and args.resume:
+            latest = mgr.latest_step()
+            if latest is not None:
+                start_step, state = latest, restore(latest, state)
+                log.info("resumed", step=latest)
         n_params = sum(p.numel() for p in leaves(state["params"]))
-        if args.live_events:
-            step_fn, kind = build_live(cfg, opt_cfg), "build_live"
-        elif world > 1:
-            step_fn, kind = make_pod_train_step(cfg, opt_cfg, None, TrainConfig()), "pod"
-        else:
-            step_fn, kind = make_train_step(cfg, opt_cfg), "build"
+        step_fn, kind = build(mesh.group)
         log.info("start", arch=cfg.name, params=n_params, device=str(device), world=world,
-                 step=kind, batch=args.batch, seq=args.seq, instrument=args.instrument)
+                 step=kind, batch=args.batch, seq=args.seq, instrument=args.instrument,
+                 start_step=start_step)
         loader = DataLoader(cfg, batch=args.batch, seq_len=args.seq, seed=args.seed,
                             device=device)
         if device.type == "cuda":
@@ -287,20 +336,37 @@ def run(args) -> Dict[str, Any]:
         lrs: List[float] = []
         step_s: List[float] = []
         power: List[Dict[str, Any]] = []
+        restarts: List[Dict[str, int]] = []
+        checkpoint_steps: List[int] = []
         t_start = time.time()
-        for step in range(1, args.steps + 1):
-            batch = next(loader)
-            _sync(device)
-            t0 = time.perf_counter()
-            state, metrics = step_fn(state, batch)
-            _sync(device)
-            step_s.append(time.perf_counter() - t0)
-            losses.append(float(metrics["loss"]))
-            grad_norms.append(float(metrics["grad_norm"]))
-            lrs.append(float(metrics["lr"]))
-            if step % max(1, args.steps // 20) == 0 or step == args.steps:
+        step = start_step
+        # mesh-epoch loop: each epoch runs over one group; a failure breaks
+        # out, restores the latest checkpoint and rebuilds the group from the
+        # surviving ranks
+        while step < args.steps and rank not in em.failed_ids():
+            failed = None
+            while step < args.steps:
+                failed = injector.check(step)
+                if failed is not None:
+                    break
+                batch = next(loader)
+                _sync(device)
+                t0 = time.perf_counter()
+                state, metrics = step_fn(state, batch)
+                _sync(device)
+                step_s.append(time.perf_counter() - t0)
+                step += 1
+                losses.append(float(metrics["loss"]))
+                grad_norms.append(float(metrics["grad_norm"]))
+                lrs.append(float(metrics["lr"]))
+                if mgr and step % args.save_every == 0:
+                    if rank == mesh.ranks[0]:
+                        mgr.save(step, bridge.state_to_numpy(cfg, state))
+                    checkpoint_steps.append(step)
+                if step % max(1, args.steps // 20) != 0 and step != args.steps:
+                    continue
                 log.info("step", step=step, loss=losses[-1], grad_norm=grad_norms[-1],
-                         lr=lrs[-1], s_per_step=(time.time() - t_start) / step)
+                         lr=lrs[-1], s_per_step=(time.time() - t_start) / len(step_s))
                 stats = collector.collect() if collector is not None else None
                 if tenant is not None:
                     # the collector's poll is handed over: the governor keeps
@@ -323,6 +389,36 @@ def run(args) -> Dict[str, Any]:
                     writer.write(step=step)
                 if dash is not None:
                     dash.tick(step=step)
+            if failed is None:
+                break
+            log.warning("device_failed", step=step, device=failed, action="re-meshing")
+            _sync(device)                           # drain in-flight work
+            em.fail(failed)
+            if mgr is None:
+                raise RuntimeError("node failure without checkpointing enabled")
+            if world > 1:
+                dist.barrier(group=mesh.group)      # the writer's last save is on disk
+            latest = mgr.latest_step()
+            if latest is None:
+                # failed before the first checkpoint: cold restart from init
+                latest, state = 0, fresh_state()
+            else:
+                state = restore(latest, state)
+            mesh = em.build(model_parallel=args.model_parallel)
+            if args.batch % len(mesh.ranks):
+                # every rank stops here together (shard_of would stop only the survivors)
+                raise ValueError(f"--batch {args.batch} does not divide over the "
+                                 f"{len(mesh.ranks)} surviving ranks")
+            restarts.append({"step": step, "failed_rank": failed, "restored_step": latest,
+                             "survivors": len(mesh.ranks)})
+            if rank in em.failed_ids():
+                log.info("failed", rank=rank, step=step, action="waiting for the end")
+                break
+            step_fn, kind = build(mesh.group)
+            step = latest
+            log.info("resumed", devices=len(em.healthy_devices()), step=latest)
+        if world > 1:
+            dist.barrier()          # a failed rank stays in the world until the end
         if args.ingest == "batched":
             # drain the partial accumulator while the governor is subscribed
             instrument.flush_events()
@@ -376,11 +472,13 @@ def run(args) -> Dict[str, Any]:
             outputs.update(trace_out=path, trace_records=trace_rec.n_seen,
                            trace_dropped=trace_rec.n_dropped)
         after_first = step_s[1:] or step_s
-        step_median = float(np.median(after_first))
+        step_median = float(np.median(after_first)) if after_first else float("nan")
         return {
-            "arch": cfg.name, "device": str(device), "world": world, "step": kind,
-            "params": n_params, "param_leaves": len(leaves(state["params"])),
+            "arch": cfg.name, "device": str(device), "world": world, "rank": rank,
+            "step": kind, "params": n_params, "param_leaves": len(leaves(state["params"])),
             "batch": args.batch, "seq": args.seq, "steps": args.steps,
+            "start_step": start_step, "restarts": restarts,
+            "checkpoint_steps": checkpoint_steps,
             "losses": losses, "grad_norms": grad_norms, "lrs": lrs, "step_s": step_s,
             "step_s_median": step_median,
             "tokens_per_s": args.batch * args.seq / step_median,

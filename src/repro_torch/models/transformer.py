@@ -28,6 +28,7 @@ launch that autograd would record).
 
 Public API:
     init_params(cfg, generator, device)          -> params
+    param_count(params)                          -> int
     forward(cfg, params, batch)                  -> (hidden (B,S,d), aux)
     loss_fn(cfg, params, batch)                  -> (loss, metrics)
     init_cache(cfg, batch, max_len, device)      -> cache
@@ -47,6 +48,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import rglru as R
 from repro_torch.models import ssm as S
+from repro_torch.tree import leaves
 
 Params = Dict[str, Any]
 
@@ -117,6 +119,12 @@ def init_params(cfg, generator: torch.Generator, device) -> Params:
     if not cfg.tie_embeddings:
         params["head"] = L.dense_init(generator, d, cfg.padded_vocab, dtype, device)
     return params
+
+
+def param_count(params: Params) -> int:
+    """The number of parameter elements (the reference's ``param_count``;
+    the split layout holds the same elements as its stacked one)."""
+    return sum(int(p.numel()) for p in leaves(params))
 
 
 def _embed_inputs(cfg, params, tokens: torch.Tensor,

@@ -10,5 +10,50 @@
                tracer's join/evict instants), :class:`EngineSession` and
                the legacy :class:`ServeEngine`.
 ``fleet``      so far the per-replica :class:`~repro_torch.serve.fleet.
-               prefix.PrefixCache`; the rest of the fleet is the next slice.
+               prefix.PrefixCache`; the rest of the fleet is a later slice.
+
+Exports resolve lazily (PEP 562), as the reference's do: importing
+``repro_torch.serve`` loads no submodule until a symbol is touched, and
+``dir()`` lists everything importable, symbols and submodules.
 """
+import importlib
+
+# symbol -> defining submodule (the lazy-import table; every name here is
+# importable as `from repro_torch.serve import <name>`).  Not yet here:
+# `make_serve_steps` waits for the dry run (ROADMAP.md, queue 1, item 5),
+# the other fleet names for the fleet (queue 1, item 1).
+_EXPORTS = {
+    "ContinuousEngine": "repro_torch.serve.engine",
+    "EngineSession": "repro_torch.serve.engine",
+    "ServeEngine": "repro_torch.serve.engine",
+    "PagedKVPool": "repro_torch.serve.kvcache",
+    "Request": "repro_torch.serve.scheduler",
+    "Scheduler": "repro_torch.serve.scheduler",
+    "poisson_arrivals": "repro_torch.serve.scheduler",
+    "DecodeSlackMeter": "repro_torch.serve.slack",
+    "SLOTracker": "repro_torch.serve.slo",
+    # fleet layer
+    "PrefixCache": "repro_torch.serve.fleet.prefix",
+    "PrefixMatch": "repro_torch.serve.fleet.prefix",
+}
+
+_SUBMODULES = ("engine", "fleet", "kvcache", "scheduler", "slack", "slo")
+
+__all__ = sorted(_EXPORTS)
+
+
+def __getattr__(name):
+    target = _EXPORTS.get(name)
+    if target is not None:
+        value = getattr(importlib.import_module(target), name)
+        globals()[name] = value               # cache: resolve once
+        return value
+    if name in _SUBMODULES:
+        module = importlib.import_module(f"repro_torch.serve.{name}")
+        globals()[name] = module
+        return module
+    raise AttributeError(f"module 'repro_torch.serve' has no attribute {name!r}")
+
+
+def __dir__():
+    return sorted(set(globals()) | set(_EXPORTS) | set(_SUBMODULES))

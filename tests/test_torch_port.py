@@ -58,7 +58,7 @@ def t(a):
 
 def test_every_module_imports_with_jax_and_repro_blocked():
     code = textwrap.dedent("""
-        import importlib, pkgutil, sys
+        import glob, importlib, importlib.util, os, pkgutil, sys
 
         class Block:
             def find_spec(self, name, path=None, target=None):
@@ -83,10 +83,20 @@ def test_every_module_imports_with_jax_and_repro_blocked():
                   "configs.mixtral_8x22b", "configs.internvl2_1b", "configs.musicgen_large",
                   "obs", "obs.metrics", "obs.tracer", "obs.export", "cluster", "cluster.power",
                   "cluster.arbiter", "cluster.job", "cluster.trace", "cluster.coschedule",
-                  "serve.fleet", "serve.fleet.prefix"):
+                  "serve.fleet", "serve.fleet.prefix", "dist.checkpoint", "dist.elastic"):
             assert "repro_torch." + n in names, n
+        examples = sorted(glob.glob(os.path.join(EXAMPLES, "torch_*.py")))
+        assert len(examples) == 5, examples
+        for path in examples:               # the examples run main() only as scripts
+            spec = importlib.util.spec_from_file_location(os.path.basename(path)[:-3], path)
+            spec.loader.exec_module(importlib.util.module_from_spec(spec))
+        from repro_torch.serve import ContinuousEngine, PrefixCache  # noqa: F401
+        from repro_torch.models import init_params  # noqa: F401
+        from repro_torch.dist import CheckpointManager, ElasticMesh  # noqa: F401
+        bad = [k for k in sys.modules if k.split(".")[0] in ("jax", "jaxlib", "repro")]
+        assert not bad, bad
         print(len(names))
-    """)
+    """).replace("EXAMPLES", repr(os.path.join(ROOT, "examples")))
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
                          text=True, timeout=300)
@@ -99,8 +109,12 @@ def test_no_source_names_jax_or_the_reference_package():
     files = [os.path.join(ROOT, "chip_smoke.py")]
     for d, _, names in os.walk(os.path.join(ROOT, "src", "repro_torch")):
         files += [os.path.join(d, n) for n in names if n.endswith((".py", ".cu"))]
+    examples = os.path.join(ROOT, "examples")
+    files += [os.path.join(examples, n) for n in os.listdir(examples)
+              if n.startswith("torch_") and n.endswith(".py")]
     hits = [f for f in files if pat.search(open(f).read())]
     assert len(files) > 25 and not hits, hits
+    assert sum(os.path.dirname(f) == examples for f in files) == 5
 
 
 def test_copied_logger_renders_as_the_original():
