@@ -191,7 +191,7 @@ Builds the hand-written kernels from the five sources in this checkout (one
    limit.  Then two ``launch.train`` steps of full-width llama3.2-1b with
    ``--live-events`` and the same flags: no kernel, the files valid, the
    trace replayed to the run's report.
-21. **restart after failure** (run last; files under the gitignored
+21. **restart after failure** (files under the gitignored
    ``build/``, removed at the end): full-width llama3.2-1b's training
    state (fp32 params and both AdamW moments, 14.8 GB) after two steps,
    saved synchronously and loaded into a skeleton on the card, every leaf
@@ -206,8 +206,15 @@ Builds the hand-written kernels from the five sources in this checkout (one
    two ``RuntimeError``s, with and without ``--checkpoint-dir``.  Then
    ``examples/torch_train_lm.py --preset 100m --steps 100``: the mean of
    the last ten losses at least 0.25 below the first ten's.
+22. **the other four examples** with no arguments (the card, their
+   default sizes): ``torch_quickstart.py`` (the loss falls, no kernel),
+   ``torch_serve_decode.py`` (four families' batched demos through
+   flash, RMSNorm and both scans; the continuous engine through the fused
+   paged kernel, flash and RMSNorm), ``torch_cluster_budget.py`` (the
+   arbiter wins; host only) and ``torch_energy_aware_training.py`` (an
+   NCCL world of 1, two instrumented collectives a step, no kernel).
 
-In phases 1b, 2, 5, 8, 11, 13-16 and 18-21 every kernel count is set to 0 just
+In phases 1b, 2, 5, 8, 11, 13-16 and 18-22 every kernel count is set to 0 just
 before the run and read just after; each must equal the launches the path
 needs (RMSNorm once per norm a join and a step where the norm is RMSNorm,
 none for LayerNorm and the nonparametric norm: 2 a layer with an MLP, 1
@@ -2262,7 +2269,6 @@ def phase_checkpoint(torch, mods, card):
 
     No kernel is launched (training runs plain PyTorch)."""
     import dataclasses
-    import importlib.util
     import shutil
 
     from repro_torch import bridge
@@ -2377,10 +2383,7 @@ def phase_checkpoint(torch, mods, card):
             f"file's {want_loss!r}; --fail-at 6 in a world of 1: {json.dumps(errors)}")
 
         # -- the example --
-        path = os.path.join(ROOT, "examples", "torch_train_lm.py")
-        spec = importlib.util.spec_from_file_location("torch_train_lm", path)
-        example = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(example)
+        example = load_example("train_lm")
         t0 = time.perf_counter()
         losses = example.main(["--preset", "100m", "--steps", "100", "--checkpoint-dir",
                                os.path.join(CKPT_DIR, "example")])
@@ -2397,6 +2400,96 @@ def phase_checkpoint(torch, mods, card):
     counts = counts_of(mods)
     require(not any(counts.values()), f"kernels launched on the training path: {counts}")
     log(f"restart-after-failure phase took {time.perf_counter() - t_phase:.1f} s")
+
+
+# --------------------------------------------------------------------------
+# phase 22: the other four examples
+# --------------------------------------------------------------------------
+
+def load_example(name):
+    import importlib.util
+
+    path = os.path.join(ROOT, "examples", f"torch_{name}.py")
+    spec = importlib.util.spec_from_file_location(f"torch_{name}", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def phase_examples(torch, mods, card):
+    """``examples/torch_quickstart.py``, ``torch_serve_decode.py``,
+    ``torch_cluster_budget.py`` and ``torch_energy_aware_training.py`` with
+    no arguments (the card, their default sizes), each with its counts set
+    to 0 just before and read just after: the quickstart's loss falls and
+    no kernel runs (training is plain PyTorch); serve_decode's batched
+    demos generate (4, 16) tokens a family through flash, RMSNorm, the SSD
+    and the RG-LRU scans, and its continuous engine serves every request
+    through the fused paged kernel, flash and RMSNorm; the cluster budget's
+    arbiter wins (host only, no kernel); energy-aware training in a world
+    of 1 books two instrumented collectives a step, no kernel."""
+    import torch.distributed as dist
+
+    def run(name, argv=()):
+        reset(mods)
+        t0 = time.perf_counter()
+        out = load_example(name).main(list(argv))
+        return out, time.perf_counter() - t0, counts_of(mods)
+
+    none = dict.fromkeys(KERNELS, 0)
+    losses, quick_s, counts = run("quickstart")
+    require(np.isfinite(losses).all() and losses[-1] < losses[0], f"quickstart {losses}")
+    require(counts == none, f"quickstart launched kernels: {counts}")
+    log(f"examples/torch_quickstart.py ({card}): loss {losses[0]:.4f} -> {losses[-1]:.4f} "
+        f"over {len(losses)} steps, {quick_s:.3f} s, no kernel")
+
+    serve = load_example("serve_decode")
+    split = {}
+    plain_continuous = serve.demo_continuous
+
+    def continuous(*a, **k):
+        split["batched"] = counts_of(mods)       # the four batched demos' launches
+        reset(mods)
+        return plain_continuous(*a, **k)
+
+    serve.demo_continuous = continuous
+    reset(mods)
+    t0 = time.perf_counter()
+    res = serve.main([])
+    serve_s = time.perf_counter() - t0
+    split["continuous"] = counts_of(mods)
+    for arch, out in res["batched"].items():
+        require(tuple(out.shape) == (4, 16) and out.device.type == "cuda", (arch, out.shape))
+    cont = res["continuous"]
+    require(cont["requests"] == 8 and cont["tokens"] > 0 and cont["report"].n_calls > 0, cont)
+    batched, served = split["batched"], split["continuous"]
+    require(all(batched[k] > 0 for k in ("flash_attention", "rmsnorm", "ssd_scan",
+                                         "rglru_scan")), f"batched demos {batched}")
+    require(all(served[k] > 0 for k in ("paged_attention_scatter", "flash_attention",
+                                        "rmsnorm")), f"continuous engine {served}")
+    require(served["ssd_scan"] == served["rglru_scan"] == 0, served)
+    require(batched["paged_attention"] == batched["paged_scatter"] ==
+            served["paged_attention"] == served["paged_scatter"] == 0, split)
+    log(f"examples/torch_serve_decode.py ({card}): {len(res['batched'])} families x (4, 16) "
+        f"tokens, continuous {cont['tokens']} tokens / {cont['requests']} requests, "
+        f"{serve_s:.3f} s; launches in the batched demos {json.dumps(batched)}, in the "
+        f"continuous engine {json.dumps(served)}")
+
+    budget, budget_s, counts = run("cluster_budget")
+    require(budget["saving_pct"] > 0.0 and budget["overhead_pct"] <= 1.0, budget)
+    require(counts == none, f"cluster_budget launched kernels: {counts}")
+    log(f"examples/torch_cluster_budget.py ({card}): arbiter vs static "
+        f"{budget['saving_pct']:+.3f}% energy at {budget['overhead_pct']:+.3f}% makespan "
+        f"(modelled watts, core.pstate.DEFAULT_HW), {budget_s:.3f} s")
+
+    require(not dist.is_initialized(), "a process group is left from an earlier phase")
+    energy, energy_s, counts = run("energy_aware_training")
+    require(energy["world"] == 1 and np.isfinite(energy["losses"]).all(), energy["losses"])
+    require(energy["report"].n_calls == 2 * len(energy["losses"]), energy["report"].n_calls)
+    require(counts == none and not dist.is_initialized(), counts)
+    log(f"examples/torch_energy_aware_training.py ({card}, NCCL world of 1): loss "
+        f"{energy['losses'][0]:.4f} -> {energy['losses'][-1]:.4f} over "
+        f"{len(energy['losses'])} steps, {energy['report'].n_calls} instrumented "
+        f"collectives, {energy_s:.3f} s, no kernel")
 
 
 def _to(tree, torch, device, copy=False):
@@ -2516,6 +2609,8 @@ def main() -> int:
     phase_telemetry(torch, mods, card)
     torch.cuda.empty_cache()
     phase_checkpoint(torch, mods, card)
+    torch.cuda.empty_cache()
+    phase_examples(torch, mods, card)
     log("launches on the llama3.2-1b path " + json.dumps(llama_counts)
         + "; under --theta predictive " + json.dumps(predictive_counts)
         + "; with the prefix cache (warm, greedy) " + json.dumps(prefix_counts)

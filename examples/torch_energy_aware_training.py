@@ -34,27 +34,12 @@ from repro_torch.core import instrument
 from repro_torch.core.governor import Governor
 from repro_torch.core.instrument import cd_psum
 from repro_torch.core.policies import COUNTDOWN_SLACK
-from repro_torch.device import resolve_device
+from repro_torch.device import join_group, resolve_device
 from repro_torch.models import init_params, loss_fn
 from repro_torch.models.inputs import make_batch
 from repro_torch.train.loop import shard_of
 from repro_torch.train.optimizer import OptConfig, adamw_update, decay_mask, init_opt_state
 from repro_torch.tree import leaves, tree_map, unflatten
-
-
-def join_group(device: torch.device) -> bool:
-    """``torchrun``'s world when its environment is set, else a world of 1;
-    returns whether this call made the group."""
-    if dist.is_initialized():
-        return False
-    backend = "nccl" if device.type == "cuda" else "gloo"
-    if device.type == "cuda":
-        torch.cuda.set_device(device)
-    if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
-        dist.init_process_group(backend, init_method="env://")
-    else:
-        dist.init_process_group(backend, store=dist.HashStore(), rank=0, world_size=1)
-    return True
 
 
 def main(argv=None) -> dict:

@@ -5,8 +5,9 @@ the synthetic corpus, as ``examples/train_lm.py`` does on the JAX package.
   PYTHONPATH=src python examples/torch_train_lm.py --device cpu --steps 40
 
 The data pipeline with host prefetch, AdamW with warmup and cosine decay,
-an async checkpoint (the newest 2 kept) every 100 steps, and a live loss
-curve.  ``--preset small`` (the default, as the original's) runs the same
+an async checkpoint (the newest 2 kept) every 100 steps, in the JAX
+package's layout and file format (:mod:`repro_torch.bridge`), and a live
+loss curve.  ``--preset small`` (the default, as the original's) runs the same
 code path on a 4-layer model for a fast local run.  The port's step updates
 the state in place; the async save has copied it to the host before it
 returns, so the next step cannot change what is written.
@@ -18,6 +19,7 @@ import tempfile
 import numpy as np
 import torch
 
+from repro_torch import bridge
 from repro_torch.configs import get_config, reduced
 from repro_torch.device import resolve_device
 from repro_torch.dist.checkpoint import CheckpointManager
@@ -65,7 +67,7 @@ def main(argv=None) -> list:
                       f"(avg10 {np.mean(losses[-10:]):.4f})  lr {float(m['lr']):.2e}",
                       flush=True)
             if (i + 1) % 100 == 0:
-                mgr.save(i + 1, state)
+                mgr.save(i + 1, bridge.state_to_numpy(cfg, state))
         mgr.wait()
     finally:
         loader.close()

@@ -1,9 +1,11 @@
 """Device choice shared by the port's entry points."""
 from __future__ import annotations
 
+import os
 from typing import Optional, Union
 
 import torch
+import torch.distributed as dist
 
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.device:
@@ -23,6 +25,23 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
         if dev.index is None:          # name the card, as tensors on it do
             dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+def join_group(device: torch.device) -> bool:
+    """Join ``torchrun``'s world when its environment is set, else make a
+    world of 1 (NCCL on the card, gloo on the CPU), unless a default group
+    exists already.  Returns whether this call made the group (and so must
+    destroy it)."""
+    if dist.is_initialized():
+        return False
+    backend = "nccl" if device.type == "cuda" else "gloo"
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
+        dist.init_process_group(backend, init_method="env://")
+    else:
+        dist.init_process_group(backend, store=dist.HashStore(), rank=0, world_size=1)
+    return True
 
 
 KERNELS = ("plain", "cuda")

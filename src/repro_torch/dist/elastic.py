@@ -10,11 +10,11 @@ mesh, the port lays out the ranks of the default process group: a rank is
 one device holding the whole model.
 
 Rebuilding the group calls ``torch.distributed.new_group``, which every
-rank of the default group must call, the failed rank included; after it
-the failed rank takes no further step, but stays in the world until every
-rank tears it down together (an exit would leave the survivors waiting on
-it).  Every rank runs the same :class:`FailureInjector`, so all agree on
-which rank fails and at which step.
+rank of the default group must call, the failed rank included (an exit
+before it would leave the survivors waiting); after it the failed rank
+takes no further step and may leave, since the survivors' collectives run
+over their own group.  Every rank runs the same :class:`FailureInjector`,
+so all agree on which rank fails and at which step.
 
 :class:`FailureInjector` is a copy of the reference's, pinned to its text.
 """

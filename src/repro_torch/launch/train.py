@@ -54,7 +54,9 @@ newest.  ``--fail-at N`` fails the last rank before step N + 1: every rank
 drains, marks it failed, restores the newest checkpoint (or initialises
 from ``--seed`` when there is none), rebuilds the group from the survivors
 (:class:`repro_torch.dist.elastic.ElasticMesh`) and the step over it, and
-rewinds; the failed rank takes no further step and waits for the end.  A
+rewinds; the failed rank takes no further step and leaves once the group
+is rebuilt (the injector fails the last rank, never the first, which
+holds the store of a world started without ``torchrun``).  A
 failure without ``--checkpoint-dir`` raises, and so does one in a world of
 1 (no survivor to rebuild from), as the reference's do.  Kept for parity
 with the reference: after a failure the loader runs on, so the rewound
@@ -84,7 +86,7 @@ from repro_torch.configs import get_config, reduced
 from repro_torch.core import instrument
 from repro_torch.core.governor import Governor
 from repro_torch.core.policies import policy_for_theta
-from repro_torch.device import resolve_device
+from repro_torch.device import join_group, resolve_device
 from repro_torch.dist.checkpoint import CheckpointManager
 from repro_torch.dist.elastic import ElasticMesh, FailureInjector
 from repro_torch.obs import log as obslog
@@ -190,22 +192,6 @@ def _device(args) -> torch.device:
     return resolve_device(args.device)
 
 
-def _join_group(device: torch.device) -> bool:
-    """Join ``torchrun``'s world when its environment is set, else make a
-    world of 1, unless a default group exists already.  Returns whether
-    this call made the group (and so must destroy it)."""
-    if dist.is_initialized():
-        return False
-    backend = "nccl" if device.type == "cuda" else "gloo"
-    if device.type == "cuda":
-        torch.cuda.set_device(device)
-    if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
-        dist.init_process_group(backend, init_method="env://")
-    else:
-        dist.init_process_group(backend, store=dist.HashStore(), rank=0, world_size=1)
-    return True
-
-
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -256,7 +242,7 @@ def run(args) -> Dict[str, Any]:
         # occurrences and theta decisions), never the per-event bus
         tap = GovernorTap(tracer, metrics=busmetrics)
         recorder = RecorderFanout([recorder, tap]) if recorder is not None else tap
-    made_group = _join_group(device)
+    made_group = join_group(device)
     governor = Governor(policy=policy_for_theta(args.theta), recorder=recorder)
     bus = instrument.get_event_bus()
     loader = None
@@ -412,13 +398,14 @@ def run(args) -> Dict[str, Any]:
             restarts.append({"step": step, "failed_rank": failed, "restored_step": latest,
                              "survivors": len(mesh.ranks)})
             if rank in em.failed_ids():
-                log.info("failed", rank=rank, step=step, action="waiting for the end")
+                # the rebuild was the last call every rank makes together
+                log.info("failed", rank=rank, step=step, action="leaving")
                 break
             step_fn, kind = build(mesh.group)
             step = latest
             log.info("resumed", devices=len(em.healthy_devices()), step=latest)
-        if world > 1:
-            dist.barrier()          # a failed rank stays in the world until the end
+        if world > 1 and rank in mesh.ranks:
+            dist.barrier(group=mesh.group)      # the writer's last save is on disk
         if args.ingest == "batched":
             # drain the partial accumulator while the governor is subscribed
             instrument.flush_events()

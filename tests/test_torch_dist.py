@@ -20,7 +20,9 @@ failure flags) against the JAX package, on the CPU.
   on 3 ranks and its losses equal an in-process replay from that file to
   1e-6, the failed rank takes no step after 12, and every rank tears its
   group down; a failure before the first save restarts from init; one
-  whose survivors do not divide the batch stops every rank at the rebuild.
+  whose survivors do not divide the batch stops every rank at the rebuild;
+  survivors that train on past the world group's timeout finish, since the
+  failed rank leaves after the rebuild.
 
 JAX is imported inside the reference-side helpers only, so the spawned
 ranks, which import this module, load torch alone.
@@ -426,6 +428,51 @@ COLD = ["--reduced", "--steps", "6", "--batch", "12", "--seq", "32", "--device",
         "--save-every", "5", "--fail-at", "3"]
 UNEVEN = ["--reduced", "--steps", "4", "--batch", "8", "--seq", "16", "--device", "cpu",
           "--save-every", "1", "--fail-at", "2"]
+# a world group timing out after SHORT_S, and survivors that each sleep
+# SLOW_S a step after the failure: they outlast that timeout
+OUTLAST = ["--reduced", "--steps", "8", "--batch", "12", "--seq", "32", "--device", "cpu",
+           "--save-every", "2", "--fail-at", "4"]
+SHORT_S, SLOW_S = 4.0, 1.5
+
+
+def slow_survivors(make):
+    """``make_pod_train_step`` whose steps over a group smaller than the
+    world sleep ``SLOW_S`` first."""
+    def made(cfg, opt_cfg, group, tcfg):
+        step = make(cfg, opt_cfg, group, tcfg)
+        if dist.get_world_size(group) == WORLD:
+            return step
+
+        def slow(state, batch):
+            time.sleep(SLOW_S)
+            return step(state, batch)
+        return slow
+    return made
+
+
+def outlast_run(ports, ckpt):
+    """The launcher inside a world group made with a ``SHORT_S`` timeout
+    (the ranks first line up in a group with the default one)."""
+    import datetime
+
+    os.environ["MASTER_PORT"] = str(ports[0])
+    dist.init_process_group("gloo", init_method="env://")
+    dist.barrier()
+    dist.destroy_process_group()
+    os.environ["MASTER_PORT"] = str(ports[1])
+    dist.init_process_group("gloo", init_method="env://",
+                            timeout=datetime.timedelta(seconds=SHORT_S))
+    try:
+        ltrain.make_pod_train_step = slow_survivors(TLoop.make_pod_train_step)
+        t0 = time.monotonic()
+        res = ltrain.run(ltrain.parser().parse_args(OUTLAST + ["--checkpoint-dir", ckpt]))
+        res["run_s"] = time.monotonic() - t0
+    except RuntimeError as e:
+        res = {"error": str(e)}
+    finally:
+        ltrain.make_pod_train_step = TLoop.make_pod_train_step
+        dist.destroy_process_group()
+    return res
 
 
 def elastic_rank(rank, ports, work_dir):
@@ -445,6 +492,7 @@ def elastic_rank(rank, ports, work_dir):
         except ValueError as e:
             res = {"error": str(e)}
         out[name] = {**res, "torn_down": not dist.is_initialized()}
+    out["outlast"] = outlast_run(ports[3:], os.path.join(work_dir, "outlast"))
     with open(os.path.join(work_dir, f"{rank}.pkl"), "wb") as f:
         pickle.dump(out, f)
 
@@ -473,7 +521,7 @@ def replay(cfg, opt_cfg, state, first_batch, n, batch, seq):
 
 
 def test_four_gloo_ranks_fail_restore_and_rebuild(tmp_path):
-    ctx = mp.start_processes(elastic_rank, args=(free_ports(3), str(tmp_path)),
+    ctx = mp.start_processes(elastic_rank, args=(free_ports(5), str(tmp_path)),
                              nprocs=WORLD, join=False, start_method="spawn")
     deadline = time.monotonic() + JOIN_LIMIT_S
     try:
@@ -531,3 +579,15 @@ def test_four_gloo_ranks_fail_restore_and_rebuild(tmp_path):
     for g in got:
         assert g["uneven"] == {"error": "--batch 8 does not divide over the 3 surviving ranks",
                                "torn_down": True}
+
+    # the survivors outlast the world group's timeout: the failed rank,
+    # which takes no part in their collectives, leaves after the rebuild
+    outlast = [g["outlast"] for g in got]
+    for res in outlast:
+        assert "error" not in res, res["error"]
+        assert res["restarts"] == [{"step": 4, "failed_rank": 3, "restored_step": 4,
+                                    "survivors": 3}]
+    assert len(outlast[3]["losses"]) == 4 and outlast[3]["run_s"] < SHORT_S
+    for res in outlast[:3]:
+        assert len(res["losses"]) == 8 and res["run_s"] > 4 * SLOW_S > SHORT_S
+        assert np.isfinite(res["losses"]).all()

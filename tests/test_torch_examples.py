@@ -117,8 +117,10 @@ def test_quickstart_trains_and_simulates(capsys):
 
 def test_train_lm_saves_async_and_the_loss_falls(tmp_path):
     """The small preset, 100 steps of batch 2 x 16: the async checkpoint at
-    step 100 restores into a fresh state of the same model, and the mean of
-    the last ten losses is at least 0.25 below that of the first ten."""
+    step 100 is in the reference's layout, so the reference's manager
+    restores it into the reference's training state and the port's through
+    the bridge, and the mean of the last ten losses is at least 0.25 below
+    that of the first ten."""
     losses = example("train_lm").main(["--device", "cpu", "--steps", "100", "--batch", "2",
                                        "--seq", "16", "--checkpoint-dir", str(tmp_path)])
     assert np.mean(losses[:10]) - np.mean(losses[-10:]) >= 0.25
@@ -127,8 +129,20 @@ def test_train_lm_saves_async_and_the_loss_falls(tmp_path):
     cfg = reduced(get_config("countdown-100m"), n_layers=4, d_model=256, n_heads=8,
                   n_kv_heads=4, d_ff=1024, vocab=4096)
     skel = init_state(cfg, OptConfig(), torch.Generator().manual_seed(1), "cpu")
-    state = mgr.load(100, skel)
+    tree = mgr.load(100, bridge.state_to_numpy(cfg, skel))
+    state = bridge.state_from_numpy(cfg, tree, "cpu")
     assert int(state["opt"]["step"]) == 100
+
+    from repro.dist.checkpoint import CheckpointManager as JCheckpointManager
+    from repro.train.loop import init_state as jinit_state
+    from repro.train.optimizer import OptConfig as JOptConfig
+
+    jcfg = jreduced(jget_config("countdown-100m"), n_layers=4, d_model=256, n_heads=8,
+                    n_kv_heads=4, d_ff=1024, vocab=4096)
+    jstate = JCheckpointManager(str(tmp_path)).load(
+        100, jinit_state(jcfg, JOptConfig(), jax.random.PRNGKey(1)))
+    for got, want in zip(jax.tree.leaves(jstate), jax.tree.leaves(tree)):
+        np.testing.assert_array_equal(np.asarray(got), want)
 
 
 def test_serve_decode_generates_and_serves():
