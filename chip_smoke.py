@@ -213,8 +213,23 @@ Builds the hand-written kernels from the five sources in this checkout (one
    paged kernel, flash and RMSNorm), ``torch_cluster_budget.py`` (the
    arbiter wins; host only) and ``torch_energy_aware_training.py`` (an
    NCCL world of 1, two instrumented collectives a step, no kernel).
+23. **the serving fleet**: the serve launcher's ``main`` with ``--fleet
+   2`` on full-width llama3.2-1b (fp32 params, bf16 compute, random
+   weights from seed 0), 8 slots, page 16, through the kernels: two
+   engines on one copy of the weights, each with its own pool and prefix
+   cache, stepped in turn behind the prefix-aware router on the wall
+   clock, on the flash-crowd trace (3 s) and the session-reuse trace (8
+   sessions of 4 turns).  Exact launches, no plain attention, every
+   request finished, no pool storage shared, prefix routing and hits on
+   session reuse; each request's tokens against one engine alone (the
+   first parting step and both top-2 margins logged where they part),
+   and the fleet teacher-forced with the single engine's tokens, every
+   draw's logits at the bf16 bar (3e-2).  Then ``--fleet 2 --autoscale``
+   twice (the virtual-clock ``FleetSim``): equal results, no kernel, no
+   weight.  The arbiter's watts are logged as modelled
+   (``core.pstate.DEFAULT_HW``), beside the card's name and power limit.
 
-In phases 1b, 2, 5, 8, 11, 13-16 and 18-22 every kernel count is set to 0 just
+In phases 1b, 2, 5, 8, 11, 13-16 and 18-23 every kernel count is set to 0 just
 before the run and read just after; each must equal the launches the path
 needs (RMSNorm once per norm a join and a step where the norm is RMSNorm,
 none for LayerNorm and the nonparametric norm: 2 a layer with an MLP, 1
@@ -235,6 +250,8 @@ from __future__ import annotations
 
 import argparse
 import copy
+import dataclasses
+import gc
 import json
 import os
 import subprocess
@@ -1959,8 +1976,9 @@ def prefix_stream(vocab, rng, prefix_len=PREFIX_LEN, groups=PREFIX_GROUPS,
 def teacher_forced(torch, base):
     """``base`` (a ``ContinuousEngine`` class) feeding request ``i`` of
     ``order`` (rid -> i) the tokens ``script[i]`` in place of its own draws
-    and keeping the logits of every such draw on the device by (i, n);
-    other requests draw as ``base`` draws."""
+    (its own draws when ``script`` is None) and keeping the logits of every
+    such draw on the device by (i, n); other requests draw as ``base``
+    draws."""
 
     class TeacherForced(base):
         order, script, draws = {}, None, None
@@ -1971,7 +1989,8 @@ def teacher_forced(torch, base):
                 i, n = self.order.get(req.rid), req.n_generated
                 if i is not None:
                     self.draws[i, n] = logits[slot].float()
-                    tok[slot] = int(self.script[i][n])
+                    if self.script is not None:
+                        tok[slot] = int(self.script[i][n])
             return tok
 
     return TeacherForced
@@ -2492,6 +2511,187 @@ def phase_examples(torch, mods, card):
         f"collectives, {energy_s:.3f} s, no kernel")
 
 
+# --------------------------------------------------------------------------
+# phase 23: the serving fleet
+# --------------------------------------------------------------------------
+
+FLEET_ARGV = ["--arch", "llama3.2-1b", "--fleet", "2", "--slots", "8", "--page-size", "16",
+              "--attn-kernel", "cuda", "--seed", "0"]
+FLEET_TRACES = {"flash-crowd": ["--fleet-trace", "flash-crowd", "--fleet-duration", "3"],
+                "session-reuse": ["--fleet-trace", "session-reuse"]}
+
+
+def storages(eng) -> set:
+    return {t.untyped_storage().data_ptr() for layer in eng.pool.blocks["layers"]
+            for t in layer.values()}
+
+
+def check_fleet_launches(engines, counts) -> None:
+    """Every replica on the kernels, and the exact launches of their joins
+    and steps, the warm-ups' included: flash once an attention layer a
+    prefill (none for a prefix hit), the paged kernel once an attention
+    layer a step (forced steps included), RMSNorm once a norm a prefill
+    and a step."""
+    require(all(e.attn_kernel == "cuda" for e in engines), [e.attn_kernel for e in engines])
+    cfg = engines[0].cfg
+    n_attn = cfg.layer_kinds().count("attn")
+    joins = sum(e.n_joins for e in engines)
+    steps = sum(e.n_decode_steps for e in engines)
+    want = dict(paged_attention_scatter=steps * n_attn, paged_attention=0, paged_scatter=0,
+                flash_attention=joins * n_attn, rmsnorm=(joins + steps) * (2 * cfg.n_layers + 1),
+                ssd_scan=0, rglru_scan=0)
+    require(counts == want, f"fleet launches {counts}, want {want}")
+    require(all(counts[k] > 0 for k in ("paged_attention_scatter", "flash_attention",
+                                        "rmsnorm")), counts)
+
+
+def fleet_alone(torch, cfg, params, reqs, max_len):
+    """The fleet's requests, in trace order, served by one engine alone
+    (8 slots, page 16, the kernels, no prefix cache), all at t 0, each
+    draw's logits kept by (request, token): the requests carry no key, so
+    every draw is the argmax.  Returns (tokens, logits)."""
+    from repro_torch.serve.engine import ContinuousEngine
+    from repro_torch.serve.scheduler import Request
+
+    eng = teacher_forced(torch, ContinuousEngine)(
+        cfg, params, n_slots=8, max_len=max_len, page=16, temperature=1.0,
+        attn_kernel="cuda", device="cuda")
+    alone = [Request(prompt=r.prompt, max_new=r.max_new, arrival=0.0) for r in reqs]
+    eng.order, eng.draws = {r.rid: i for i, r in enumerate(alone)}, {}
+    eng.serve(alone)
+    return [list(r.out) for r in alone], eng.draws
+
+
+def fleet_forced(torch, mods, res, objs, script):
+    """The same fleet again (two engines on the same weights, their prefix
+    caches, the reference's warm-up), each request fed ``script``'s tokens
+    in place of its own draws; returns every draw's logits by (request,
+    token) and the run's launches."""
+    from repro_torch.core.governor import Governor
+    from repro_torch.models.inputs import make_batch
+    from repro_torch.serve.engine import ContinuousEngine
+    from repro_torch.serve.fleet import run_engine_fleet
+
+    first = objs["engines"][0]
+    cls = teacher_forced(torch, ContinuousEngine)
+    engines = []
+    reqs = objs["trace"].fresh_requests()
+    reset(mods)                         # the engines' counts include their warm-ups
+    for _ in objs["engines"]:
+        eng = cls(first.cfg, objs["params"], n_slots=first.n_slots, max_len=first.max_len,
+                  page=first.page, temperature=1.0, attn_kernel="cuda",
+                  device="cuda")
+        eng.enable_prefix_cache()
+        eng.generate(make_batch(first.cfg, batch=1, seq_len=len(reqs[0].prompt),
+                                kind="prefill"), n_steps=2)
+        eng.order, eng.script, eng.draws = {r.rid: i for i, r in enumerate(reqs)}, script, {}
+        engines.append(eng)
+    run_engine_fleet(engines, reqs, cap_w=res["cap_w"], floor_w=4.0,
+                     governors=[Governor() for _ in engines])
+    counts = counts_of(mods)
+    check_fleet_launches(engines, counts)
+    require([list(r.out) for r in reqs] == script, "the forced fleet's tokens are the script")
+    draws = {}
+    for eng in engines:
+        draws.update(eng.draws)
+    return draws, counts
+
+
+def phase_fleet(torch, mods, card):
+    """The real fleet through the serve launcher's ``main``: full-width
+    llama3.2-1b (fp32 params, bf16 compute), ``--fleet 2``, 8 slots, page
+    16, through the kernels, on the flash-crowd trace (3 s of arrivals)
+    and on the session-reuse trace (8 sessions of 4 turns).  Each run:
+    exact launches, no plain attention, every request finished, the two
+    replicas on one copy of the weights and no pool storage shared; the
+    session-reuse run routes to a resident prefix and hits.  Each request's
+    tokens are held to one engine alone on the same weights; where they
+    part, the first parting step and both runs' top-2 logit margins there
+    are logged.  Either way the fleet is run once more teacher-forced with
+    the single engine's tokens, and every draw's logits are held to the
+    single engine's at the bf16 bar (3e-2).  Then ``--fleet 2
+    --autoscale`` twice on one trace: the same result, no kernel launched,
+    no weight built.  Logged per run: routed and prefix-routed counts,
+    hits and lookups, each replica's decode-step p50, tok/s, wall and
+    warm-up seconds, the card's memory peak and the modelled watts
+    (``core.pstate.DEFAULT_HW``, not the card's) beside the card."""
+    from repro_torch.launch import serve
+
+    summary = {}
+    for name, flags in FLEET_TRACES.items():
+        t_phase = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        reset(mods)
+        res = serve.main(FLEET_ARGV + flags)
+        counts = counts_of(mods)
+        peak = torch.cuda.max_memory_allocated()
+        objs = res.pop("objects")
+        engines, reqs = objs["engines"], objs["requests"]
+        cfg = engines[0].cfg
+        require((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.vocab)
+                == LLAMA_DIMS, cfg)
+        check_fleet_launches(engines, counts)
+        require(res["requests"] == res["n_requests"] == len(reqs) == len(objs["finished"]) > 0,
+                res)
+        for r in reqs:
+            require(len(r.out) == r.max_new and all(0 <= t < cfg.vocab for t in r.out), r.rid)
+        require(all(e.params is objs["params"] for e in engines), "one copy of the weights")
+        require(not storages(engines[0]) & storages(engines[1]), "replicas share a pool")
+        if name == "session-reuse":
+            require(res["prefix_routed"] > 0 and res["prefix_hits"] > 0, res)
+        fleet = [list(r.out) for r in reqs]
+        alone, alone_draws = fleet_alone(torch, cfg, objs["params"], reqs, engines[0].max_len)
+        parted = {i: next(k for k, (a, b) in enumerate(zip(f, s)) if a != b)
+                  for i, (f, s) in enumerate(zip(fleet, alone)) if f != s}
+        forced, forced_counts = fleet_forced(torch, mods, res, objs, alone)
+        require(set(forced) == set(alone_draws) == {(i, n) for i, o in enumerate(alone)
+                                                    for n in range(len(o))}, "the draws")
+        err = 0.0
+        for key in alone_draws:
+            torch.testing.assert_close(forced[key], alone_draws[key], **BF16_TOL)
+            err = max(err, float((forced[key] - alone_draws[key]).abs().max()))
+        margins = {i: dict(step=k, fleet_top2=top2_margin(torch, forced[i, k]),
+                           alone_top2=top2_margin(torch, alone_draws[i, k]))
+                   for i, k in parted.items()}
+        wall = time.perf_counter() - t_phase
+        log(f"fleet llama3.2-1b {name}: {res['requests']} requests, {res['tokens']} tokens, "
+            f"routed {res['routed']}, prefix-routed {res['prefix_routed']}, prefix hits "
+            f"{res['prefix_hits']} of {res['prefix_lookups']} lookups (2 warm-ups included), "
+            f"wall {res['wall_s']:.3f} s, {res['tok_per_s']:.2f} tok/s, warm-up "
+            f"{res['warmup_s']:.3f} s, card memory peak {peak / 2**30:.3f} GiB; per replica "
+            + json.dumps(res["per_replica"]) + f"; launches {json.dumps(counts)}")
+        log(f"fleet llama3.2-1b {name}: tokens equal one engine alone for "
+            f"{len(reqs) - len(parted)} of {len(reqs)} requests; parted (request: first "
+            f"step, top-2 logit margins fleet/alone there) {json.dumps(margins)}; the fleet "
+            f"teacher-forced with the single engine's tokens: max_abs_err {err:.4g} over "
+            f"{len(alone_draws)} draws (atol/rtol 3e-2), launches {json.dumps(forced_counts)}")
+        log(f"fleet llama3.2-1b {name}: MODELLED watts (core.pstate.DEFAULT_HW, a CPU-node "
+            f"model, not the card's): cap {res['cap_w']} W, last grants "
+            f"{json.dumps(res['grants_w'])} over {res['arbiter_epochs']} epochs; the card: "
+            f"{card}; the phase's run {wall:.3f} s")
+        summary[name] = dict(parted=len(parted), forced_err=err, counts=counts)
+        del engines, objs, forced, alone_draws
+        gc.collect()            # an engine and its last session refer to each other
+        torch.cuda.empty_cache()
+
+    sims = []
+    for _ in range(2):
+        before = torch.cuda.memory_allocated()
+        reset(mods)
+        res = serve.main(FLEET_ARGV + ["--autoscale"] + FLEET_TRACES["flash-crowd"])
+        require(counts_of(mods) == dict.fromkeys(KERNELS, 0), "the sim fleet launched kernels")
+        require(torch.cuda.memory_allocated() == before, "the sim fleet built weights")
+        objs = res.pop("objects")
+        require(res["requests"] == res["n_requests"] > 0 and res["watts"].startswith("modelled"),
+                res)
+        sims.append((res, dataclasses.asdict(objs["result"]),
+                     [d.replica_id for d in objs["sim"].router.decisions]))
+    require(sims[0] == sims[1], "two autoscaled sim runs differ")
+    log(f"fleet sim llama3.2-1b flash-crowd --autoscale, twice, equal: " + json.dumps(sims[0][0])
+        + f" (watts MODELLED, core.pstate.DEFAULT_HW; host only, no kernel; the card: {card})")
+    return summary
+
+
 def _to(tree, torch, device, copy=False):
     """``tree``'s tensors on ``device`` (copies, with ``copy``, even where
     they are there already)."""
@@ -2611,13 +2811,17 @@ def main() -> int:
     phase_checkpoint(torch, mods, card)
     torch.cuda.empty_cache()
     phase_examples(torch, mods, card)
+    torch.cuda.empty_cache()
+    fleet = phase_fleet(torch, mods, card)
     log("launches on the llama3.2-1b path " + json.dumps(llama_counts)
         + "; under --theta predictive " + json.dumps(predictive_counts)
         + "; with the prefix cache (warm, greedy) " + json.dumps(prefix_counts)
         + "; on the recurrentgemma-2b path " + json.dumps(rg_counts)
         + "; on the mamba2-130m path " + json.dumps(mamba_counts)
         + "; on the granite-moe-3b-a800m path " + json.dumps(granite_counts)
-        + "; on the kernels.ops path " + json.dumps(ops_counts))
+        + "; on the kernels.ops path " + json.dumps(ops_counts)
+        + "; on the fleet's (flash crowd, session reuse) "
+        + json.dumps({name: run["counts"] for name, run in fleet.items()}))
     log("launches on the other families' paths " + json.dumps(family_counts))
     print(card)
     print(json.dumps({"kernels": [dict(

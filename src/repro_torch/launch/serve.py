@@ -1,5 +1,6 @@
-"""Serving entry point of the port: static batch or continuous batching,
-with the governor's report and the reference's telemetry outputs.
+"""Serving entry point of the port: static batch, continuous batching or a
+replica fleet, with the governor's report and the reference's telemetry
+outputs.
 
   # on the card, through the hand-written kernels (the default there)
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \\
@@ -52,14 +53,29 @@ with the governor's report and the reference's telemetry outputs.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \\
       --reduced --batch 4 --prompt-len 32 --steps 16 --device cpu
 
-The static and continuous modes of ``repro.launch.serve`` are ported, with
-the continuous mode's ``--trace-out``, ``--perfetto-out``,
+  # replica fleet on the card: N real engines sharing one copy of the
+  # weights behind the prefix-aware router, watt arbitration per epoch
+  # (wall clock); add --autoscale for the deterministic virtual-clock
+  # fleet with SLO-driven membership (no model, host only)
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \\
+      --fleet 2 --fleet-trace flash-crowd --fleet-duration 3 \\
+      [--autoscale] [--metrics-out fleet.jsonl]
+
+  # the same on the CPU, at a reduced size
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \\
+      --reduced --device cpu --fleet 2 --fleet-trace flash-crowd \\
+      --fleet-duration 3 [--autoscale] [--metrics-out fleet.jsonl]
+
+The static, continuous and fleet modes of ``repro.launch.serve`` are
+ported, with the continuous mode's ``--trace-out``, ``--perfetto-out``,
 ``--metrics-out``, ``--dashboard``, ``--power-cap``, ``--tpot-target`` and
-``--ingest``.  The fleet flags and ``--model-parallel`` are parsed with the
-reference's defaults and refused when set: they wait for later slices
-(ROADMAP.md, queue 1).  ``--power-cap`` reports the watts of
+``--ingest``.  ``--model-parallel`` is parsed with the reference's default
+and refused when set: it waits for sharding (ROADMAP.md, queue 1, item 4).
+``--power-cap`` and the fleet's watts are those of
 ``core.pstate.DEFAULT_HW``'s CPU-node model, not the card's draw; the
-result says so.  ``--n-layers`` is the port's own: it cuts the
+result says so.  The fleet's traces draw tokens below ``min(1000,
+vocab)``: the reference's draw below 1000 whatever the vocabulary
+(``fleet_trace``).  ``--n-layers`` is the port's own: it cuts the
 depth and keeps every width.  Weights are random, drawn from ``--seed``.  Tokens
 are drawn at ``--temperature`` (0.8 by default, as the reference's) with
 the reference's ``jax.random`` keys and draws (``repro_torch.jrandom``); the
@@ -99,11 +115,10 @@ log = obslog.get_logger("serve")
 # ROADMAP item each waits for
 WAITING = {
     "model_parallel": (1, "queue 1, item 4 (sharding)"),
-    "fleet": (0, "queue 1, item 1 (the fleet)"),
-    "autoscale": (False, "queue 1, item 1 (the fleet)"),
-    "fleet_trace": ("flash-crowd", "queue 1, item 1 (the fleet)"),
-    "fleet_duration": (10.0, "queue 1, item 1 (the fleet)"),
 }
+# the label of every watt figure in a result: the cluster layer's watts come
+# from core.pstate.DEFAULT_HW, a CPU-node model from the paper
+MODELLED = "modelled (core.pstate.DEFAULT_HW), not the card's"
 
 
 def _make_requests(args, cfg) -> List[Request]:
@@ -144,9 +159,8 @@ def prefix_embeds(rng: np.random.Generator, cfg) -> Optional[np.ndarray]:
     return rng.normal(0, 0.02, size=(cfg.n_prefix, cfg.d_model)).astype(np.float32)
 
 
-def _model(args):
-    """(device, config, random weights from ``--seed``) for the run."""
-    device = resolve_device(args.device)
+def _config(args):
+    """The run's arch config, cut and quantised as the flags say."""
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduced(cfg)
@@ -154,6 +168,13 @@ def _model(args):
         cfg = dataclasses.replace(cfg, n_layers=args.n_layers)
     if args.kv_int8:
         cfg = dataclasses.replace(cfg, kv_quant=True)
+    return cfg
+
+
+def _model(args):
+    """(device, config, random weights from ``--seed``) for the run."""
+    device = resolve_device(args.device)
+    cfg = _config(args)
     params = init_params(cfg, torch.Generator(device=device).manual_seed(args.seed), device)
     return device, cfg, params
 
@@ -290,7 +311,7 @@ def run_continuous(args, subscribers: Sequence[Any] = ()) -> Dict[str, Any]:
         er = tenant.run_epoch(args.power_cap, stats=stats)
         # the tenant's watts come from core.pstate.DEFAULT_HW, a CPU-node
         # model from the paper, and are not the card's draw
-        outputs["power"] = {"watts": "modelled (core.pstate.DEFAULT_HW), not the card's",
+        outputs["power"] = {"watts": MODELLED,
                             **dataclasses.asdict(er), "fill": tenant.fill_fraction}
     if writer is not None:
         writer.write()
@@ -327,6 +348,162 @@ def run_continuous(args, subscribers: Sequence[Any] = ()) -> Dict[str, Any]:
     }
 
 
+def fleet_trace(args, cfg):
+    """The reference's ``_fleet_trace`` with the arch's vocabulary passed:
+    tokens are drawn below ``min(1000, cfg.vocab)``.  The reference's draw
+    below 1000 whatever the vocabulary, so on a reduced config (512) its
+    prompts index past the embedding table; for a full-size arch (2048 and
+    more) the trace is the reference's."""
+    from repro_torch.serve.fleet import diurnal_trace, flash_crowd_trace, session_reuse_trace
+
+    vocab = min(1000, cfg.vocab)
+    if args.fleet_trace == "diurnal":
+        return diurnal_trace(duration_s=args.fleet_duration, vocab=vocab, seed=args.seed)
+    if args.fleet_trace == "session-reuse":
+        return session_reuse_trace(vocab=vocab, seed=args.seed)
+    return flash_crowd_trace(duration_s=args.fleet_duration, vocab=vocab, seed=args.seed)
+
+
+def _fleet_metrics_out(args, fill_registry) -> Dict[str, Any]:
+    """Export fleet metrics (and validate-able snapshots) if asked; returns
+    the output paths and counts for the result."""
+    if not (args.metrics_out or args.dashboard):
+        return {}
+    from repro_torch.obs.export import ConsoleDashboard, MetricsJsonlWriter
+    from repro_torch.obs.metrics import MetricsRegistry
+
+    registry = MetricsRegistry()
+    fill_registry(registry)
+    outputs: Dict[str, Any] = {}
+    if args.metrics_out:
+        with MetricsJsonlWriter(args.metrics_out, registry) as writer:
+            writer.write()
+        outputs.update(metrics_out=args.metrics_out, metrics_lines=writer.n_lines)
+    if args.dashboard:
+        # the watt rows are the arbiter's modelled grants, not the card's
+        dash = ConsoleDashboard(registry, title=f"fleet {args.arch} (power: {MODELLED})")
+        dash.tick()
+        outputs["dashboard_frames"] = dash.n_renders
+    return outputs
+
+
+def run_fleet_sim(args) -> Dict[str, Any]:
+    """Deterministic virtual-clock fleet: membership changes allowed, so
+    this is the ``--autoscale`` path (spawning a real engine mid-run would
+    rebuild it; the sim replica warms up in ``warmup_s`` of virtual time).
+    Runs no model and builds no weights: host only.  Returns the
+    reference's ``fleet_done`` numbers, with the sim, its result and the
+    trace under ``"objects"``."""
+    from repro_torch.serve.fleet import FleetConfig, FleetSim
+
+    cfg = _config(args)
+    cap_w = args.power_cap if args.power_cap > 0 else 40.0
+    fc = FleetConfig(cfg=cfg, n_replicas=args.fleet, autoscale=args.autoscale,
+                     min_replicas=1, n_slots=args.slots, cap_w=cap_w, floor_w=4.0,
+                     step_s=0.01, ttft_target=1.5)
+    sim = FleetSim(fc)
+    trace = fleet_trace(args, cfg)
+    res = sim.run(trace)
+    outputs = _fleet_metrics_out(args, sim.export_metrics)
+    return {
+        "mode": "fleet_sim", "arch": cfg.name, "n_layers": cfg.n_layers,
+        "device": "none (virtual clock, no model)", "trace": trace.name,
+        "autoscaled": args.autoscale, "requests": res.n_completed,
+        "n_requests": res.n_requests, "tokens": res.tokens_out,
+        "watts": MODELLED, "joules_per_token": res.joules_per_token,
+        "ttft_attainment": res.ttft_attainment, "prefix_hit_rate": res.prefix_hit_rate,
+        "peak_replicas": res.n_replicas_peak, "scale_ups": res.n_scale_ups,
+        "scale_downs": res.n_scale_downs, "cap_w": res.cap_w,
+        "max_alloc_sum_w": res.max_alloc_sum_w, **outputs,
+        "objects": {"sim": sim, "result": res, "trace": trace},
+    }
+
+
+def run_fleet_real(args) -> Dict[str, Any]:
+    """N real engines behind the router on the wall clock: fixed
+    membership, per-epoch watt arbitration from each replica's governor.
+    Every engine reads the same weight tensors (one copy on the device)
+    and has its own pool, prefix cache, governor and SLO tracker; each
+    gets the reference's warm-up generate (which also builds the kernels
+    on first use).  Returns the reference's ``fleet_done`` numbers, each
+    replica's decode-step p50 and decode path, with the engines, sessions,
+    router, arbiter, the requests in trace order and in the order they
+    finished, the trace and the weights under ``"objects"``."""
+    from repro_torch.serve.fleet import run_engine_fleet
+
+    device, cfg, params = _model(args)
+    trace = fleet_trace(args, cfg)
+    reqs = trace.fresh_requests()
+    longest = max(len(r.prompt) + r.max_new for r in reqs)
+    max_len = longest + args.page_size
+    max_len += (-max_len) % args.page_size
+    cap_w = args.power_cap if args.power_cap > 0 else 40.0
+
+    if args.ingest == "batched":
+        from repro_torch.core import instrument
+
+        instrument.set_ingest_mode("batched")
+    engines, governors, slos = [], [], []
+    t0 = time.time()
+    for _ in range(args.fleet):
+        eng = ContinuousEngine(cfg, params, n_slots=args.slots, max_len=max_len,
+                               page=args.page_size, temperature=args.temperature,
+                               attn_kernel=args.attn_kernel, device=device)
+        eng.enable_prefix_cache()
+        warm = make_batch(cfg, batch=1, seq_len=len(reqs[0].prompt), kind="prefill")
+        eng.generate(warm, n_steps=2)
+        engines.append(eng)
+        governors.append(Governor(policy=policy_for_theta(args.theta)))
+        slos.append(SLOTracker())
+    t_warm = time.time() - t0
+
+    t0 = time.time()
+    finished, router, arbiter, sessions = run_engine_fleet(
+        engines, reqs, cap_w=cap_w, floor_w=4.0, governors=governors, slos=slos)
+    dt = time.time() - t0
+    if args.ingest == "batched":
+        from repro_torch.core import instrument
+
+        instrument.flush_events()
+        instrument.set_ingest_mode("event")
+    n_tok = sum(len(r.out) for r in finished)
+
+    def fill(registry):
+        router.export_metrics(registry)
+        arbiter.export_metrics(registry)
+        # one replica's SLO percentiles as the fleet sample; the registry
+        # families are unlabelled per-run singletons
+        slos[0].export_metrics(registry)
+        registry.gauge("fleet_replicas", "live replicas").set(float(args.fleet))
+        registry.gauge("fleet_prefix_hit_rate",
+                       "prompt tokens served from resident pages").set(
+                           sum(e.prefix_cache.tokens_matched for e in engines)
+                           / max(sum(e.prefix_cache.tokens_looked_up for e in engines), 1))
+
+    outputs = _fleet_metrics_out(args, fill)
+    replicas = [{
+        "attn_kernel": e.attn_kernel, "requests": len(s.finished),
+        "decode_steps": len(s.step_seconds),
+        "step_ms_p50": (float(np.percentile(s.step_seconds, 50)) * 1e3
+                        if s.step_seconds else None),
+        "prefix_hits": e.prefix_cache.n_hits, "prefix_lookups": e.prefix_cache.n_lookups,
+    } for e, s in zip(engines, sessions)]
+    return {
+        "mode": "fleet", "arch": cfg.name, "n_layers": cfg.n_layers, "device": str(device),
+        "temperature": args.temperature, "trace": trace.name, "replicas": args.fleet,
+        "requests": len(finished), "n_requests": len(reqs), "tokens": n_tok,
+        "wall_s": dt, "tok_per_s": n_tok / dt, "warmup_s": t_warm,
+        "routed": len(router.decisions), "prefix_routed": router.n_prefix_routed,
+        "prefix_hits": sum(e.prefix_cache.n_hits for e in engines),
+        "prefix_lookups": sum(e.prefix_cache.n_lookups for e in engines),
+        "watts": MODELLED, "cap_w": cap_w, "grants_w": arbiter.allocations(),
+        "arbiter_epochs": len(arbiter.history), "per_replica": replicas, **outputs,
+        "objects": {"engines": engines, "sessions": sessions, "router": router,
+                    "arbiter": arbiter, "requests": reqs,
+                    "finished": finished, "trace": trace, "params": params},
+    }
+
+
 def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -341,11 +518,20 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--continuous", action="store_true",
                     help="continuous batching over the paged KV pool")
     ap.add_argument("--model-parallel", type=int, default=1)
-    ap.add_argument("--fleet", type=int, default=0)
-    ap.add_argument("--autoscale", action="store_true")
+    ap.add_argument("--fleet", type=int, default=0,
+                    help="run N serving replicas behind the prefix-aware "
+                         "router with per-epoch watt arbitration (real "
+                         "engines on the wall clock; N is the static size, "
+                         "or the autoscale maximum with --autoscale)")
+    ap.add_argument("--autoscale", action="store_true",
+                    help="fleet mode: SLO-driven membership on the "
+                         "deterministic virtual-clock fleet simulator "
+                         "(scale-ups/-downs reprice every replica's watts)")
     ap.add_argument("--fleet-trace", choices=["flash-crowd", "diurnal", "session-reuse"],
-                    default="flash-crowd")
-    ap.add_argument("--fleet-duration", type=float, default=10.0)
+                    default="flash-crowd", help="fleet mode arrival scenario")
+    ap.add_argument("--fleet-duration", type=float, default=10.0,
+                    help="fleet trace duration in seconds (wall-clock for "
+                         "--fleet, virtual for --autoscale)")
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--long-prompt", type=int, default=0,
                     help="add one request with a prompt this long (0: none); it "
@@ -412,7 +598,9 @@ def _refuse_waiting(args) -> None:
 def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     args = parser().parse_args(argv)
     _refuse_waiting(args)
-    if args.continuous:
+    if args.fleet:
+        res = run_fleet_sim(args) if args.autoscale else run_fleet_real(args)
+    elif args.continuous:
         res = run_continuous(args)
     else:
         if (args.theta or args.trace_out or args.power_cap > 0 or args.perfetto_out

@@ -9,8 +9,9 @@
 ``engine``     :class:`ContinuousEngine` (with prefix-cache joins and the
                tracer's join/evict instants), :class:`EngineSession` and
                the legacy :class:`ServeEngine`.
-``fleet``      so far the per-replica :class:`~repro_torch.serve.fleet.
-               prefix.PrefixCache`; the rest of the fleet is a later slice.
+``fleet``      copied: multi-replica serving, the prefix-cache-aware
+               router, SLO autoscaler, watt arbitration, scenarios, the
+               deterministic fleet simulator and the real-engine fleet.
 
 Exports resolve lazily (PEP 562), as the reference's do: importing
 ``repro_torch.serve`` loads no submodule until a symbol is touched, and
@@ -20,8 +21,8 @@ import importlib
 
 # symbol -> defining submodule (the lazy-import table; every name here is
 # importable as `from repro_torch.serve import <name>`).  Not yet here:
-# `make_serve_steps` waits for the dry run (ROADMAP.md, queue 1, item 5),
-# the other fleet names for the fleet (queue 1, item 1).
+# `make_serve_steps`, which waits for the dry run (ROADMAP.md, queue 1,
+# item 5).
 _EXPORTS = {
     "ContinuousEngine": "repro_torch.serve.engine",
     "EngineSession": "repro_torch.serve.engine",
@@ -33,8 +34,20 @@ _EXPORTS = {
     "DecodeSlackMeter": "repro_torch.serve.slack",
     "SLOTracker": "repro_torch.serve.slo",
     # fleet layer
+    "Autoscaler": "repro_torch.serve.fleet.autoscaler",
+    "FleetConfig": "repro_torch.serve.fleet.fleet",
+    "FleetResult": "repro_torch.serve.fleet.fleet",
+    "FleetSim": "repro_torch.serve.fleet.fleet",
+    "run_engine_fleet": "repro_torch.serve.fleet.fleet",
     "PrefixCache": "repro_torch.serve.fleet.prefix",
     "PrefixMatch": "repro_torch.serve.fleet.prefix",
+    "SimReplica": "repro_torch.serve.fleet.replica",
+    "FleetRouter": "repro_torch.serve.fleet.router",
+    "ReplicaView": "repro_torch.serve.fleet.router",
+    "FleetTrace": "repro_torch.serve.fleet.scenarios",
+    "diurnal_trace": "repro_torch.serve.fleet.scenarios",
+    "flash_crowd_trace": "repro_torch.serve.fleet.scenarios",
+    "session_reuse_trace": "repro_torch.serve.fleet.scenarios",
 }
 
 _SUBMODULES = ("engine", "fleet", "kvcache", "scheduler", "slack", "slo")

@@ -83,7 +83,9 @@ def test_every_module_imports_with_jax_and_repro_blocked():
                   "configs.mixtral_8x22b", "configs.internvl2_1b", "configs.musicgen_large",
                   "obs", "obs.metrics", "obs.tracer", "obs.export", "cluster", "cluster.power",
                   "cluster.arbiter", "cluster.job", "cluster.trace", "cluster.coschedule",
-                  "serve.fleet", "serve.fleet.prefix", "dist.checkpoint", "dist.elastic"):
+                  "serve.fleet", "serve.fleet.prefix", "dist.checkpoint", "dist.elastic",
+                  "serve.fleet.router", "serve.fleet.scenarios", "serve.fleet.autoscaler",
+                  "serve.fleet.replica", "serve.fleet.fleet"):
             assert "repro_torch." + n in names, n
         examples = sorted(glob.glob(os.path.join(EXAMPLES, "torch_*.py")))
         assert len(examples) == 5, examples
@@ -91,6 +93,7 @@ def test_every_module_imports_with_jax_and_repro_blocked():
             spec = importlib.util.spec_from_file_location(os.path.basename(path)[:-3], path)
             spec.loader.exec_module(importlib.util.module_from_spec(spec))
         from repro_torch.serve import ContinuousEngine, PrefixCache  # noqa: F401
+        from repro_torch.serve import FleetSim, run_engine_fleet  # noqa: F401
         from repro_torch.models import init_params  # noqa: F401
         from repro_torch.dist import CheckpointManager, ElasticMesh  # noqa: F401
         bad = [k for k in sys.modules if k.split(".")[0] in ("jax", "jaxlib", "repro")]

@@ -455,17 +455,15 @@ def test_launcher_runs_make_train_step_on_the_reference_defaults():
 
 
 @pytest.mark.parametrize("flag", [["--model-parallel", "2"],
-                                  ["serve", "--model-parallel", "2"], ["serve", "--fleet", "2"],
-                                  ["serve", "--autoscale"], ["serve", "--fleet-trace", "diurnal"],
-                                  ["serve", "--fleet-duration", "3"]])
+                                  ["serve", "--model-parallel", "2"]])
 def test_launcher_refuses_the_flags_that_wait(flag):
-    """The train launcher's model-parallel flag, and the serve launcher's
-    model-parallel and fleet flags (a leading ``"serve"``), are refused
-    naming their ROADMAP item: 4 for sharding, 1 for the fleet."""
+    """The train launcher's and the serve launcher's (a leading
+    ``"serve"``) model-parallel flag is refused naming its ROADMAP item, 4
+    for sharding."""
     from repro_torch.launch import serve as lserve
 
     main, argv = (lserve.main, flag[1:]) if flag[0] == "serve" else (ltrain.main, flag)
-    item = "4 (sharding" if "--model-parallel" in flag else "1 (the fleet)"
+    item = "4 (sharding"
     with pytest.raises(SystemExit, match=r"not ported to repro_torch yet \(ROADMAP.md, queue 1, "
                                          r"item " + re.escape(item)):
         main(["--reduced", "--steps", "1", "--device", "cpu"] + argv)
