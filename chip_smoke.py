@@ -228,8 +228,25 @@ Builds the hand-written kernels from the five sources in this checkout (one
    twice (the virtual-clock ``FleetSim``): equal results, no kernel, no
    weight.  The arbiter's watts are logged as modelled
    (``core.pstate.DEFAULT_HW``), beside the card's name and power limit.
+24. **sharding inside a pod, on one card**: the three kernels of
+   tensor-parallel llama3.2-1b serving at the per-rank shapes of model
+   degree 2, 4 and 8 (the paged step at B 8, Hkv 4/2/1, G 4, D 64, bf16
+   pages under an fp32 query; flash at S 128 with Hq 16/8/4 and Hkv
+   4/2/1; RMSNorm at 8 and 128 rows of 2048, whole on every rank), each
+   held to its plain version and timed beside it, its bound and its
+   library call; then full-width llama3.2-1b (fp32 params, bf16 compute,
+   random weights from seed 0) served greedy, 8 requests of 128-token
+   prompts and 16 new tokens, 8 slots, page 16, by the plain-tensor
+   engine and by the sharded code path on a (1, 1) NCCL ``DeviceMesh``
+   (weights on ``serve_param_shardings``, pool on
+   ``page_pool_shardings``, the activation hooks installed: every leaf a
+   DTensor, the kernels run on local shards): exact launches, equal to the
+   plain engine's, tokens equal per request, both decode-step p50s
+   logged.  Two ranks sharing the one card are not run: NCCL refuses two
+   ranks on one device, and under gloo DTensor's all-gather of CUDA
+   tensors crashed its process (PERF.md, section 7).
 
-In phases 1b, 2, 5, 8, 11, 13-16 and 18-23 every kernel count is set to 0 just
+In phases 1b, 2, 5, 8, 11, 13-16 and 18-24 every kernel count is set to 0 just
 before the run and read just after; each must equal the launches the path
 needs (RMSNorm once per norm a join and a step where the norm is RMSNorm,
 none for LayerNorm and the nonparametric norm: 2 a layer with an MLP, 1
@@ -2692,6 +2709,172 @@ def phase_fleet(torch, mods, card):
     return summary
 
 
+# --------------------------------------------------------------------------
+# phase 24: sharding inside a pod, on one card
+# --------------------------------------------------------------------------
+
+SHARD_DEGREES = (2, 4, 8)        # llama3.2-1b: Hq 32, Hkv 8 split over the model axis
+SHARD_PROMPTS, SHARD_NEW = 8, 16
+
+
+def phase_shard_kernels(torch, mods, card):
+    """The paged step, flash and RMSNorm at each rank's shapes under model
+    degree 2, 4 and 8 of tensor-parallel llama3.2-1b serving, held to their
+    plain versions and timed beside them, their bounds and their library
+    calls.  Returns the records by (kernel, degree)."""
+    import torch.nn.functional as F
+
+    PA, FA, RN = mods["PA"], mods["FA"], mods["RN"]
+    rng = np.random.default_rng(24)
+    records = {}
+    for mp in SHARD_DEGREES:
+        hq, hkv = 32 // mp, 8 // mp
+        case, pos = paged_case(torch, rng, torch.bfloat16, torch.float32, b=8, hkv=hkv, g=4,
+                               d=64, page=16, m=11, pos_lo=128)
+        plain_in = {k: v.clone() for k, v in case.items()}
+        kern_in = {k: v.clone() for k, v in case.items()}
+        want = PA.paged_attention_scatter_plain(**plain_in)
+        got = PA.paged_attention_scatter(**kern_in)
+        err = compare(torch, got, want, BF16_TOL, f"paged per rank, degree {mp}: Hkv {hkv}")
+        ratio = slot_ratio(got, want)
+        require(ratio <= SLOT_REL_TOL, f"paged degree {mp}: slot error {ratio:.3g} of its RMS")
+        for pool in ("k_pages", "v_pages"):
+            require(torch.equal(kern_in[pool][1:], plain_in[pool][1:]), pool)
+        b_ms, b_by = paged_bound(case, pos, 0)
+        records["paged_attention_scatter", mp] = dict(
+            max_abs_err=err, ms=time_ms(torch, lambda: PA.paged_attention_scatter(**kern_in)),
+            plain_ms=time_ms(torch, lambda: PA.paged_attention_scatter_plain(**plain_in)),
+            bound_ms=b_ms, bound_by=b_by, library_ms=paged_sdpa_ms(torch, case, 0))
+
+        q = randn(torch, rng, 1, hq, 128, 64)                   # fp32, as the path promotes
+        k = randn(torch, rng, 1, hkv, 128, 64)
+        v = randn(torch, rng, 1, hkv, 128, 64)
+        err = compare(torch, FA.flash_attention(q, k, v), FA.flash_attention_plain(q, k, v),
+                      F32_TOL, f"flash per rank, degree {mp}: Hq {hq} Hkv {hkv} S 128")
+        b_ms, b_by = bound(4 * (2 * q.numel() + 2 * k.numel()),
+                           4 * 64 * hq * flash_pairs(128, 0, True))
+        mask = flash_mask(torch, 128, 0, True)
+        records["flash_attention", mp] = dict(
+            max_abs_err=err, ms=time_ms(torch, lambda: FA.flash_attention(q, k, v)),
+            plain_ms=time_ms(torch, lambda: FA.flash_attention_plain(q, k, v)),
+            bound_ms=b_ms, bound_by=b_by,
+            library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask, enable_gqa=True)))
+
+        for rows in (8, 128):                  # the residual is whole on every rank
+            x = randn(torch, rng, rows, 2048, std=2.0)
+            scale = randn(torch, rng, 2048, mean=1.0, std=0.2)
+            err = compare(torch, RN.rmsnorm(x, scale), RN.rmsnorm_plain(x, scale), F32_TOL,
+                          f"rmsnorm per rank, degree {mp}: {rows} x 2048")
+            b_ms, b_by = bound(2 * x.numel() * 4 + scale.numel() * 4, 4 * x.numel())
+            records[f"rmsnorm_{rows}", mp] = dict(
+                max_abs_err=err, ms=time_ms(torch, lambda: RN.rmsnorm(x, scale)),
+                plain_ms=time_ms(torch, lambda: RN.rmsnorm_plain(x, scale)),
+                bound_ms=b_ms, bound_by=b_by,
+                library_ms=time_ms(torch, lambda: F.rms_norm(x, (2048,), scale, 1e-6)))
+    for (name, mp), rec in records.items():
+        log(f"per-rank timing, {name} at model degree {mp}: " + json.dumps(rec)
+            + f" (the card: {card})")
+    return records
+
+
+def shard_prompts(vocab):
+    rng = np.random.default_rng(24)
+    return [rng.integers(0, vocab, 128).astype(np.int32) for _ in range(SHARD_PROMPTS)]
+
+
+def serve_prompts(torch, mods, eng, prompts, mesh=None):
+    """One warm-up generate, then the prompts served greedy from t=0 with
+    the kernel counts set to 0 just before and read just after; returns
+    (tokens per request, counts, joins, decode steps, step p50 ms).  With
+    ``mesh``, the pool goes onto ``page_pool_shardings`` and the activation
+    hooks are installed for the run."""
+    from repro_torch.dist import sharding as SH
+    from repro_torch.models.hooks import install_constraint
+    from repro_torch.serve.scheduler import Request
+
+    if mesh is not None:
+        eng.pool.blocks = SH.distribute(eng.pool.blocks,
+                                        SH.page_pool_shardings(mesh, eng.pool.blocks))
+        install_constraint(SH.activation_constraint_fn(mesh))
+    try:
+        eng.generate({"tokens": prompts[0][None]}, n_steps=2)
+        joins, steps = eng.n_joins, eng.n_decode_steps
+        reset(mods)
+        reqs = [Request(prompt=p, max_new=SHARD_NEW, arrival=0.0) for p in prompts]
+        order = {r.rid: i for i, r in enumerate(reqs)}
+        done = sorted(eng.serve(reqs), key=lambda r: order[r.rid])
+        torch.cuda.synchronize()
+        counts = counts_of(mods)
+    finally:
+        install_constraint(None)
+    p50 = float(np.percentile(eng._last_session.step_seconds, 50)) * 1e3
+    return ([list(r.out) for r in done], counts, eng.n_joins - joins,
+            eng.n_decode_steps - steps, p50)
+
+
+def phase_sharded_serving(torch, mods, card):
+    """Full-width llama3.2-1b served by the plain-tensor engine and by the
+    sharded code path on a one-rank NCCL mesh; launches exact and equal,
+    tokens equal per request."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.configs import get_config
+    from repro_torch.dist import sharding as SH
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serve.engine import ContinuousEngine
+    from repro_torch.tree import leaves
+
+    made = not dist.is_initialized()
+    if made:
+        dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        mesh = SH.replica_mesh(init_device_mesh("cuda", (1, 1),
+                                                mesh_dim_names=("data", "model")))
+        cfg = get_config("llama3.2-1b")
+        params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+        prompts = shard_prompts(cfg.vocab)
+        max_len = 128 + SHARD_NEW + 16
+
+        def engine(p):
+            return ContinuousEngine(cfg, p, n_slots=8, max_len=max_len, page=16,
+                                    temperature=0.0)
+
+        runs = {"plain": serve_prompts(torch, mods, engine(params), prompts)}
+        sharded = SH.distribute(params, SH.serve_param_shardings(mesh, params))
+        require(all(isinstance(t, DTensor) for t in leaves(sharded)), "a leaf is not a DTensor")
+        eng = engine(sharded)
+        require(eng.mesh is mesh, "the engine does not see the mesh")
+        runs["sharded"] = serve_prompts(torch, mods, eng, prompts, mesh)
+        require(all(isinstance(t, DTensor) for t in leaves(eng.pool.blocks)), "the pool")
+        kinds = cfg.layer_kinds()
+        for name, (tokens, counts, joins, steps, p50) in runs.items():
+            want = dict.fromkeys(KERNELS, 0)
+            want.update(paged_attention_scatter=steps * kinds.count("attn"),
+                        flash_attention=joins * kinds.count("attn"),
+                        rmsnorm=(joins + steps) * (2 * len(kinds) + 1))
+            require(joins == SHARD_PROMPTS and counts == want,
+                    f"{name}: {joins} joins, {steps} steps, launches {counts}, want {want}")
+            for i, out in enumerate(tokens):
+                require(len(out) == SHARD_NEW and all(0 <= t < cfg.vocab for t in out), i)
+        (pt, pc, _, psteps, pp50), (st, sc, _, ssteps, sp50) = runs["plain"], runs["sharded"]
+        require(pc == sc and psteps == ssteps, f"launches plain {pc}, sharded {sc}")
+        parted = [i for i, (a, b) in enumerate(zip(pt, st)) if a != b]
+        require(not parted, f"requests {parted} part from the plain engine's tokens")
+        log(f"sharded serving, llama3.2-1b on a (1, 1) NCCL mesh: {SHARD_PROMPTS} requests, "
+            f"{psteps} decode steps, tokens equal to the plain engine's for every request; "
+            f"launches {json.dumps(sc)} (equal); decode step p50 plain {pp50:.3f} ms, "
+            f"sharded {sp50:.3f} ms ({sp50 / pp50:.2f} x); the card: {card}")
+        del eng, sharded, params
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        if made:
+            dist.destroy_process_group()
+
+
 def _to(tree, torch, device, copy=False):
     """``tree``'s tensors on ``device`` (copies, with ``copy``, even where
     they are there already)."""
@@ -2813,6 +2996,9 @@ def main() -> int:
     phase_examples(torch, mods, card)
     torch.cuda.empty_cache()
     fleet = phase_fleet(torch, mods, card)
+    torch.cuda.empty_cache()
+    phase_shard_kernels(torch, mods, card)
+    phase_sharded_serving(torch, mods, card)
     log("launches on the llama3.2-1b path " + json.dumps(llama_counts)
         + "; under --theta predictive " + json.dumps(predictive_counts)
         + "; with the prefix cache (warm, greedy) " + json.dumps(prefix_counts)

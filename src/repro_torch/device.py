@@ -2,6 +2,7 @@
 from __future__ import annotations
 
 import os
+import sys
 from typing import Optional, Union
 
 import torch
@@ -58,3 +59,10 @@ def resolve_kernel(kernel: Optional[str], device: Union[str, torch.device]) -> s
     if kernel not in KERNELS:
         raise ValueError(f"unknown attn_kernel {kernel!r}; expected one of {KERNELS} or None")
     return kernel
+
+
+def is_dtensor(t) -> bool:
+    """Whether ``t`` is a DTensor, without importing DTensor's package (no
+    DTensor exists before something imported it)."""
+    mod = sys.modules.get("torch.distributed.tensor")
+    return mod is not None and isinstance(t, mod.DTensor)

@@ -13,10 +13,15 @@
                  wire-thrifty cross-pod reduction.
 ``straggler``    :class:`StragglerDetector` — turns barrier-arrival events
                  into a per-rank laggard signal (copied).
+``sharding``     partition rules: FSDP/TP parameter shardings (2-d and
+                 zero3), optimizer-state mirrors, batch/cache/page-pool
+                 layouts, tensor-parallel serving rules, activation
+                 constraints; each spec becomes DTensor placements over a
+                 ``DeviceMesh``.
 
-Not yet here: ``sharding`` (ROADMAP.md, queue 1, item 4).  ``compat``
-holds the reference's jax shims and has no counterpart.
+``compat`` holds the reference's jax shims and has no counterpart.
 """
+from repro_torch.dist import sharding  # noqa: F401
 from repro_torch.dist.checkpoint import CheckpointManager  # noqa: F401
 from repro_torch.dist.compression import compressed_psum  # noqa: F401
 from repro_torch.dist.elastic import ElasticMesh, FailureInjector  # noqa: F401

@@ -41,6 +41,8 @@ from typing import Any, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.device import is_dtensor
+
 _STEP_RE = re.compile(r"^step_(\d+)\.npz$")
 
 # numpy-unserializable dtypes -> (the file's unsigned integer of the same
@@ -79,13 +81,27 @@ def unflatten(tree: Any, new_leaves: List[Any]) -> Any:
     return build(tree)
 
 
+def _first_rank(leaves: List[Any]) -> bool:
+    """Whether this rank writes: the first rank of the DTensor leaves'
+    mesh, or any caller of a tree with none."""
+    mesh = next((x.device_mesh for x in leaves if is_dtensor(x)), None)
+    if mesh is None:
+        return True
+    import torch.distributed as dist
+
+    return int(mesh.mesh.flatten()[0]) == dist.get_rank()
+
+
 def _snapshot(leaf, copy: bool) -> Tuple[np.ndarray, str]:
     """(host array to write, dtype name for the table).  With ``copy`` the
     array owns its memory, so the caller may update ``leaf`` in place at
     once: a CPU tensor's ``.numpy()`` and a numpy leaf would otherwise be
-    the live buffer (``.cpu()`` of a card tensor copies anyway)."""
+    the live buffer (``.cpu()`` of a card tensor copies anyway).  A
+    DTensor is gathered to its whole tensor first."""
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach()
+        if is_dtensor(t):
+            t = t.full_tensor()
         name = str(t.dtype).removeprefix("torch.")
         if name in _BITCAST:
             t = t.view(_BITCAST[name][2])
@@ -167,10 +183,16 @@ class CheckpointManager:
         With ``async_save`` the host snapshot is complete when this returns
         (every leaf copied), so the caller may update the tree in place at
         once, as the port's training step does; the write is queued on the
-        background worker.
+        background worker.  DTensor leaves are gathered to whole tensors
+        here, on the calling thread (a collective: every rank of their mesh
+        calls ``save``), never on the writer's; the mesh's first rank
+        writes, the others return.
         """
         async_ = self._pool is not None
-        leaves = [_snapshot(x, copy=async_) for x in flatten(tree)]
+        flat = flatten(tree)
+        leaves = [_snapshot(x, copy=async_) for x in flat]
+        if not _first_rank(flat):
+            return
         if async_:
             self._futures.append(self._pool.submit(self._write, step, leaves))
         else:
@@ -205,16 +227,21 @@ class CheckpointManager:
         self._futures.clear()
 
     # -- restore -----------------------------------------------------------
-    def load(self, step: int, skeleton: Any) -> Any:
+    def load(self, step: int, skeleton: Any, shardings: Any = None) -> Any:
         """Restore the step's leaves into ``skeleton``'s structure.
 
         Each leaf comes back as its skeleton leaf's kind: a torch tensor on
         that tensor's device, or a numpy array.  The leaf count, each shape
         and each dtype must agree with the skeleton's, or this raises.  A
         missing step raises: silently returning the skeleton would hand
-        callers whatever placeholder values it was built from.  The
-        reference's ``shardings`` argument has no counterpart until the
-        port shards a state (ROADMAP.md, queue 1, item 4).
+        callers whatever placeholder values it was built from.
+
+        ``shardings`` (optional) is a tree of
+        :class:`~repro_torch.dist.sharding.NamedSharding` in the skeleton's
+        structure; each restored leaf (a torch skeleton's) is distributed
+        onto its sharding, so an elastic restart restores straight onto the
+        *new* mesh.  Every rank of that mesh reads the file and keeps its
+        own slice (no collective).
         """
         path = self._path(step)
         if not os.path.exists(path):
@@ -231,11 +258,16 @@ class CheckpointManager:
             for i, skel in enumerate(flat):        # one leaf on the host at a time
                 out.append(_restore(z[f"l{i:06d}"], dtypes[i], skel,
                                     f"checkpoint step {step} leaf {i}"))
-        return unflatten(skeleton, out)
+        tree = unflatten(skeleton, out)
+        if shardings is None:
+            return tree
+        from repro_torch.dist.sharding import distribute
 
-    def restore_latest(self, skeleton: Any):
+        return distribute(tree, shardings)
+
+    def restore_latest(self, skeleton: Any, shardings: Any = None):
         """-> (step, tree) for the newest checkpoint on disk."""
         step = self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.directory}")
-        return step, self.load(step, skeleton)
+        return step, self.load(step, skeleton, shardings)

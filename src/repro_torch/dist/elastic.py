@@ -6,14 +6,17 @@ training runs over one process group until a rank fails; the launcher then
 drains in-flight work, marks the rank failed on the :class:`ElasticMesh`,
 restores the latest checkpoint, rebuilds a (smaller) group from the
 survivors and resumes.  Where the reference lays ``jax.devices()`` out as a
-mesh, the port lays out the ranks of the default process group: a rank is
-one device holding the whole model.
+mesh, the port lays out the ranks of the default process group, one device
+a rank, and builds the survivors' ``DeviceMesh`` over them, on which the
+launcher shards the restored state (:mod:`repro_torch.dist.sharding`).
 
-Rebuilding the group calls ``torch.distributed.new_group``, which every
-rank of the default group must call, the failed rank included (an exit
-before it would leave the survivors waiting); after it the failed rank
+Rebuilding the group calls ``torch.distributed.new_group``, and building
+the mesh makes its groups; every rank of the default group calls both, the
+failed rank included (an exit before would leave the survivors waiting).
+The failed rank's mesh holds no coordinate for it (``get_coordinate()`` is
+None) and it takes no part in the mesh's collectives; after the rebuild it
 takes no further step and may leave, since the survivors' collectives run
-over their own group.  Every rank runs the same :class:`FailureInjector`,
+over their own group and mesh.  Every rank runs the same :class:`FailureInjector`,
 so all agree on which rank fails and at which step.
 
 :class:`FailureInjector` is a copy of the reference's, pinned to its text.
@@ -25,21 +28,34 @@ from dataclasses import dataclass
 from typing import Any, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 import torch.distributed as dist
 
 
 @dataclass(frozen=True)
 class RankMesh:
-    """The survivors' process group and the (data, model) layout of their
-    ranks (global ranks, row-major: a row is one model-parallel group)."""
+    """The survivors' process group, the (data, model) layout of their
+    ranks (global ranks, row-major: a row is one model-parallel group) and
+    the ``DeviceMesh`` over that layout."""
 
     group: Any
     layout: np.ndarray
     axis_names: Tuple[str, ...]
+    device_mesh: Any = None
 
     @property
     def ranks(self) -> List[int]:
         return [int(r) for r in self.layout.ravel()]
+
+
+def device_mesh(layout: np.ndarray, axis_names: Sequence[str]):
+    """A ``DeviceMesh`` over the global ranks of ``layout``, on the card
+    under NCCL and on the CPU otherwise (every rank of the default group
+    calls it)."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    return DeviceMesh("cuda" if dist.get_backend() == "nccl" else "cpu",
+                      torch.from_numpy(layout), mesh_dim_names=tuple(axis_names))
 
 
 class ElasticMesh:
@@ -80,7 +96,7 @@ class ElasticMesh:
         mp = max(g for g in range(1, min(model_parallel, n) + 1) if n % g == 0)
         layout = np.asarray(ranks, dtype=np.int64).reshape(n // mp, mp)
         group = dist.group.WORLD if n == dist.get_world_size() else dist.new_group(ranks)
-        return RankMesh(group, layout, self.axis_names)
+        return RankMesh(group, layout, self.axis_names, device_mesh(layout, self.axis_names))
 
 
 class FailureInjector:

@@ -30,6 +30,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.device import is_dtensor
 from repro_torch.kernels import _build
 
 NEG_INF = -1e30
@@ -84,7 +85,19 @@ def flash_attention(q, k, v, *, positions: Optional[torch.Tensor] = None,
     ``causal`` is False and, with ``window`` > 0, sliding-window, by index.
     Returns (B,Hq,S,D) in q's dtype.  CUDA tensors go to the kernel
     (launched on the current stream, not synchronised), CPU tensors to the
-    plain version; anything else raises."""
+    plain version; anything else raises.  DTensor q, k and v run on each
+    rank's local heads when the mesh's ``'model'`` axis divides Hq and Hkv
+    (GQA groups stay whole on a rank), else on all heads; a batch split
+    over the other mesh axes is kept."""
+    if is_dtensor(q):
+        from repro_torch.dist.sharding import local_placements, model_size, on_shards
+
+        mp = model_size(q.device_mesh)
+        heads = 1 if q.shape[1] % mp == 0 and k.shape[1] % mp == 0 else None
+        pl = local_placements(q, model_dim=heads, keep=(0,))
+        fn = functools.partial(flash_attention, positions=positions, window=window,
+                               causal=causal)
+        return on_shards(fn, (q, k, v), (pl, pl, pl), pl)
     if q.dim() != 4:
         _fail(f"q must be (B,Hq,S,D), got {tuple(q.shape)}")
     if positions is not None:

@@ -23,6 +23,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.device import is_dtensor
 from repro_torch.kernels import _build
 
 _KINDS = {torch.float32: 0, torch.bfloat16: 1}
@@ -103,7 +104,14 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Te
     """RMSNorm over the last axis of x (..., D) with scale (D,); returns a new
     tensor of x's shape and dtype.  CUDA tensors go to the kernel (launched
     on the current stream, not synchronised), CPU tensors to the plain
-    version; anything else raises."""
+    version; anything else raises.  A DTensor x is normed on each rank's
+    rows (its last dim whole), as a kernel call on the local shard."""
+    if is_dtensor(x):
+        from repro_torch.dist.sharding import local_placements, on_shards
+
+        pl = local_placements(x, keep=tuple(range(x.dim() - 1)))
+        return on_shards(functools.partial(rmsnorm, eps=eps), (x, scale),
+                         (pl, local_placements(scale)), pl)
     if x.device.type == "cpu":
         return rmsnorm_plain(x, scale, eps)
     _build.refuse_autograd("rmsnorm", "rmsnorm_plain", x, scale)

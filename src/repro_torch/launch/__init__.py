@@ -1,18 +1,21 @@
 """``repro_torch.launch`` — runnable drivers (each is a ``python -m`` entry point).
 
-``train``      training: checkpoint/restart and recovery from injected
-               rank failures over a rebuilt process group.
+``train``      training: the 2-D sharded step over the ranks' mesh,
+               checkpoint/restart and recovery from injected rank failures
+               over a rebuilt group and mesh.
 ``serve``      serving driver: legacy static batch or continuous batching
-               with paged KV, Poisson arrivals, and governor-priced slack.
+               with paged KV, Poisson arrivals, and governor-priced slack,
+               tensor-parallel over torchrun's ranks.
+``mesh``       production/host ``DeviceMesh`` constructors.
 ``long_join``  one long prompt's join timed through the kernels and plain.
 
 Submodules load lazily (PEP 562), as the reference's do, so that
 ``import repro_torch.launch`` stays cheap for tooling.  Not yet here: the
-reference's ``dryrun`` (ROADMAP.md, queue 1, item 5) and ``mesh`` (item 4).
+reference's ``dryrun`` (ROADMAP.md, queue 1, item 5).
 """
 import importlib
 
-_SUBMODULES = ("long_join", "serve", "train")
+_SUBMODULES = ("long_join", "mesh", "serve", "train")
 
 __all__ = list(_SUBMODULES)
 

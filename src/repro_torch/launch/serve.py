@@ -66,11 +66,24 @@ outputs.
       --reduced --device cpu --fleet 2 --fleet-trace flash-crowd \\
       --fleet-duration 3 [--autoscale] [--metrics-out fleet.jsonl]
 
+  # tensor-parallel serving over torchrun's ranks: a (data, model) mesh of
+  # (N // k, k), weights and pool split over 'model' (gloo on the CPU)
+  PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.serve \\
+      --reduced --continuous --device cpu --model-parallel 2 --temperature 0
+
 The static, continuous and fleet modes of ``repro.launch.serve`` are
 ported, with the continuous mode's ``--trace-out``, ``--perfetto-out``,
 ``--metrics-out``, ``--dashboard``, ``--power-cap``, ``--tpot-target`` and
-``--ingest``.  ``--model-parallel`` is parsed with the reference's default
-and refused when set: it waits for sharding (ROADMAP.md, queue 1, item 4).
+``--ingest``, and the reference's mesh block: under ``torchrun`` the world
+of N ranks is a ``(N // mp, mp)`` ``DeviceMesh`` of ``("data", "model")``,
+``mp`` the largest divisor of N at most ``--model-parallel``; when ``mp >
+1`` or N > 1 the weights are DTensors on ``serve_param_shardings`` and the
+continuous engine's pool on ``page_pool_shardings``, the activation hooks
+are installed, and the static and continuous modes run sharded (each rank
+runs the kernels on its local shards; every rank takes the first rank's
+clock).  One rank with ``--model-parallel 1`` wraps nothing.  ``--fleet``
+over more than one rank is refused (ROADMAP.md, queue 1, item 8), and only
+the first rank prints the result.
 ``--power-cap`` and the fleet's watts are those of
 ``core.pstate.DEFAULT_HW``'s CPU-node model, not the card's draw; the
 result says so.  The fleet's traces draw tokens below ``min(1000,
@@ -90,18 +103,22 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 import time
 from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import jrandom
 from repro_torch.configs import get_config, reduced
 from repro_torch.core.events import EventBus
 from repro_torch.core.governor import Governor
 from repro_torch.core.policies import policy_for_theta
-from repro_torch.device import resolve_device
+from repro_torch.device import join_group, resolve_device
+from repro_torch.dist import sharding as SH
+from repro_torch.models.hooks import install_constraint
 from repro_torch.models.inputs import make_batch
 from repro_torch.models.transformer import init_params
 from repro_torch.obs import log as obslog
@@ -110,12 +127,6 @@ from repro_torch.serve.scheduler import Request, poisson_arrivals
 from repro_torch.serve.slo import SLOTracker
 
 log = obslog.get_logger("serve")
-
-# flags parsed with the reference's defaults and refused when set: the
-# ROADMAP item each waits for
-WAITING = {
-    "model_parallel": (1, "queue 1, item 4 (sharding)"),
-}
 # the label of every watt figure in a result: the cluster layer's watts come
 # from core.pstate.DEFAULT_HW, a CPU-node model from the paper
 MODELLED = "modelled (core.pstate.DEFAULT_HW), not the card's"
@@ -171,11 +182,53 @@ def _config(args):
     return cfg
 
 
-def _model(args):
-    """(device, config, random weights from ``--seed``) for the run."""
-    device = resolve_device(args.device)
+def _device(args) -> torch.device:
+    """``--device``, or under ``torchrun`` on the card this rank's card."""
+    if args.device is None and "LOCAL_RANK" in os.environ:
+        return resolve_device(f"cuda:{int(os.environ['LOCAL_RANK'])}")
+    return resolve_device(args.device)
+
+
+def refuse_unsharded_family(cfg) -> None:
+    """Tensor-parallel serving covers the all-attention archs without MoE
+    (dense, and the frontend-prefix families); the others are refused by
+    name rather than served unsharded."""
+    if cfg.pattern != ("attn",) or cfg.is_moe:
+        raise SystemExit(f"--model-parallel serving of {cfg.name} (family {cfg.family}) is not "
+                         "ported to repro_torch yet (ROADMAP.md, queue 1, item 9)")
+
+
+def serve_mesh(args):
+    """The reference's mesh block: N ranks (the process group's, else 1),
+    the model degree ``mp`` the largest divisor of N at most
+    ``--model-parallel``, a ``(N // mp, mp)`` ``("data", "model")`` mesh
+    with the activation hooks installed for this rank's replica (its row's
+    model axis, :func:`~repro_torch.dist.sharding.replica_mesh`).  None when
+    N and ``mp`` are both 1: nothing is wrapped."""
+    n = dist.get_world_size() if dist.is_initialized() else 1
+    mp = max(g for g in range(1, args.model_parallel + 1) if n % g == 0)
+    if n == 1 and mp == 1:
+        return None
+    refuse_unsharded_family(_config(args))
+    from torch.distributed.device_mesh import init_device_mesh
+
+    mesh = init_device_mesh(_device(args).type, (n // mp, mp),
+                            mesh_dim_names=("data", "model"))
+    install_constraint(SH.activation_constraint_fn(SH.replica_mesh(mesh)))
+    return mesh
+
+
+def _model(args, mesh=None):
+    """(device, config, random weights from ``--seed``) for the run; on a
+    mesh the weights are DTensors on ``serve_param_shardings`` over this
+    rank's replica (every rank draws the same weights and keeps its
+    slice)."""
+    device = _device(args)
     cfg = _config(args)
     params = init_params(cfg, torch.Generator(device=device).manual_seed(args.seed), device)
+    if mesh is not None:
+        replica = SH.replica_mesh(mesh)
+        params = SH.distribute(params, SH.serve_param_shardings(replica, params))
     return device, cfg, params
 
 
@@ -184,8 +237,8 @@ def run_static(args) -> Dict[str, Any]:
     ``--batch`` prompts of ``--prompt-len`` positions, ``--steps`` tokens
     each through :class:`ServeEngine`, sampled with ``key(1)``; one
     warm-up generate, then the timed one.  Returns the run's numbers and
-    its tokens."""
-    device, cfg, params = _model(args)
+    its tokens, with the engine and the weights under ``"objects"``."""
+    device, cfg, params = _model(args, args.mesh)
     eng = ServeEngine(cfg, params, max_len=args.prompt_len + args.steps + 8,
                       temperature=args.temperature, device=device)
     batch = make_batch(cfg, batch=args.batch, seq_len=args.prompt_len, kind="prefill")
@@ -200,6 +253,7 @@ def run_static(args) -> Dict[str, Any]:
         "temperature": args.temperature, "shape": list(out.shape), "wall_s": dt,
         "tok_per_s": args.batch * args.steps / dt, "warmup_s": t_warm,
         "kv_int8": args.kv_int8, "tokens": out.tolist(),
+        "objects": {"engine": eng, "params": params},
     }
 
 
@@ -209,14 +263,18 @@ def run_continuous(args, subscribers: Sequence[Any] = ()) -> Dict[str, Any]:
     ``subscribers`` join the governor on the serve loop's event bus (a
     phase recorder, an :class:`~repro_torch.core.profiler.EventProfiler`).
     The telemetry flags wire as the reference's: the trace recorder, the
-    span tracer and the bus metrics ride the governor's recorder slot."""
-    device, cfg, params = _model(args)
+    span tracer and the bus metrics ride the governor's recorder slot.  On
+    a mesh the pool is put on ``page_pool_shardings``."""
+    device, cfg, params = _model(args, args.mesh)
     max_len = (max(args.prompt_len, args.long_prompt) + cfg.n_prefix + args.steps
                + args.page_size)
     max_len += (-max_len) % args.page_size
     eng = ContinuousEngine(cfg, params, n_slots=args.slots, max_len=max_len,
                            page=args.page_size, temperature=args.temperature,
                            attn_kernel=args.attn_kernel, device=device)
+    if args.mesh is not None:
+        eng.pool.blocks = SH.distribute(
+            eng.pool.blocks, SH.page_pool_shardings(eng.mesh, eng.pool.blocks))
     warm_rng = np.random.default_rng(args.seed + 1)
     warm = {"tokens": warm_rng.integers(0, cfg.vocab, size=(1, args.prompt_len)).astype(np.int32)}
     if cfg.n_prefix:
@@ -583,35 +641,51 @@ def parser() -> argparse.ArgumentParser:
                          "(events/s, occupancy, queue depth); the continuous "
                          "engine's own phase stream is occurrence-granular "
                          "and unaffected")
-    ap.add_argument("--device", default=None, help="torch device (default: cuda)")
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: cuda; under torchrun cuda:LOCAL_RANK)")
     ap.add_argument("--seed", type=int, default=0)
+    ap.set_defaults(mesh=None)          # serve_mesh's, set by main
     return ap
-
-
-def _refuse_waiting(args) -> None:
-    for name, (default, item) in WAITING.items():
-        if getattr(args, name) != default:
-            flag = "--" + name.replace("_", "-")
-            raise SystemExit(f"{flag} is not ported to repro_torch yet (ROADMAP.md, {item})")
 
 
 def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     args = parser().parse_args(argv)
-    _refuse_waiting(args)
-    if args.fleet:
-        res = run_fleet_sim(args) if args.autoscale else run_fleet_real(args)
-    elif args.continuous:
-        res = run_continuous(args)
-    else:
-        if (args.theta or args.trace_out or args.power_cap > 0 or args.perfetto_out
-                or args.metrics_out or args.dashboard):
-            # static mode builds no governor: these flags would be silent no-ops
-            log.warning("flags_ignored",
-                        why="--theta/--trace-out/--power-cap/telemetry need the "
-                            "continuous engine's governor (add --continuous)")
-        res = run_static(args)
-    print(json.dumps({k: v for k, v in res.items() if k != "objects"}))
-    return res
+    made_group = False
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        made_group = join_group(_device(args))     # torchrun's world
+    try:
+        args.mesh = serve_mesh(args)
+        if args.fleet and dist.is_initialized() and dist.get_world_size() > 1:
+            raise SystemExit("--fleet over more than one rank is not ported to repro_torch "
+                             "yet (ROADMAP.md, queue 1, item 8)")
+        if args.fleet:
+            res = run_fleet_sim(args) if args.autoscale else run_fleet_real(args)
+        elif args.continuous:
+            res = run_continuous(args)
+        else:
+            if (args.theta or args.trace_out or args.power_cap > 0 or args.perfetto_out
+                    or args.metrics_out or args.dashboard):
+                # static mode builds no governor: these flags would be silent no-ops
+                log.warning("flags_ignored",
+                            why="--theta/--trace-out/--power-cap/telemetry need the "
+                                "continuous engine's governor (add --continuous)")
+            res = run_static(args)
+        res["mesh"] = None if args.mesh is None else list(args.mesh.shape)
+        if args.mesh is not None:
+            # each rank's kernel path, in rank order
+            path = {"device": res["device"],
+                    "attn_kernel": res.get("attn_kernel", "plain" if res["device"] == "cpu"
+                                           else "cuda")}
+            paths = [None] * dist.get_world_size()
+            dist.all_gather_object(paths, path)
+            res["ranks"] = paths
+        if args.mesh is None or dist.get_rank() == 0:
+            print(json.dumps({k: v for k, v in res.items() if k != "objects"}))
+        return res
+    finally:
+        install_constraint(None)
+        if made_group:
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

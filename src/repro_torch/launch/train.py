@@ -34,11 +34,17 @@ batch 8, sequence 128, remat on, and AdamW warming up over
 ``min(100, steps // 10 + 1)`` steps and decaying to ``steps``.  Weights are
 random, drawn from ``--seed``; the batches are the reference's synthetic
 corpus for the same seed.  Without ``--live-events`` a world of 1 runs
-``make_train_step`` and a larger world ``make_pod_train_step`` (gradients
-through ``cd_psum``, silent unless instrumented); ``--live-events`` runs
-:func:`build_live`, whose gradients *and* loss reduce through ``cd_psum``
-(two instrumented calls a step) with host phase events on, so the governor
-prices them.  The process group comes from ``torchrun``'s environment
+``make_train_step`` on plain tensors, and a larger world the reference's
+:func:`build`: parameters and optimizer state 2-D sharded as DTensors over
+the ranks' ``(data, model)`` mesh (FSDP over ``data``, tensor parallelism
+over ``model``, ``--model-parallel`` the largest degree that divides the
+world), batches split over ``data``, the activation hooks installed, and
+``make_train_step`` run on them, its collectives DTensor's;
+``--live-events`` runs :func:`build_live`, whose gradients *and* loss
+reduce through ``cd_psum`` (two instrumented calls a step) with host phase
+events on, so the governor prices them; it is data-parallel only, so it
+takes ``--model-parallel 1`` (the reference's warning when another is
+given).  The process group comes from ``torchrun``'s environment
 when it is set, else it is a world of 1 (NCCL on the card, gloo on the
 CPU).  ``--trace-out``, ``--perfetto-out``, ``--metrics-out``,
 ``--dashboard`` and ``--power-cap`` wire as the reference's (each turns on
@@ -52,8 +58,9 @@ group writes them, in the reference's layout and file format:
 each multiple of ``--save-every`` steps; ``--resume`` starts from the
 newest.  ``--fail-at N`` fails the last rank before step N + 1: every rank
 drains, marks it failed, restores the newest checkpoint (or initialises
-from ``--seed`` when there is none), rebuilds the group from the survivors
-(:class:`repro_torch.dist.elastic.ElasticMesh`) and the step over it, and
+from ``--seed`` when there is none), rebuilds the group and the mesh from
+the survivors (:class:`repro_torch.dist.elastic.ElasticMesh`) and the step
+over them, re-sharding the restored state onto the new mesh, and
 rewinds; the failed rank takes no further step and leaves once the group
 is rebuilt (the injector fails the last rank, never the first, which
 holds the store of a world started without ``torchrun``).  A
@@ -61,10 +68,11 @@ failure without ``--checkpoint-dir`` raises, and so does one in a world of
 1 (no survivor to rebuild from), as the reference's do.  Kept for parity
 with the reference: after a failure the loader runs on, so the rewound
 steps take the stream's next batches; ``--resume`` starts a fresh loader
-from ``--seed``.  The survivors' count must divide ``--batch``
-(:func:`repro_torch.train.loop.shard_of`).  ``--model-parallel`` is parsed
-with the reference's default and refused when set (ROADMAP.md, queue 1,
-item 4).  Logs the reference's ``step``, ``device_failed``, ``resumed``,
+from ``--seed``.  A batch the survivors' count does not divide is
+replicated over ``data`` on the sharded path, as the reference's
+sanitized specs allow; ``--live-events`` splits it with
+:func:`repro_torch.train.loop.shard_of` and refuses it at the rebuild.
+Logs the reference's ``step``, ``device_failed``, ``resumed``,
 ``governor`` and ``power`` lines; the last line of output is the run's
 result as one JSON object.
 """
@@ -87,23 +95,38 @@ from repro_torch.core import instrument
 from repro_torch.core.governor import Governor
 from repro_torch.core.policies import policy_for_theta
 from repro_torch.device import join_group, resolve_device
+from repro_torch.dist import sharding as SH
 from repro_torch.dist.checkpoint import CheckpointManager
 from repro_torch.dist.elastic import ElasticMesh, FailureInjector
+from repro_torch.models.hooks import install_constraint
 from repro_torch.obs import log as obslog
 from repro_torch.train.data import DataLoader
-from repro_torch.train.loop import (
-    TrainConfig, _div, _grads, init_state, make_pod_train_step, make_train_step, shard_of,
-)
+from repro_torch.train.loop import _div, _grads, init_state, make_train_step, shard_of
 from repro_torch.train.optimizer import OptConfig, adamw_update, decay_mask
 from repro_torch.tree import leaves, tree_map
 
 log = obslog.get_logger("train")
 
-# flags parsed with the reference's defaults and refused when set: the
-# ROADMAP item each waits for
-WAITING = {
-    "model_parallel": (1, "queue 1, item 4 (sharding inside a pod)"),
-}
+
+def build(mesh, cfg, opt_cfg: OptConfig, state: Dict[str, Any]):
+    """The reference's ``build``: the activation hooks installed for
+    ``mesh`` (a ``DeviceMesh``), the state distributed onto
+    ``param_shardings`` and ``opt_state_shardings`` (2-D: FSDP over
+    ``data``, tensor parallelism over ``model``), and ``make_train_step``
+    over DTensors, plain tensors meeting them taken as replicated, the
+    metrics whole on every rank.  Returns (state, step)."""
+    install_constraint(SH.activation_constraint_fn(mesh))
+    ps = SH.param_shardings(mesh, state["params"])
+    sh = {"params": ps, "opt": SH.opt_state_shardings(mesh, ps, state["opt"])}
+    state = SH.distribute(state, sh)
+    train_step = make_train_step(cfg, opt_cfg)
+
+    def step(state: Dict[str, Any], batch: Dict[str, Any]):
+        with SH.replicating(mesh):
+            state, metrics = train_step(state, batch)
+        return state, {k: SH.whole(v) for k, v in metrics.items()}
+
+    return state, step
 
 
 def build_live(cfg, opt_cfg: OptConfig, group=None):
@@ -179,13 +202,6 @@ def parser() -> argparse.ArgumentParser:
     return ap
 
 
-def _refuse_waiting(args) -> None:
-    for name, (default, item) in WAITING.items():
-        if getattr(args, name) != default:
-            flag = "--" + name.replace("_", "-")
-            raise SystemExit(f"{flag} is not ported to repro_torch yet (ROADMAP.md, {item})")
-
-
 def _device(args) -> torch.device:
     if args.device is None and "LOCAL_RANK" in os.environ:
         return resolve_device(f"cuda:{int(os.environ['LOCAL_RANK'])}")
@@ -201,7 +217,6 @@ def run(args) -> Dict[str, Any]:
     """Train ``args.steps`` steps; returns the run's numbers (losses, grad
     norms, learning rates, synchronised step clocks, tokens/s, peak device
     memory and the governor's report)."""
-    _refuse_waiting(args)
     device = _device(args)
     cfg = get_config(args.arch)
     if args.reduced:
@@ -210,6 +225,9 @@ def run(args) -> Dict[str, Any]:
     opt_cfg = OptConfig(lr=args.lr, warmup_steps=min(100, args.steps // 10 + 1),
                         total_steps=args.steps)
     obs_on = bool(args.perfetto_out or args.metrics_out or args.dashboard)
+    if args.live_events and args.model_parallel != 1:
+        log.warning("live_events_dp_only", model_parallel=args.model_parallel, using=1)
+        args.model_parallel = 1
     if (args.trace_out or args.power_cap > 0 or args.theta or obs_on
             or args.live_events) and args.instrument != "profile":
         # the recorder records events, the tenant polls interval snapshots,
@@ -243,6 +261,11 @@ def run(args) -> Dict[str, Any]:
         tap = GovernorTap(tracer, metrics=busmetrics)
         recorder = RecorderFanout([recorder, tap]) if recorder is not None else tap
     made_group = join_group(device)
+    if dist.get_world_size() > 1 and not args.live_events and (cfg.is_moe or cfg.n_prefix):
+        if made_group:
+            dist.destroy_process_group()
+        raise SystemExit(f"the 2-D sharded step for {cfg.name} (family {cfg.family}) is not "
+                         "ported to repro_torch yet (ROADMAP.md, queue 1, item 9)")
     governor = Governor(policy=policy_for_theta(args.theta), recorder=recorder)
     bus = instrument.get_event_bus()
     loader = None
@@ -289,17 +312,27 @@ def run(args) -> Dict[str, Any]:
                               torch.Generator(device=device).manual_seed(args.seed), device)
 
         def restore(step: int, like: Dict[str, Any]) -> Dict[str, Any]:
-            tree = mgr.load(step, bridge.state_to_numpy(cfg, like))
+            # the file holds the reference's stacked layout: read it into a
+            # skeleton of whole tensors, back to the split layout, and the
+            # caller's step distributes it onto the current mesh
+            whole = tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype), like)
+            tree = mgr.load(step, bridge.state_to_numpy(cfg, whole))
             return bridge.state_from_numpy(cfg, tree, device)
 
-        def build(group):
+        def make_step(rm, state):
+            """(step, its kind, the state as the step takes it: plain
+            tensors in, DTensors out on the sharded path) on the rank mesh
+            ``rm``."""
             if args.live_events or world > 1:
-                instrument.warm_up(device, group)   # communicator setup is not a step's slack
+                # communicator setup is not a step's slack
+                instrument.warm_up(device, rm.group)
             if args.live_events:
-                return build_live(cfg, opt_cfg, group), "build_live"
+                return build_live(cfg, opt_cfg, rm.group), "build_live", state
             if world > 1:
-                return make_pod_train_step(cfg, opt_cfg, group, TrainConfig()), "pod"
-            return make_train_step(cfg, opt_cfg), "build"
+                state, step_fn = build(rm.device_mesh, cfg, opt_cfg, state)
+                loader.sharding = SH.batch_shardings(rm.device_mesh, loader.like())
+                return step_fn, "build", state
+            return make_train_step(cfg, opt_cfg), "build", state
 
         state = fresh_state()
         start_step = 0
@@ -309,12 +342,12 @@ def run(args) -> Dict[str, Any]:
                 start_step, state = latest, restore(latest, state)
                 log.info("resumed", step=latest)
         n_params = sum(p.numel() for p in leaves(state["params"]))
-        step_fn, kind = build(mesh.group)
-        log.info("start", arch=cfg.name, params=n_params, device=str(device), world=world,
-                 step=kind, batch=args.batch, seq=args.seq, instrument=args.instrument,
-                 start_step=start_step)
         loader = DataLoader(cfg, batch=args.batch, seq_len=args.seq, seed=args.seed,
                             device=device)
+        step_fn, kind, state = make_step(mesh, state)
+        log.info("start", arch=cfg.name, params=n_params, device=str(device), world=world,
+                 step=kind, batch=args.batch, seq=args.seq, instrument=args.instrument,
+                 start_step=start_step, mesh=list(mesh.layout.shape))
         if device.type == "cuda":
             torch.cuda.reset_peak_memory_stats(device)
         losses: List[float] = []
@@ -346,8 +379,12 @@ def run(args) -> Dict[str, Any]:
                 grad_norms.append(float(metrics["grad_norm"]))
                 lrs.append(float(metrics["lr"]))
                 if mgr and step % args.save_every == 0:
+                    # whole tensors on this thread (a collective over the
+                    # mesh when the state is sharded); the first rank writes
+                    whole = SH.gather(state)
                     if rank == mesh.ranks[0]:
-                        mgr.save(step, bridge.state_to_numpy(cfg, state))
+                        mgr.save(step, bridge.state_to_numpy(cfg, whole))
+                    del whole
                     checkpoint_steps.append(step)
                 if step % max(1, args.steps // 20) != 0 and step != args.steps:
                     continue
@@ -391,7 +428,7 @@ def run(args) -> Dict[str, Any]:
             else:
                 state = restore(latest, state)
             mesh = em.build(model_parallel=args.model_parallel)
-            if args.batch % len(mesh.ranks):
+            if args.live_events and args.batch % len(mesh.ranks):
                 # every rank stops here together (shard_of would stop only the survivors)
                 raise ValueError(f"--batch {args.batch} does not divide over the "
                                  f"{len(mesh.ranks)} surviving ranks")
@@ -401,7 +438,7 @@ def run(args) -> Dict[str, Any]:
                 # the rebuild was the last call every rank makes together
                 log.info("failed", rank=rank, step=step, action="leaving")
                 break
-            step_fn, kind = build(mesh.group)
+            step_fn, kind, state = make_step(mesh, state)
             step = latest
             log.info("resumed", devices=len(em.healthy_devices()), step=latest)
         if world > 1 and rank in mesh.ranks:
@@ -462,7 +499,8 @@ def run(args) -> Dict[str, Any]:
         step_median = float(np.median(after_first)) if after_first else float("nan")
         return {
             "arch": cfg.name, "device": str(device), "world": world, "rank": rank,
-            "step": kind, "params": n_params, "param_leaves": len(leaves(state["params"])),
+            "step": kind, "mesh": list(mesh.layout.shape), "params": n_params,
+            "param_leaves": len(leaves(state["params"])),
             "batch": args.batch, "seq": args.seq, "steps": args.steps,
             "start_step": start_step, "restarts": restarts,
             "checkpoint_steps": checkpoint_steps,
@@ -476,6 +514,7 @@ def run(args) -> Dict[str, Any]:
     finally:
         if loader is not None:
             loader.close()
+        install_constraint(None)
         instrument.set_mode("off")
         instrument.enable_events(False)
         bus.unsubscribe(governor)

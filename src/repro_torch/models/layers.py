@@ -30,6 +30,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import rmsnorm as RN
+from repro_torch.models.hooks import constrain
 
 Params = Dict[str, Any]
 
@@ -150,9 +151,11 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
 # --------------------------------------------------------------------------
 
 def _gqa_reshape(q: torch.Tensor, n_kv: int) -> torch.Tensor:
-    """(B,S,Hq,D) -> (B,S,Hkv,G,D)."""
+    """(B,S,Hq,D) -> (B,S,Hkv,G,D).  The ``groups:n`` hook (the port's own,
+    as ``heads:n`` in :func:`_heads`) first replicates a split of the heads
+    that would cut a GQA group."""
     b, s, hq, d = q.shape
-    return q.reshape(b, s, n_kv, hq // n_kv, d)
+    return constrain(q, f"groups:{n_kv}").reshape(b, s, n_kv, hq // n_kv, d)
 
 
 def naive_causal_attention(q, k, v, q_pos, k_pos, window: int = 0):
@@ -250,12 +253,20 @@ def init_attention(cfg, gen, dtype, device) -> Params:
     }
 
 
+def _heads(t: torch.Tensor, n: int, d: int) -> torch.Tensor:
+    """(B,S,n*d) -> (B,S,n,d).  The ``heads:n`` hook (identity unless one is
+    installed) sees the projection first: this site is the port's own, since
+    a DTensor split of the n*d columns that cuts a head cannot be viewed as
+    heads, where the reference's partitioner moves the data itself."""
+    b, s, _ = t.shape
+    return constrain(t, f"heads:{n}").reshape(b, s, n, d)
+
+
 def _project_qkv(cfg, p, x):
-    b, s, _ = x.shape
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = matmul(x, p["wq"]).reshape(b, s, hq, hd)
-    k = matmul(x, p["wk"]).reshape(b, s, hkv, hd)
-    v = matmul(x, p["wv"]).reshape(b, s, hkv, hd)
+    q = _heads(matmul(x, p["wq"]), hq, hd)
+    k = _heads(matmul(x, p["wk"]), hkv, hd)
+    v = _heads(matmul(x, p["wv"]), hkv, hd)
     return q, k, v
 
 
@@ -340,8 +351,12 @@ def _kv_dequantize(q: torch.Tensor, scale: torch.Tensor, dtype) -> torch.Tensor:
 
 def attention_prefill(cfg, p, x, positions, cache, kernel: str = "plain"):
     """Run full-sequence attention and fill ``cache`` in place; positions as
-    in :func:`attention_forward`.  Returns (out, cache)."""
+    in :func:`attention_forward`.  Returns (out, cache).  With the default
+    positions 0..S-1 the kept rows land in one run of ring slots, or two
+    where they wrap, written by slices (no index tensor: a sharded DTensor
+    cache takes slice writes on every torch version the port runs on)."""
     out = attention_forward(cfg, p, x, positions, kernel=kernel)
+    default = positions is None
     positions = _index(x) if positions is None else positions
     _, k, v = _project_qkv(cfg, p, x)
     k = apply_rope(k, positions, cfg.rope_theta)
@@ -357,10 +372,21 @@ def attention_prefill(cfg, p, x, positions, cache, kernel: str = "plain"):
         for name in rows:
             cache[name].zero_()
         cache["slot_pos"].fill_(-1)
-    slots = (positions % t).long()
-    for name, r in rows.items():
-        cache[name][:, slots] = r.to(cache[name].dtype)
-    cache["slot_pos"][slots] = positions.to(torch.int32)
+    if not default:
+        slots = (positions % t).long()
+        for name, r in rows.items():
+            cache[name][:, slots] = r.to(cache[name].dtype)
+        cache["slot_pos"][slots] = positions.to(torch.int32)
+        return out, cache
+    n = positions.shape[0]
+    first = (x.shape[1] - n) % t                 # the slot of the first kept position
+    runs = [(first, 0, min(n, t - first))]
+    if n > t - first:
+        runs.append((0, t - first, n))
+    for dst, lo, hi in runs:
+        for name, r in rows.items():
+            cache[name][:, dst:dst + hi - lo] = r[:, lo:hi].to(cache[name].dtype)
+        cache["slot_pos"][dst:dst + hi - lo] = positions[lo:hi].to(torch.int32)
     return out, cache
 
 
@@ -433,6 +459,16 @@ def mlp_forward(cfg, p, x):
 # chunked cross-entropy (never materializes full (B,S,V) logits)
 # --------------------------------------------------------------------------
 
+def _nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """``logsumexp(logits) - logits[label]`` over the last axis.  The label's
+    logit is subtracted before its size-1 axis is dropped: on vocab-split
+    DTensor logits the gather is a masked partial sum, which DTensor reduces
+    correctly only in the shape it was made in."""
+    lse = torch.logsumexp(logits, dim=-1, keepdim=True)
+    tgt = torch.gather(logits, -1, labels[..., None].long())
+    return (lse - tgt)[..., 0]
+
+
 def chunked_cross_entropy(x, embed_t, labels, mask, chunk: int = 512) -> torch.Tensor:
     """x: (B,S,d); embed_t: (d,V); labels, mask: (B,S).  Mean NLL over the
     mask, the count clamped at 1.  The sequence is cut into chunks of
@@ -445,10 +481,9 @@ def chunked_cross_entropy(x, embed_t, labels, mask, chunk: int = 512) -> torch.T
     count = torch.zeros((), dtype=torch.float32, device=x.device)
     for lo in range(0, s, chunk):
         sl = slice(lo, lo + chunk)
-        logits = matmul(x[:, sl], embed_t).float()               # (B,C,V)
-        lse = torch.logsumexp(logits, dim=-1)
-        tgt = torch.gather(logits, -1, labels[:, sl, None].long())[..., 0]
+        logits = constrain(matmul(x[:, sl], embed_t), "logits").float()   # (B,C,V)
+        nll = _nll(logits, labels[:, sl])
         mc = mask[:, sl]
-        total = total + torch.sum((lse - tgt) * mc)
+        total = total + torch.sum(nll * mc)
         count = count + torch.sum(mc)
     return total / torch.clamp(count, min=1.0)

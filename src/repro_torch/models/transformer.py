@@ -41,6 +41,7 @@ import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_kernel
@@ -48,6 +49,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import rglru as R
 from repro_torch.models import ssm as S
+from repro_torch.models.hooks import constrain
 from repro_torch.tree import leaves
 
 Params = Dict[str, Any]
@@ -131,12 +133,20 @@ def _embed_inputs(cfg, params, tokens: torch.Tensor,
                   prefix: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Embedding rows cast to the compute dtype, after the frontend's prefix
     embeddings (B, n_prefix, d) where the config has a prefix and one is
-    given, then times sqrt(d)."""
+    given, then times sqrt(d).  ``F.embedding`` gathers the same rows as
+    indexing, and on a vocab-sharded DTensor table it reads each rank's own
+    rows (DTensor's vocab-parallel rule) where indexing would gather the
+    whole table.  The ``tokens`` hook (the port's own site) sees the ids
+    first.  The result takes the ``residual`` hook: the reference's site
+    after the embedding in ``forward``, which the port's prefill and
+    decode share (on DTensors the lookup is a masked partial sum, which
+    must be reduced before a layer adds its own partial sum to it)."""
     dtype = L.dtype_of(cfg.compute_dtype)
-    x = params["embed"][tokens.long()].to(dtype)
+    x = F.embedding(constrain(tokens.long(), "tokens"), params["embed"]).to(dtype)
     if cfg.n_prefix and prefix is not None:
-        x = torch.cat([prefix.to(dtype), x], dim=1)
-    return L.scale_by(x, math.sqrt(cfg.d_model))
+        # the looked-up rows reduced before they join the prefix rows
+        x = torch.cat([prefix.to(dtype), constrain(x, "residual")], dim=1)
+    return constrain(L.scale_by(x, math.sqrt(cfg.d_model)), "residual")
 
 
 def _ffn(cfg, kind: str, p: Params, h, decode: bool = False):
@@ -174,15 +184,15 @@ def _block_forward(cfg, kind: str, p: Params, x):
     h = L.apply_norm(cfg, p["ln1"], x)
     if kind == "ssm":
         y, _ = S.ssm_forward(cfg, p["ssm"], h)
-        return x + y, aux
+        return constrain(x + y, "residual"), aux
     if kind == "attn":
-        x = x + L.attention_forward(cfg, p["attn"], h)
+        x = constrain(x + L.attention_forward(cfg, p["attn"], h), "residual")
     else:
         y, _ = R.rglru_forward(cfg, p["rglru"], h)
         x = x + y
     h = L.apply_norm(cfg, p["ln2"], x)
     y, a = _ffn(cfg, kind, p["ffn"], h)
-    return x + y, aux if a is None else a
+    return constrain(x + y, "residual"), aux if a is None else a
 
 
 def _period_forward(cfg, blocks, x):
@@ -230,9 +240,7 @@ def loss_fn(cfg, params, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     mask = batch["mask"].float()
     if cfg.logits_softcap:
         logits = logits_fn(cfg, params, hidden).float()
-        lse = torch.logsumexp(logits, dim=-1)
-        tgt = torch.gather(logits, -1, labels[..., None])[..., 0]
-        nll = torch.sum((lse - tgt) * mask) / torch.clamp(torch.sum(mask), min=1.0)
+        nll = torch.sum(L._nll(logits, labels) * mask) / torch.clamp(torch.sum(mask), min=1.0)
     else:
         nll = L.chunked_cross_entropy(hidden, _unembed_matrix(cfg, params), labels, mask)
     return nll + aux, {"nll": nll, "aux": aux}
@@ -266,7 +274,7 @@ def _block_prefill(cfg, kind, p, x, bc, kernel):
     if kind == "ssm":
         y, state = S.ssm_forward(cfg, p["ssm"], h, bc, kernel)
         bc.update(state)
-        return x + y, bc
+        return constrain(x + y, "residual"), bc
     if kind == "attn":
         y, bc = L.attention_prefill(cfg, p["attn"], h, None, bc, kernel)
     else:
@@ -275,7 +283,7 @@ def _block_prefill(cfg, kind, p, x, bc, kernel):
     x = x + y
     h = L.apply_norm(cfg, p["ln2"], x, kernel)
     y, _ = _ffn(cfg, kind, p["ffn"], h)
-    return x + y, bc
+    return constrain(x + y, "residual"), bc
 
 
 def _block_decode(cfg, kind, p, x, pos, bc, attn_fn, kernel):

@@ -51,6 +51,7 @@ import torch
 
 from repro_torch import jrandom
 from repro_torch.device import resolve_device, resolve_kernel
+from repro_torch.dist import sharding as SH
 from repro_torch.models.transformer import decode_step as _decode
 from repro_torch.models.transformer import init_cache
 from repro_torch.models.transformer import prefill as _prefill
@@ -104,12 +105,15 @@ class ServeEngine:
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
+        self.mesh = SH.mesh_of(self.params)      # None unless the params are DTensors
 
     @torch.no_grad()
     def generate(self, batch: Dict[str, Any], n_steps: int,
                  key: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Greedy/sampled continuation of ``batch['tokens']`` (B,S) for
-        n_steps, after ``batch['prefix_embeds']`` where there is one."""
+        n_steps, after ``batch['prefix_embeds']`` where there is one.  With
+        DTensor params the cache takes ``cache_shardings(serve_tp=True)``
+        and the logits are gathered before the draw."""
         tokens = torch.as_tensor(np.asarray(batch["tokens"]), device=self.device)
         b, s = tokens.shape
         prompt_len = s + self.cfg.n_prefix
@@ -117,14 +121,15 @@ class ServeEngine:
         if "prefix_embeds" in batch:
             inputs["prefix_embeds"] = torch.as_tensor(np.array(batch["prefix_embeds"]),
                                                       device=self.device)
-        cache = init_cache(self.cfg, b, self.max_len, self.device)
-        logits, cache = _prefill(self.cfg, self.params, inputs, cache)
-        tok = self._select(logits, key, 0)
-        out = [tok]
-        for i in range(1, n_steps):
-            logits, cache = _decode(self.cfg, self.params, tok, prompt_len + i - 1, cache)
-            tok = self._select(logits, key, i)
-            out.append(tok)
+        cache = _sharded_cache(self.mesh, init_cache(self.cfg, b, self.max_len, self.device))
+        with SH.replicating(self.mesh):
+            logits, cache = _prefill(self.cfg, self.params, inputs, cache)
+            tok = self._select(SH.whole(logits), key, 0)
+            out = [tok]
+            for i in range(1, n_steps):
+                logits, cache = _decode(self.cfg, self.params, tok, prompt_len + i - 1, cache)
+                tok = self._select(SH.whole(logits), key, i)
+                out.append(tok)
         return torch.stack(out, dim=1)                         # (B, n_steps)
 
     def _select(self, logits: torch.Tensor, key: Optional[torch.Tensor], i: int):
@@ -134,6 +139,15 @@ class ServeEngine:
             return torch.argmax(logits, dim=-1).to(torch.int32)
         sub = jrandom.fold_in(key, i)
         return jrandom.categorical(sub, _tempered(logits, self.temperature)).to(torch.int32)
+
+
+def _sharded_cache(mesh, cache):
+    """A dense cache on the model's mesh (``cache_shardings(serve_tp=True)``:
+    KV heads split as the projections split them, where the degree divides
+    Hkv); as it is without a mesh."""
+    if mesh is None:
+        return cache
+    return SH.distribute(cache, SH.cache_shardings(mesh, cache, serve_tp=True))
 
 
 # --------------------------------------------------------------------------
@@ -150,7 +164,9 @@ def make_paged_decode_step(cfg, attn_kernel: Optional[str] = None,
     ``attn_kernel`` (None: follow the tokens' device) picks plain PyTorch
     or the kernels.  The pool blocks are updated in place.  With
     ``fused_sample`` the greedy argmax runs in the step and ``out`` is the
-    sampled (B,) int32 tokens on the device; otherwise the logits.
+    sampled (B,) int32 tokens on the device; otherwise the logits.  With
+    DTensor params (tensor parallel) the step runs with plain inputs
+    replicated and ``out`` is whole on every rank.
     """
     resolve_kernel(attn_kernel, "cpu")            # refuse an unknown name now
 
@@ -160,8 +176,10 @@ def make_paged_decode_step(cfg, attn_kernel: Optional[str] = None,
         def paged_attn(p_attn, h, bc):
             return paged_attention_decode(cfg, p_attn, h, pos, table, bc, kernel=kernel)
 
-        logits, blocks = _decode(cfg, params, token, pos, blocks, attn_fn=paged_attn,
-                                 kernel=kernel)
+        with SH.replicating(SH.mesh_of(params["embed"])):
+            logits, blocks = _decode(cfg, params, token, pos, blocks, attn_fn=paged_attn,
+                                     kernel=kernel)
+            logits = SH.whole(logits)
         if fused_sample:
             return torch.argmax(logits, dim=-1).to(torch.int32), blocks
         return logits, blocks
@@ -226,6 +244,9 @@ class ContinuousEngine:
         if self.params["embed"].device != self.device:
             raise ValueError(f"params are on {self.params['embed'].device}, "
                              f"the engine on {self.device}")
+        # the params' mesh when they are DTensors (tensor parallel): the
+        # launcher puts the pool on it too; None for plain tensors
+        self.mesh = SH.mesh_of(self.params)
         self.pool = PagedKVPool(self.cfg, self.n_slots, self.max_len, self.page,
                                 self.num_pages, device=self.device)
         # greedy decoding samples inside the step; a temperature needs logits
@@ -287,16 +308,18 @@ class ContinuousEngine:
         batch = {"tokens": self._to_device(prompt[None])}
         if req.prefix_embeds is not None:
             batch["prefix_embeds"] = self._to_device(np.array(req.prefix_embeds)[None])
-        cache = init_cache(cfg, 1, lpad, self.device)
-        logits, cache = _prefill(cfg, self.params, batch, cache, kernel=self.attn_kernel)
-        self.n_joins += 1
-        req.pages = self.pool.alloc(req.rid, n_used)
-        slot = req.slot
-        self._table[slot] = SCRATCH_PAGE
-        self._table[slot, :n_used] = req.pages
-        self.pool.blocks = self._join(self.pool.blocks, cache,
-                                      self._to_device(np.asarray(req.pages, np.int32)), slot)
-        tok = self._select_one(logits[0], req)
+        cache = _sharded_cache(self.mesh, init_cache(cfg, 1, lpad, self.device))
+        with SH.replicating(self.mesh):
+            logits, cache = _prefill(cfg, self.params, batch, cache, kernel=self.attn_kernel)
+            self.n_joins += 1
+            req.pages = self.pool.alloc(req.rid, n_used)
+            slot = req.slot
+            self._table[slot] = SCRATCH_PAGE
+            self._table[slot, :n_used] = req.pages
+            self.pool.blocks = self._join(self.pool.blocks, cache,
+                                          self._to_device(np.asarray(req.pages, np.int32)),
+                                          slot)
+        tok = self._select_one(SH.whole(logits)[0], req)
         req.out.append(tok)
         self._lengths[slot] = total
         self._tokens[slot] = tok
@@ -453,7 +476,15 @@ class EngineSession:
 
     # ---- clock -----------------------------------------------------------
     def now(self) -> float:
-        return time.monotonic() - self.t_start
+        """Session seconds.  A tensor-parallel engine runs one session on
+        every rank of its mesh, and every rank takes the first rank's
+        clock (one broadcast a call), so all admit the same requests on
+        the same step."""
+        return self._agreed(time.monotonic() - self.t_start)
+
+    def _agreed(self, t: float) -> float:
+        mesh = self.engine.mesh
+        return t if mesh is None else SH.agree(mesh, t, self.engine.device)
 
     # ---- queue state -----------------------------------------------------
     @property
@@ -513,7 +544,7 @@ class EngineSession:
         if nxt is None:
             return False
         t0 = time.monotonic()
-        wait = (self.t_start + nxt) - t0
+        wait = nxt - self._agreed(t0 - self.t_start)
         if wait > 0:
             time.sleep(wait)
         t1 = time.monotonic()

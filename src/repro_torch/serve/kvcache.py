@@ -27,11 +27,12 @@ Ported from ``repro.serve.kvcache``:
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Callable, Dict, List, Optional
 
 import torch
 
-from repro_torch.device import resolve_device, resolve_kernel
+from repro_torch.device import is_dtensor, resolve_device, resolve_kernel
 from repro_torch.kernels import paged_attention as PA
 from repro_torch.models import layers as L
 from repro_torch.models.transformer import check_supported, init_recurrent_state
@@ -113,18 +114,49 @@ def paged_attention_decode(cfg, p, x, pos, table, block, kernel: Optional[str] =
     pool_dtype = block["k_pages"].dtype
     k_new = k[:, 0].to(pool_dtype).contiguous()
     v_new = v[:, 0].to(pool_dtype).contiguous()
-    qg = L._gqa_reshape(q, hkv)[:, 0].contiguous()             # (B,Hkv,G,D)
+    q1 = q[:, 0].contiguous()                                  # (B,Hq,D)
     window = L._window(cfg)
     if kernel == "cuda":
-        out = PA.paged_attention_scatter(
-            qg, k_new, v_new, block["k_pages"], block["v_pages"], table, pos,
-            page_idx, off, window=window, **new)
+        step = functools.partial(PA.paged_attention_scatter, window=window)
     else:
-        out = PA.paged_attention_scatter_plain(
-            qg, k_new, v_new, block["k_pages"], block["v_pages"], table, pos,
-            page_idx, off, window=window, dequant_dtype=x.dtype, **new)
+        step = functools.partial(PA.paged_attention_scatter_plain, window=window,
+                                 dequant_dtype=x.dtype)
+    g = cfg.n_heads // hkv
+
+    def attend(q1, *rest):
+        # (B,Hq,D) -> (B,Hkv,G,D) on the heads this call holds; the int8
+        # pages' scales (None without them) by name
+        return step(q1.reshape(q1.shape[0], -1, g, hd), *rest[:8],
+                    **dict(zip(_QUANT_ARGS, rest[8:])))
+
+    args = (q1, k_new, v_new, block["k_pages"], block["v_pages"], table, pos, page_idx, off,
+            *(new.get(name) for name in _QUANT_ARGS))
+    out = _attend_on_shards(attend, args) if is_dtensor(block["k_pages"]) else attend(*args)
     out = out.to(x.dtype).reshape(b, 1, cfg.n_heads * hd)
     return L.matmul(out, p["wo"]), block
+
+
+_QUANT_ARGS = ("k_scale_new", "v_scale_new", "k_scale_pages", "v_scale_pages")
+
+
+def _attend_on_shards(attend, args):
+    """The paged step on each rank's local KV heads: the pool's ``'model'``
+    split of its head dim (``page_pool_shardings``: only where the degree
+    divides Hkv) is the split of q's and the new rows' head dim; otherwise
+    every rank attends over all heads.  The pools keep their placements,
+    so the step writes their local storage in place; the table and
+    positions are plain tensors, the same on every rank.  q is (B,Hq,D),
+    split on whole GQA groups where the pool is split."""
+    from repro_torch.dist.sharding import local_placements, on_shards
+
+    pages = args[3]
+    split = any(name == "model" and p.is_shard()
+                for name, p in zip(pages.device_mesh.mesh_dim_names, pages.placements))
+    rows = [local_placements(a, model_dim=1 if split else None)
+            for a in args[:3] + args[9:11]]             # q, the new rows, their scales
+    pools = [getattr(a, "placements", None) for a in args[3:5] + args[11:]]
+    in_pl = tuple(rows[:3] + pools[:2] + [None] * 4 + rows[3:] + pools[2:])
+    return on_shards(attend, args, in_pl, rows[0])
 
 
 PAGE_LEAVES = ("k_pages", "v_pages", "k_scale_pages", "v_scale_pages")
@@ -165,9 +197,22 @@ def scatter_prefill_attn(block, cache_block, page_ids: torch.Tensor) -> Params:
     ids = page_ids.long()
     for name, pname in pairs:
         leaf = cache_block[name][0]                            # (Lpad, ...)
-        chunks = leaf.reshape(n_used, page, *leaf.shape[1:])
-        block[pname][ids] = chunks.to(block[pname].dtype)
+        chunks = leaf.reshape(n_used, page, *leaf.shape[1:]).to(block[pname].dtype)
+        if is_dtensor(block[pname]):
+            # each rank writes its own heads' rows into its own shard of the
+            # pages (the chunks take the pool's placements first)
+            from repro_torch.dist.sharding import write_on_shards
+
+            pool = block[pname]
+            write_on_shards(_put_pages, (pool, ids, chunks), (pool.placements, None,
+                                                              pool.placements))
+        else:
+            _put_pages(block[pname], ids, chunks)
     return block
+
+
+def _put_pages(pages: torch.Tensor, ids: torch.Tensor, chunks: torch.Tensor) -> None:
+    pages[ids] = chunks
 
 
 # --------------------------------------------------------------------------

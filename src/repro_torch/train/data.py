@@ -8,8 +8,11 @@ reference's and draws the same numpy stream, so the batches are bit-equal
 to the reference's for the same config, sizes and seed.  A worker thread
 builds numpy batches ahead of the caller; the copy to the device happens on
 the caller's thread, from pinned memory and without blocking the host when
-the device is a card.  :meth:`DataLoader.close` stops the worker and joins
-it.
+the device is a card; with ``sharding`` (a tree of
+:class:`~repro_torch.dist.sharding.NamedSharding` in the batch's
+structure, as ``batch_shardings`` gives) each batch is then distributed
+onto it, every rank keeping its slice of the batch its own loader made.
+:meth:`DataLoader.close` stops the worker and joins it.
 
 The worker keeps every batch it makes.  The reference's worker drops a
 batch when the queue stays full for a second and makes the next one, so
@@ -20,7 +23,7 @@ from __future__ import annotations
 
 import queue
 import threading
-from typing import Any, Dict, Iterator
+from typing import Any, Dict, Iterator, Optional
 
 import numpy as np
 import torch
@@ -53,8 +56,9 @@ class DataLoader:
     """Background-thread prefetching loader yielding batches on ``device``."""
 
     def __init__(self, cfg, batch: int, seq_len: int, seed: int = 0, prefetch: int = 2,
-                 device="cpu"):
+                 device="cpu", sharding: Optional[Any] = None):
         self.cfg = cfg
+        self.sharding = sharding
         self.batch = batch
         self.seq_len = seq_len
         self.device = torch.device(device)
@@ -84,6 +88,17 @@ class DataLoader:
         batch["mask"] = mask
         return batch
 
+    def like(self) -> Dict[str, torch.Tensor]:
+        """A batch's shapes as meta tensors (no data drawn): what
+        ``batch_shardings`` needs to make this loader's ``sharding``."""
+        cfg = self.cfg
+        shapes = {"tokens": (self.batch, self.seq_len - cfg.n_prefix),
+                  "labels": (self.batch, self.seq_len)}
+        if cfg.n_prefix:
+            shapes["prefix_embeds"] = (self.batch, cfg.n_prefix, cfg.d_model)
+        shapes["mask"] = (self.batch, self.seq_len)
+        return {k: torch.empty(s, device="meta") for k, s in shapes.items()}
+
     def _worker(self) -> None:
         while not self._stop.is_set():
             b = self._make()
@@ -105,6 +120,10 @@ class DataLoader:
             if self.device.type == "cuda":
                 t = t.pin_memory()
             out[k] = t.to(self.device, non_blocking=True)
+        if self.sharding is not None:
+            from repro_torch.dist.sharding import distribute
+
+            return distribute(out, self.sharding)
         return out
 
     def close(self) -> None:

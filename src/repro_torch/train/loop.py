@@ -11,9 +11,15 @@
                            or int8-compressed through ``compressed_psum``.
 
 The reference's mesh axis ``pod`` becomes a ``torch.distributed`` process
-group (``None``: the world), as in :mod:`repro_torch.core.instrument`.
-Sharding inside a pod (the reference's activation hooks) is not ported
-yet: here a rank is one device holding the whole model.
+group (``None``: the world), as in :mod:`repro_torch.core.instrument`; in
+``make_pod_train_step`` a rank is one device holding the whole model.
+Sharding inside a pod is ``make_train_step`` run unchanged on DTensor
+parameters, moments and batches (the launcher's ``build``: 2-D specs from
+:mod:`repro_torch.dist.sharding`, the activation hooks installed): loss and
+gradients come through autograd, AdamW updates each rank's shards in place,
+and :func:`~repro_torch.train.optimizer.decay_mask` reads the global rank.
+The reference's multi-pod step with sharding inside each pod is not here
+(ROADMAP.md, queue 1).
 
 Gradients come from ``torch.autograd.grad`` over detached views of the
 parameter leaves, so the caller's tensors need not require grad.  The steps

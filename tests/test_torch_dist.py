@@ -20,9 +20,10 @@ failure flags) against the JAX package, on the CPU.
   on 3 ranks and its losses equal an in-process replay from that file to
   1e-6, the failed rank takes no step after 12, and every rank tears its
   group down; a failure before the first save restarts from init; one
-  whose survivors do not divide the batch stops every rank at the rebuild;
-  survivors that train on past the world group's timeout finish, since the
-  failed rank leaves after the rebuild.
+  whose survivors do not divide the batch trains on, the batch replicated
+  over the survivors (the 2-D sharded step's sanitized batch spec), with
+  the in-process replay's losses; survivors that train on past the world
+  group's timeout finish, since the failed rank leaves after the rebuild.
 
 JAX is imported inside the reference-side helpers only, so the spawned
 ranks, which import this module, load torch alone.
@@ -321,8 +322,8 @@ def test_failure_injector_is_the_reference_text():
 def test_elastic_layout_follows_the_reference_rule(survivors, monkeypatch):
     """A world of 8 with ``8 - survivors`` ranks failed: for model-parallel
     1-4 the port's (data, model) layout of the surviving ranks is the
-    reference's mesh of the surviving devices (ids), and the group is made
-    over exactly those ranks."""
+    reference's mesh of the surviving devices (ids), and the group and the
+    ``DeviceMesh`` are made over exactly those ranks."""
     from repro.dist import elastic as JEL
 
     failed = np.random.default_rng(survivors).permutation(8)[:8 - survivors]
@@ -334,6 +335,7 @@ def test_elastic_layout_follows_the_reference_rule(survivors, monkeypatch):
     monkeypatch.setattr(TEL, "dist", types.SimpleNamespace(
         get_world_size=lambda: 8, group=types.SimpleNamespace(WORLD="world"),
         new_group=lambda ranks: made.append(list(ranks)) or ("group", tuple(ranks))))
+    monkeypatch.setattr(TEL, "device_mesh", lambda layout, names: ("mesh", layout, names))
     jem, tem = JEL.ElasticMesh(), TEL.ElasticMesh()
     for r in failed:
         jem.fail(int(r))
@@ -347,6 +349,7 @@ def test_elastic_layout_follows_the_reference_rule(survivors, monkeypatch):
         np.testing.assert_array_equal(mesh.layout, want)
         assert mesh.axis_names == names == ("data", "model")
         assert mesh.group == ("world" if survivors == 8 else ("group", tuple(mesh.ranks)))
+        assert mesh.device_mesh == ("mesh", mesh.layout, ("data", "model"))
     assert all(m == tem.healthy_devices() for m in made)
 
 
@@ -429,18 +432,23 @@ COLD = ["--reduced", "--steps", "6", "--batch", "12", "--seq", "32", "--device",
 UNEVEN = ["--reduced", "--steps", "4", "--batch", "8", "--seq", "16", "--device", "cpu",
           "--save-every", "1", "--fail-at", "2"]
 # a world group timing out after SHORT_S, and survivors that each sleep
-# SLOW_S a step after the failure: they outlast that timeout
-OUTLAST = ["--reduced", "--steps", "8", "--batch", "12", "--seq", "32", "--device", "cpu",
-           "--save-every", "2", "--fail-at", "4"]
-SHORT_S, SLOW_S = 4.0, 1.5
+# SLOW_S a step after the failure: they outlast that timeout (the failure
+# comes after 2 steps, so the failed rank's run stays short beside it)
+OUTLAST = ["--reduced", "--steps", "6", "--batch", "12", "--seq", "32", "--device", "cpu",
+           "--save-every", "2", "--fail-at", "2"]
+SHORT_S, SLOW_S = 8.0, 2.5
 
 
 def slow_survivors(make):
-    """``make_pod_train_step`` whose steps over a group smaller than the
-    world sleep ``SLOW_S`` first."""
-    def made(cfg, opt_cfg, group, tcfg):
-        step = make(cfg, opt_cfg, group, tcfg)
-        if dist.get_world_size(group) == WORLD:
+    """``make_train_step`` whose steps sleep ``SLOW_S`` first from its
+    second build on: the step the launcher builds over the survivors'
+    mesh after the rebuild."""
+    builds = []
+
+    def made(cfg, opt_cfg, *rest):
+        step = make(cfg, opt_cfg, *rest)
+        builds.append(step)
+        if len(builds) == 1:
             return step
 
         def slow(state, batch):
@@ -463,14 +471,14 @@ def outlast_run(ports, ckpt):
     dist.init_process_group("gloo", init_method="env://",
                             timeout=datetime.timedelta(seconds=SHORT_S))
     try:
-        ltrain.make_pod_train_step = slow_survivors(TLoop.make_pod_train_step)
+        ltrain.make_train_step = slow_survivors(TLoop.make_train_step)
         t0 = time.monotonic()
         res = ltrain.run(ltrain.parser().parse_args(OUTLAST + ["--checkpoint-dir", ckpt]))
         res["run_s"] = time.monotonic() - t0
     except RuntimeError as e:
         res = {"error": str(e)}
     finally:
-        ltrain.make_pod_train_step = TLoop.make_pod_train_step
+        ltrain.make_train_step = TLoop.make_train_step
         dist.destroy_process_group()
     return res
 
@@ -575,19 +583,33 @@ def test_four_gloo_ranks_fail_restore_and_rebuild(tmp_path):
     np.testing.assert_allclose(res["losses"][3:5], replay(cfg, opt_cfg, init, 3, 2, 12, 32),
                                rtol=1e-6, atol=0)
 
-    # 3 survivors and a batch of 8: every rank stops at the rebuild
-    for g in got:
-        assert g["uneven"] == {"error": "--batch 8 does not divide over the 3 surviving ranks",
-                               "torn_down": True}
+    # 3 survivors and a batch of 8: the batch replicates over them, and the
+    # survivors' losses are the whole-batch replay's from the file
+    uneven = [g["uneven"] for g in got]
+    for res in uneven:
+        assert "error" not in res and res["torn_down"]
+        assert res["restarts"] == [{"step": 2, "failed_rank": 3, "restored_step": 2,
+                                    "survivors": 3}]
+    assert len(uneven[3]["losses"]) == 2
+    for res in uneven[:3]:
+        assert res["mesh"] == [3, 1] and res["losses"] == uneven[0]["losses"]
+        assert len(res["losses"]) == 4
+    ckpt = str(tmp_path / "uneven")
+    opt_cfg = OptConfig(lr=3e-4, warmup_steps=1, total_steps=4)
+    fresh = TLoop.init_state(cfg, opt_cfg, torch.Generator().manual_seed(1), "cpu")
+    state = bridge.state_from_numpy(
+        cfg, TCK.CheckpointManager(ckpt).load(2, bridge.state_to_numpy(cfg, fresh)), "cpu")
+    np.testing.assert_allclose(uneven[0]["losses"][2:], replay(cfg, opt_cfg, state, 2, 2, 8, 16),
+                               rtol=1e-6, atol=0)
 
     # the survivors outlast the world group's timeout: the failed rank,
     # which takes no part in their collectives, leaves after the rebuild
     outlast = [g["outlast"] for g in got]
     for res in outlast:
         assert "error" not in res, res["error"]
-        assert res["restarts"] == [{"step": 4, "failed_rank": 3, "restored_step": 4,
+        assert res["restarts"] == [{"step": 2, "failed_rank": 3, "restored_step": 2,
                                     "survivors": 3}]
-    assert len(outlast[3]["losses"]) == 4 and outlast[3]["run_s"] < SHORT_S
+    assert len(outlast[3]["losses"]) == 2 and outlast[3]["run_s"] < SHORT_S
     for res in outlast[:3]:
-        assert len(res["losses"]) == 8 and res["run_s"] > 4 * SLOW_S > SHORT_S
+        assert len(res["losses"]) == 6 and res["run_s"] > 4 * SLOW_S > SHORT_S
         assert np.isfinite(res["losses"]).all()

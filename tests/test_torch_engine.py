@@ -312,8 +312,9 @@ def test_serve_cli_continuous_on_cpu(capsys):
     res = tserve.main(["--reduced", "--continuous", "--device", "cpu", "--theta", "predictive"])
     assert res["policy"] == "cntd_predictive" and res["completed"] == 8
     assert res["priced_slack_ms"] > 0 and res["objects"]["governor"].n_predictor_decisions > 0
-    with pytest.raises(SystemExit, match="--model-parallel is not ported"):
-        tserve.main(["--reduced", "--device", "cpu", "--model-parallel", "2"])
+    # a world of 1: the largest degree that divides it is 1, nothing is wrapped
+    res = tserve.main(["--reduced", "--device", "cpu", "--model-parallel", "2", "--steps", "2"])
+    assert res["mesh"] is None and res["shape"] == [4, 2]
 
 
 def test_serve_cli_samples_the_reference_tokens_at_its_default_temperature():

@@ -87,9 +87,11 @@ def test_dist_and_launch_export_what_the_port_has():
                  "compressed_psum"):
         assert getattr(JD, name).__module__.replace("repro.", "repro_torch.", 1) == \
             getattr(TD, name).__module__, name
-    assert set(JLA._SUBMODULES) - set(TLA._SUBMODULES) == {"dryrun", "mesh"}
-    assert {"serve", "train"} <= set(TLA.__all__) <= set(dir(TLA))
+    assert set(JLA._SUBMODULES) - set(TLA._SUBMODULES) == {"dryrun"}
+    assert {"mesh", "serve", "train"} <= set(TLA.__all__) <= set(dir(TLA))
     assert TLA.train.__name__ == "repro_torch.launch.train"
+    assert TLA.mesh.__name__ == "repro_torch.launch.mesh"
+    assert TD.sharding.__name__ == "repro_torch.dist.sharding"
     with pytest.raises(AttributeError):
         TLA.dryrun
 

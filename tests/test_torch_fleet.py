@@ -401,7 +401,9 @@ def test_launcher_fleet_on_cpu_writes_valid_metrics(tmp_path, capsys, one_thread
     """``--fleet 2`` on the CPU finishes every request of a short flash
     crowd, with the dashboard and batched ingestion on; the reference's
     validator accepts its metrics file; the watts are labelled as
-    modelled; ``--model-parallel`` is still refused."""
+    modelled; ``--model-parallel 2`` in a world of 1 wraps nothing (the
+    largest degree that divides one rank is 1), so the fleet runs on plain
+    tensors."""
     from repro.obs.export import validate_metrics_jsonl
     from repro_torch.core import instrument
 
@@ -419,9 +421,9 @@ def test_launcher_fleet_on_cpu_writes_valid_metrics(tmp_path, capsys, one_thread
     assert res["metrics_out"] == path and res["metrics_lines"] == 1
     assert validate_metrics_jsonl(path) == []
     assert '"mode": "fleet"' in capsys.readouterr().out.splitlines()[-1]
-    with pytest.raises(SystemExit, match=r"--model-parallel is not ported to repro_torch yet "
-                                         r"\(ROADMAP.md, queue 1, item 4 \(sharding\)\)"):
-        tserve.main(["--reduced", "--device", "cpu", "--fleet", "2", "--model-parallel", "2"])
+    args = tserve.parser().parse_args(["--reduced", "--device", "cpu", "--fleet", "2",
+                                       "--model-parallel", "2"])
+    assert tserve.serve_mesh(args) is None
 
 
 @pytest.mark.parametrize("kind", TRACES)

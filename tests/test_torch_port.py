@@ -85,7 +85,8 @@ def test_every_module_imports_with_jax_and_repro_blocked():
                   "cluster.arbiter", "cluster.job", "cluster.trace", "cluster.coschedule",
                   "serve.fleet", "serve.fleet.prefix", "dist.checkpoint", "dist.elastic",
                   "serve.fleet.router", "serve.fleet.scenarios", "serve.fleet.autoscaler",
-                  "serve.fleet.replica", "serve.fleet.fleet"):
+                  "serve.fleet.replica", "serve.fleet.fleet", "dist.sharding",
+                  "models.hooks", "launch.mesh"):
             assert "repro_torch." + n in names, n
         examples = sorted(glob.glob(os.path.join(EXAMPLES, "torch_*.py")))
         assert len(examples) == 5, examples
@@ -95,7 +96,8 @@ def test_every_module_imports_with_jax_and_repro_blocked():
         from repro_torch.serve import ContinuousEngine, PrefixCache  # noqa: F401
         from repro_torch.serve import FleetSim, run_engine_fleet  # noqa: F401
         from repro_torch.models import init_params  # noqa: F401
-        from repro_torch.dist import CheckpointManager, ElasticMesh  # noqa: F401
+        from repro_torch.dist import CheckpointManager, ElasticMesh, sharding  # noqa: F401
+        from repro_torch.launch import mesh  # noqa: F401
         bad = [k for k in sys.modules if k.split(".")[0] in ("jax", "jaxlib", "repro")]
         assert not bad, bad
         print(len(names))

@@ -457,13 +457,20 @@ def test_launcher_runs_make_train_step_on_the_reference_defaults():
 @pytest.mark.parametrize("flag", [["--model-parallel", "2"],
                                   ["serve", "--model-parallel", "2"]])
 def test_launcher_refuses_the_flags_that_wait(flag):
-    """The train launcher's and the serve launcher's (a leading
-    ``"serve"``) model-parallel flag is refused naming its ROADMAP item, 4
-    for sharding."""
+    """No flag of the train launcher or the serve launcher (a leading
+    ``"serve"``) waits any more: the model-parallel flag, which waited for
+    sharding (ROADMAP.md, queue 1, item 4), runs, and in a world of 1 (the
+    largest degree that divides it is 1) nothing is a DTensor."""
+    from torch.distributed.tensor import DTensor
+
     from repro_torch.launch import serve as lserve
 
+    for mod in (ltrain, lserve):
+        assert not hasattr(mod, "WAITING")
     main, argv = (lserve.main, flag[1:]) if flag[0] == "serve" else (ltrain.main, flag)
-    item = "4 (sharding"
-    with pytest.raises(SystemExit, match=r"not ported to repro_torch yet \(ROADMAP.md, queue 1, "
-                                         r"item " + re.escape(item)):
-        main(["--reduced", "--steps", "1", "--device", "cpu"] + argv)
+    res = main(["--reduced", "--steps", "1", "--device", "cpu"] + argv)
+    if main is ltrain.main:
+        assert res["step"] == "build" and res["mesh"] == [1, 1] and len(res["losses"]) == 1
+    else:
+        assert res["mesh"] is None and res["mode"] == "static"
+        assert not any(isinstance(p, DTensor) for p in leaves(res["objects"]["params"]))
