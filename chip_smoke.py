@@ -245,8 +245,37 @@ Builds the hand-written kernels from the five sources in this checkout (one
    logged.  Two ranks sharing the one card are not run: NCCL refuses two
    ranks on one device, and under gloo DTensor's all-gather of CUDA
    tensors crashed its process (PERF.md, section 7).
+25. **the dry run against the card**: ``python -m
+   repro_torch.launch.dryrun`` in subprocesses (each its own fake world of
+   256 or 512 ranks, records in a temporary directory) on llama3.2-1b
+   ``decode_32k --mesh pod`` and ``train_4k --mesh multipod --instrument
+   barrier``, both ``ok``, each cell's per-rank peak, FLOPs and collective
+   counts logged; meanwhile flash (B 8, Hq 32, Hkv 8, S 2048, D 64) and
+   RMSNorm (16384 and 8 rows of 2048) in bf16, the cells' calls, held to
+   their plain versions (BF16_TOL, and the error's RMS within 0.1 % of the
+   output's); then three one-card cells of full-width llama3.2-1b in
+   the production config (bf16, vocab padded to 256): train 8 x 128,
+   prefill 8 x 2048, decode 8 over a 2048-position cache, each counted by
+   ``build_cell`` on ``meta`` over a one-rank fake world (a subprocess)
+   and run on the card with the same arguments materialised (random
+   weights from seed 0): the argument bytes equal the count's exactly
+   (the prefill cache, written whole before it is read, is output only);
+   the plain step's peak (``max_memory_allocated`` less what earlier
+   phases still hold) within 10 % or 256 MiB of the predicted peak; its
+   ``FlopCounterMode`` FLOPs equal the count's; the plain step's median
+   time (5 runs after a warm-up) at least the roofline from the counts,
+   ``max(flops / 989.4e12, traffic_bytes / 3.35e12)`` (share at most
+   1.05: the counts are the plain path's); the step through the kernels
+   timed the same way, exact launches, its logits and cache held to the
+   plain step's on copies of the same arguments (each float leaf's error
+   RMS within 5 % of its own, the positions equal; the same check must
+   catch flash patched to attend to half the keys and RMSNorm patched to
+   leave half its rows zero), its share of that roofline logged
+   (flash never writes the score chunks the plain traffic counts) and its
+   time at least what any implementation must move (arguments and
+   outputs at 3.35 TB/s).
 
-In phases 1b, 2, 5, 8, 11, 13-16 and 18-24 every kernel count is set to 0 just
+In phases 1b, 2, 5, 8, 11, 13-16 and 18-25 every kernel count is set to 0 just
 before the run and read just after; each must equal the launches the path
 needs (RMSNorm once per norm a join and a step where the norm is RMSNorm,
 none for LayerNorm and the nonparametric norm: 2 a layer with an MLP, 1
@@ -2875,6 +2904,346 @@ def phase_sharded_serving(torch, mods, card):
             dist.destroy_process_group()
 
 
+# --------------------------------------------------------------------------
+# phase 25: the dry run against the card
+# --------------------------------------------------------------------------
+
+DRYRUN_CLI_CELLS = (["--shape", "decode_32k", "--mesh", "pod"],
+                    ["--shape", "train_4k", "--mesh", "multipod", "--instrument", "barrier"])
+# one-card cells of full-width llama3.2-1b: name -> (seq_len, batch, kind); a
+# serving cell's cache holds seq_len positions
+DRYRUN_CARD_CELLS = {"train": (128, 8, "train"), "prefill": (2048, 8, "prefill"),
+                     "decode": (2048, 8, "decode")}
+BF16_FLOPS_PER_S = 989.4e12   # H100 SXM dense bf16 tensor cores
+DRYRUN_PEAK_TOL, DRYRUN_PEAK_FLOOR = 0.10, 256 << 20
+DRYRUN_ROOF_SHARE = 1.05
+DRYRUN_TIMED = 5
+# the error's RMS over the plain output's RMS (bf16): each kernel against its
+# plain version at the cells' shapes (measured about 1e-4 and below), and the
+# step through the kernels against the plain step on the same arguments
+# (measured 1.8e-2 at prefill, where the plain path's bf16 attention rounds
+# differently through 16 layers; flash over half the keys gives 0.16)
+DRYRUN_KERNEL_REL_RMS = 1e-3
+DRYRUN_STEP_REL_RMS = 5e-2
+# the kernels' calls in the one-card cells, bf16: flash at prefill (B, Hq,
+# Hkv, S, D) and RMSNorm at prefill's and decode's rows
+DRYRUN_FLASH = (8, 32, 8, 2048, 64)
+DRYRUN_NORMS = ((16384, 2048), (8, 2048))
+DRYRUN_COUNT = """
+import json, torch
+from torch.distributed.device_mesh import init_device_mesh
+from repro_torch.configs.base import ShapeConfig
+from repro_torch.dist import sharding as SH
+from repro_torch.launch import dryrun as D
+from repro_torch.models.hooks import install_constraint
+D.fake_world(1)
+mesh = init_device_mesh("cpu", (1, 1), mesh_dim_names=("data", "model"))
+install_constraint(SH.activation_constraint_fn(mesh))
+cfg = D.production_config("llama3.2-1b")
+out = {}
+for name, (seq, batch, kind) in CELLS.items():
+    fn, args = D.build_cell("llama3.2-1b", ShapeConfig(name, seq, batch, kind), mesh)
+    out[name] = D.count_step(fn, args, cfg)
+print(json.dumps(out))
+"""
+
+
+def dryrun_processes(out_dir):
+    """The dry run's CLI cells and the one-rank counts, each a subprocess
+    over its own fake world (phase 24's NCCL group cannot share a process
+    with one), all started at once."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    cli = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", "llama3.2-1b",
+           "--out-dir", out_dir, "--force"]
+    procs = [subprocess.Popen(cli + cell, env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for cell in DRYRUN_CLI_CELLS]
+    code = DRYRUN_COUNT.replace("CELLS", repr(DRYRUN_CARD_CELLS))
+    procs.append(subprocess.Popen([sys.executable, "-c", code], env=env,
+                                  stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    return procs
+
+
+def finish(proc, what, timeout=300):
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise RuntimeError(f"chip_smoke check failed: {what} ran over {timeout} s")
+    require(proc.returncode == 0, f"{what} exited {proc.returncode}: {err[-3000:]}")
+    return out
+
+
+def dryrun_card_args(torch, cfg, name):
+    """The cell's arguments materialised on the card (random weights from
+    seed 0, a zeroed cache), its plain and kernel steps, and the bytes of
+    the arguments it does not read (the prefill cache, written whole)."""
+    from repro_torch.models.inputs import make_batch
+    from repro_torch.models.transformer import init_cache, init_params
+    from repro_torch.serve.engine import make_serve_steps
+    from repro_torch.train.loop import make_train_step
+    from repro_torch.train.optimizer import OptConfig, init_opt_state
+    from repro_torch.tree import leaves
+
+    seq, batch, kind = DRYRUN_CARD_CELLS[name]
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    if kind == "train":
+        step = make_train_step(cfg, OptConfig())
+        args = ({"params": params, "opt": init_opt_state(params, OptConfig())},
+                make_batch(cfg, batch, seq, kind="train", device="cuda"))
+        return args, step, step, 0
+    plain = make_serve_steps(cfg, kernel="plain")
+    kern = make_serve_steps(cfg)
+    cache = init_cache(cfg, batch, seq, "cuda")
+    if kind == "prefill":
+        args = (params, make_batch(cfg, batch, seq, kind="prefill", device="cuda"), cache)
+        return args, plain[0], kern[0], sum(t.numel() * t.element_size()
+                                            for t in leaves(cache))
+    token = torch.randint(0, cfg.vocab, (batch,), dtype=torch.int32, device="cuda",
+                          generator=torch.Generator(device="cuda").manual_seed(1))
+    # the port reads the position on the host
+    args = (params, token, torch.tensor(seq - 1, dtype=torch.int32), cache)
+    return args, plain[1], kern[1], 0
+
+
+def rel_rms(torch, got, want) -> float:
+    """The RMS of ``got - want`` over the RMS of ``want``, summed in fp64
+    over slices of at most 2**26 elements (no fp64 copy of the whole)."""
+    got, want = got.reshape(-1), want.reshape(-1)
+    err = ref = 0.0
+    for g, w in zip(got.split(1 << 26), want.split(1 << 26)):
+        require(bool(torch.isfinite(g).all()), "non-finite output")
+        err += float(torch.sum(torch.square(g.double() - w.double())))
+        ref += float(torch.sum(torch.square(w.double())))
+    return (err / max(ref, 1e-300)) ** 0.5
+
+
+def dryrun_kernels_at_cell_shapes(torch, mods):
+    """Flash and RMSNorm at the bf16 shapes the one-card cells give them,
+    each held to its plain version: ``compare`` at BF16_TOL and the error's
+    relative RMS within DRYRUN_KERNEL_REL_RMS."""
+    FA, RN = mods["FA"], mods["RN"]
+    rng = np.random.default_rng(25)
+    bf16 = torch.bfloat16
+    b, hq, hkv, s, d = DRYRUN_FLASH
+    q = randn(torch, rng, b, hq, s, d, dtype=bf16)
+    k = randn(torch, rng, b, hkv, s, d, dtype=bf16)
+    v = randn(torch, rng, b, hkv, s, d, dtype=bf16)
+    cases = [(f"flash B {b} Hq {hq} Hkv {hkv} S {s} D {d} bf16 causal",
+              FA.flash_attention(q, k, v), FA.flash_attention_plain(q, k, v))]
+    del q, k, v
+    for rows, width in DRYRUN_NORMS:
+        x = randn(torch, rng, rows, width, dtype=bf16, std=2.0)
+        scale = randn(torch, rng, width, dtype=bf16, mean=1.0, std=0.2)   # bf16 params
+        cases.append((f"rmsnorm {rows} x {width} bf16 (bf16 scale)",
+                      RN.rmsnorm(x, scale), RN.rmsnorm_plain(x, scale)))
+    for what, got, want in cases:
+        err = compare(torch, got, want, BF16_TOL, what)
+        rel = rel_rms(torch, got, want)
+        log(f"kernel ok at the dry-run cells' shapes: {what}: max_abs_err {err:.3g}, "
+            f"relative RMS error {rel:.3e} (limit {DRYRUN_KERNEL_REL_RMS})")
+        require(rel <= DRYRUN_KERNEL_REL_RMS, f"{what}: relative RMS error {rel:.3e}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def dryrun_rel_errors(torch, name, args, plain, kern):
+    """The kernel step against the plain step, each on its own copy of
+    ``args``' cache: the relative RMS errors of the logits and of each
+    float cache leaf (the integer positions, written by neither kernel,
+    must be equal)."""
+    from repro_torch.tree import leaves
+
+    def run(step):
+        fresh = args[:-1] + (_to(args[-1], torch, "cuda", copy=True),)
+        logits, cache = step(*fresh)
+        return [logits] + leaves(cache)
+
+    want, got = run(plain), run(kern)
+    require(all(torch.equal(g, w) for g, w in zip(got, want) if not w.is_floating_point()),
+            f"{name}: the cache's positions differ")
+    rels = [rel_rms(torch, g, w) for g, w in zip(got, want) if w.is_floating_point()]
+    log(f"{name}: the step through the kernels against the plain step on copies of the same "
+        f"arguments: logits relative RMS error {rels[0]:.3e}, max_abs_err "
+        f"{float((got[0].float() - want[0].float()).abs().max()):.3g} (logits RMS "
+        f"{float(want[0].float().square().mean().sqrt()):.3g}); the cache's {len(rels) - 1} "
+        f"leaves at most {max(rels[1:]):.3e} (limit {DRYRUN_STEP_REL_RMS})")
+    return rels
+
+
+def dryrun_outputs_agree(torch, name, args, plain, kern):
+    """:func:`dryrun_rel_errors` within DRYRUN_STEP_REL_RMS; returns the
+    largest."""
+    rels = dryrun_rel_errors(torch, name, args, plain, kern)
+    require(max(rels) <= DRYRUN_STEP_REL_RMS, f"{name}: the kernel step's outputs part from the "
+            f"plain step's: relative RMS errors {['%.3e' % r for r in rels]}")
+    return max(rels)
+
+
+def dryrun_limit_catches_skipped_work(torch, mods, cfg):
+    """The agreement check against two wrappers that skip work, patched in
+    for this check only: flash attending to the last half of the keys, and
+    RMSNorm leaving the second half of its rows zero.  The prefill cell's
+    outputs must then part from the plain step's beyond DRYRUN_STEP_REL_RMS."""
+    FA, RN = mods["FA"], mods["RN"]
+    flash, norm = FA.flash_attention, RN.rmsnorm
+
+    def half_keys(q, k, v, *, positions=None, window=0, causal=True):
+        return flash(q, k, v, positions=positions, window=q.shape[2] // 2, causal=causal)
+
+    def half_rows(x, scale, eps=1e-6):
+        y = norm(x, scale, eps)
+        y.view(-1, y.shape[-1])[y.numel() // y.shape[-1] // 2:] = 0
+        return y
+
+    args, plain, kern, _ = dryrun_card_args(torch, cfg, "prefill")
+    for what, patch in (("flash over half the keys", dict(flash_attention=half_keys)),
+                        ("RMSNorm zeroing half the rows", dict(rmsnorm=half_rows))):
+        FA.flash_attention = patch.get("flash_attention", flash)
+        RN.rmsnorm = patch.get("rmsnorm", norm)
+        try:
+            rels = dryrun_rel_errors(torch, f"prefill, {what}", args, plain, kern)
+        finally:
+            FA.flash_attention, RN.rmsnorm = flash, norm
+        require(max(rels) > DRYRUN_STEP_REL_RMS, f"prefill with {what}: the agreement check "
+                f"missed it (relative RMS errors at most {max(rels):.3e})")
+        log(f"the agreement check catches {what}: logits {rels[0]:.3e}, cache at most "
+            f"{max(rels[1:]):.3e}, against the limit {DRYRUN_STEP_REL_RMS}")
+    del args, plain, kern
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def median_step_ms(torch, step, args) -> float:
+    """Median wall time of ``DRYRUN_TIMED`` synchronised calls after a
+    warm-up."""
+    step(*args)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(DRYRUN_TIMED):
+        t0 = time.perf_counter()
+        step(*args)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def dryrun_card_cell(torch, mods, cfg, name, count):
+    """One cell on the card against its count: the argument bytes, the
+    peak, the FLOPs of the plain step, the kernel step's outputs against the
+    plain step's, its time beside the roofline from the counts."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.tree import leaves
+
+    seq, batch, kind = DRYRUN_CARD_CELLS[name]
+    gc.collect()
+    torch.cuda.empty_cache()
+    args, plain, kern, unread = dryrun_card_args(torch, cfg, name)
+    tensors = [t for t in leaves(args) if isinstance(t, torch.Tensor)]
+    on_card = sum(t.numel() * t.element_size() for t in tensors)
+    mem = count["memory"]
+    require(on_card - unread == mem["argument_bytes"],
+            f"{name}: arguments on the card {on_card - unread} B, counted "
+            f"{mem['argument_bytes']} B")
+    reset(mods)
+    with FlopCounterMode(display=False) as fc:
+        plain(*args)
+    torch.cuda.synchronize()
+    flops = fc.get_total_flops()
+    require(flops == count["cost"]["flops"],
+            f"{name}: FlopCounterMode on the card {flops}, counted {count['cost']['flops']}")
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    out = plain(*args)
+    torch.cuda.synchronize()
+    raw = torch.cuda.max_memory_allocated()
+    del out
+    # allocations of earlier phases still held are not this step's
+    peak = raw - (resident - sum(t.numel() * t.element_size() for t in tensors if t.is_cuda))
+    want = mem["peak_args_plus_temp"]
+    tol = max(DRYRUN_PEAK_TOL * want, DRYRUN_PEAK_FLOOR)
+    require(abs(peak - want) <= tol, f"{name}: peak {peak} B on the card, predicted {want} B")
+    plain_ms = median_step_ms(torch, plain, args)
+    require(counts_of(mods) == dict.fromkeys(KERNELS, 0), f"{name}: a kernel ran on plain")
+    ms = median_step_ms(torch, kern, args)
+    counts = counts_of(mods)
+    runs = DRYRUN_TIMED + 1
+    kinds = cfg.layer_kinds()
+    want_counts = dict.fromkeys(KERNELS, 0)
+    if kind != "train":
+        want_counts["rmsnorm"] = runs * (2 * len(kinds) + 1)
+    if kind == "prefill":
+        want_counts["flash_attention"] = runs * kinds.count("attn")
+    require(counts == want_counts, f"{name}: launches {counts}, want {want_counts}")
+    # train has no kernel on its path (its two steps are one)
+    agree = dryrun_outputs_agree(torch, name, args, plain, kern) if kind != "train" else None
+    flops_ms = count["cost"]["flops"] / BF16_FLOPS_PER_S * 1e3
+    traffic_ms = count["traffic"]["traffic_bytes"] / HBM_BYTES_PER_S * 1e3
+    roof = max(flops_ms, traffic_ms)
+    # what any implementation must move: each argument read once, each
+    # output written once
+    must = (mem["argument_bytes"] + mem["output_bytes"]) / HBM_BYTES_PER_S * 1e3
+    share, kshare = roof / plain_ms, roof / ms
+    log(f"dry run against the card, llama3.2-1b {name} (batch {batch}, {seq} positions, bf16, "
+        f"one rank): arguments {mem['argument_bytes']} B (equal); peak {peak} B on the card "
+        f"(max allocated {raw} B), predicted {want} B ({100 * (peak - want) / want:+.2f} %); "
+        f"FLOPs {flops:.6e} (equal); roofline from the counts {roof:.3f} ms (flops "
+        f"{flops_ms:.3f}, traffic {traffic_ms:.3f}); "
+        f"plain step {plain_ms:.3f} ms median of {DRYRUN_TIMED}, share {share:.3f}; step through "
+        f"the kernels {ms:.3f} ms (launches {json.dumps(counts)}), share {kshare:.3f}, "
+        f"must-move bound {must:.3f} ms")
+    require(share <= DRYRUN_ROOF_SHARE, f"{name}: the plain step took {plain_ms:.3f} ms, under "
+            f"the roofline {roof:.3f} ms from its counts (share {share:.3f})")
+    require(must / ms <= DRYRUN_ROOF_SHARE, f"{name}: the kernel step took {ms:.3f} ms, under "
+            f"the must-move bound {must:.3f} ms")
+    del args, plain, kern, tensors
+    return {"ms": ms, "plain_ms": plain_ms, "roof_ms": roof, "share": share,
+            "kernel_share": kshare, "peak": peak, "predicted": want, "rel_rms": agree}
+
+
+def phase_dryrun(torch, mods, card):
+    """The dry run's CLI on two full-width cells in subprocesses (flash and
+    RMSNorm held to their plain versions at the cells' shapes meanwhile),
+    then three one-card cells of full-width llama3.2-1b counted on ``meta``
+    over a one-rank fake world and run on the card."""
+    import tempfile
+
+    from repro_torch.launch.dryrun import production_config
+
+    t0 = time.time()
+    with tempfile.TemporaryDirectory() as out_dir:
+        procs = dryrun_processes(out_dir)
+        dryrun_kernels_at_cell_shapes(torch, mods)
+        outs = [finish(p, f"the dry run {' '.join(c)}")
+                for p, c in zip(procs, list(DRYRUN_CLI_CELLS) + [["one-rank counts"]])]
+        names = sorted(os.listdir(out_dir))
+        require(len(names) == len(DRYRUN_CLI_CELLS), names)
+        for fname in names:
+            with open(os.path.join(out_dir, fname)) as f:
+                rec = json.load(f)
+            require(rec["status"] == "ok", f"{fname}: {rec.get('error')}")
+            log(f"dry run {rec['arch']} {rec['shape']} {rec['mesh']} (instrument "
+                f"{rec['instrument']}, {rec['n_devices']} ranks): per-rank peak "
+                f"{rec['memory']['peak_args_plus_temp'] / 2**30:.4f} GiB, FLOPs "
+                f"{rec['cost']['flops']:.6e}, collectives "
+                + json.dumps({k: v["count"] for k, v in rec["collectives"].items()})
+                + f", {rec['compile_scan_s']} s")
+    counts = json.loads(outs[-1].strip().splitlines()[-1])
+    log(f"dry run subprocesses done in {time.time() - t0:.1f} s")
+    cfg = production_config("llama3.2-1b")
+    res = {name: dryrun_card_cell(torch, mods, cfg, name, counts[name])
+           for name in DRYRUN_CARD_CELLS}
+    dryrun_limit_catches_skipped_work(torch, mods, cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 25 done in {time.time() - t0:.1f} s; the card: {card}")
+    return res
+
+
 def _to(tree, torch, device, copy=False):
     """``tree``'s tensors on ``device`` (copies, with ``copy``, even where
     they are there already)."""
@@ -2999,6 +3368,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_shard_kernels(torch, mods, card)
     phase_sharded_serving(torch, mods, card)
+    torch.cuda.empty_cache()
+    phase_dryrun(torch, mods, card)
     log("launches on the llama3.2-1b path " + json.dumps(llama_counts)
         + "; under --theta predictive " + json.dumps(predictive_counts)
         + "; with the prefix cache (warm, greedy) " + json.dumps(prefix_counts)

@@ -7,15 +7,17 @@
                with paged KV, Poisson arrivals, and governor-priced slack,
                tensor-parallel over torchrun's ranks.
 ``mesh``       production/host ``DeviceMesh`` constructors.
+``dryrun``     every (arch x shape x mesh) cell counted on ``meta``
+               tensors over a fake 256/512-rank world: per-rank memory,
+               FLOPs, traffic and collectives.
 ``long_join``  one long prompt's join timed through the kernels and plain.
 
 Submodules load lazily (PEP 562), as the reference's do, so that
-``import repro_torch.launch`` stays cheap for tooling.  Not yet here: the
-reference's ``dryrun`` (ROADMAP.md, queue 1, item 5).
+``import repro_torch.launch`` stays cheap for tooling.
 """
 import importlib
 
-_SUBMODULES = ("long_join", "mesh", "serve", "train")
+_SUBMODULES = ("dryrun", "long_join", "mesh", "serve", "train")
 
 __all__ = list(_SUBMODULES)
 

@@ -8,7 +8,7 @@
 ``slo``        copied: TTFT/TPOT percentiles and the concurrency cap.
 ``engine``     :class:`ContinuousEngine` (with prefix-cache joins and the
                tracer's join/evict instants), :class:`EngineSession` and
-               the legacy :class:`ServeEngine`.
+               the legacy :class:`ServeEngine` and :func:`make_serve_steps`.
 ``fleet``      copied: multi-replica serving, the prefix-cache-aware
                router, SLO autoscaler, watt arbitration, scenarios, the
                deterministic fleet simulator and the real-engine fleet.
@@ -20,13 +20,12 @@ Exports resolve lazily (PEP 562), as the reference's do: importing
 import importlib
 
 # symbol -> defining submodule (the lazy-import table; every name here is
-# importable as `from repro_torch.serve import <name>`).  Not yet here:
-# `make_serve_steps`, which waits for the dry run (ROADMAP.md, queue 1,
-# item 5).
+# importable as `from repro_torch.serve import <name>`).
 _EXPORTS = {
     "ContinuousEngine": "repro_torch.serve.engine",
     "EngineSession": "repro_torch.serve.engine",
     "ServeEngine": "repro_torch.serve.engine",
+    "make_serve_steps": "repro_torch.serve.engine",
     "PagedKVPool": "repro_torch.serve.kvcache",
     "Request": "repro_torch.serve.scheduler",
     "Scheduler": "repro_torch.serve.scheduler",

@@ -95,6 +95,23 @@ def sample_rows(logits: torch.Tensor, rows: List[int], keys: Optional[torch.Tens
 # legacy static-batch engine (dense cache)
 # --------------------------------------------------------------------------
 
+def make_serve_steps(cfg, kernel: Optional[str] = None):
+    """Returns (prefill_step(params, batch, cache), decode_step(params, token,
+    pos, cache)) over ``transformer.prefill`` and ``decode_step``, without
+    autograd, the cache written in place.  ``kernel`` as in
+    :func:`~repro_torch.device.resolve_kernel` (None follows the device)."""
+
+    @torch.no_grad()
+    def prefill_step(params, batch, cache):
+        return _prefill(cfg, params, batch, cache, kernel=kernel)
+
+    @torch.no_grad()
+    def decode_step(params, token, pos, cache):
+        return _decode(cfg, params, token, pos, cache, kernel=kernel)
+
+    return prefill_step, decode_step
+
+
 @dataclass
 class ServeEngine:
     cfg: Any

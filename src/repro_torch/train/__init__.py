@@ -2,9 +2,10 @@
 ported from ``repro.train``.
 
 ``loop``       :func:`make_train_step` and :func:`make_pod_train_step`
-               (data-parallel over a process group, gradients through the
-               instrumented ``cd_psum``), plus :class:`TrainConfig` /
-               :func:`init_state`.
+               (over a ``(pod, data, model)`` mesh, sharded inside each
+               pod, or a process group; gradients reduced over the pods
+               through the instrumented ``cd_psum``), plus
+               :class:`TrainConfig` / :func:`init_state`.
 ``optimizer``  AdamW over trees of tensors: :class:`OptConfig`,
                :func:`adamw_update`, warmup-cosine :func:`schedule`,
                :func:`global_norm`.

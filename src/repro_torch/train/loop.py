@@ -3,23 +3,29 @@
 ``make_train_step``      — the single-process step: loss and gradients
                            under autograd, optional microbatch accumulation,
                            AdamW.
-``make_pod_train_step``  — the data-parallel step: each rank takes its
-                           shard of the batch, and the gradients are
-                           reduced over a process group through the
-                           COUNTDOWN-instrumented ``cd_psum`` (artificial
-                           barrier + timeout-governed slack, per the paper),
-                           or int8-compressed through ``compressed_psum``.
+``make_pod_train_step``  — the multi-pod step: the gradients are reduced
+                           over the pods through the COUNTDOWN-instrumented
+                           ``cd_psum`` (artificial barrier +
+                           timeout-governed slack, per the paper), or
+                           int8-compressed through ``compressed_psum``.
 
-The reference's mesh axis ``pod`` becomes a ``torch.distributed`` process
-group (``None``: the world), as in :mod:`repro_torch.core.instrument`; in
-``make_pod_train_step`` a rank is one device holding the whole model.
-Sharding inside a pod is ``make_train_step`` run unchanged on DTensor
-parameters, moments and batches (the launcher's ``build``: 2-D specs from
-:mod:`repro_torch.dist.sharding`, the activation hooks installed): loss and
-gradients come through autograd, AdamW updates each rank's shards in place,
-and :func:`~repro_torch.train.optimizer.decay_mask` reads the global rank.
-The reference's multi-pod step with sharding inside each pod is not here
-(ROADMAP.md, queue 1).
+``make_pod_train_step`` takes the reference's mesh or a process group.
+Given a ``DeviceMesh`` with a ``pod`` axis (the reference's form), the
+parameters and moments are DTensors in ``param_shardings(mesh,
+include_pod=False, gather_safe=True)`` (FSDP over ``data`` inside each pod,
+whole over ``pod``) and the batch is split over ``(pod, data)``; each
+pod's loss and gradients come from its ``(data, model)`` sub-mesh, with the
+activation hooks of :func:`~repro_torch.dist.sharding.activation_constraint_fn`
+excluding ``pod``, and the gradients' local shards are reduced over the
+rank's pod group.  Given a process group (``None``: the world), as in
+:mod:`repro_torch.core.instrument`, each rank is one device holding the
+whole model and takes its shard of the batch.
+Sharding inside a pod without pods is ``make_train_step`` run unchanged on
+DTensor parameters, moments and batches (the launcher's ``build``: 2-D
+specs from :mod:`repro_torch.dist.sharding`, the activation hooks
+installed): loss and gradients come through autograd, AdamW updates each
+rank's shards in place, and :func:`~repro_torch.train.optimizer.decay_mask`
+reads the global rank.
 
 Gradients come from ``torch.autograd.grad`` over detached views of the
 parameter leaves, so the caller's tensors need not require grad.  The steps
@@ -35,7 +41,9 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.core.instrument import cd_psum
+from repro_torch.dist import sharding as SH
 from repro_torch.dist.compression import compressed_psum
+from repro_torch.models import hooks
 from repro_torch.models.layers import dtype_of
 from repro_torch.models.transformer import init_params, loss_fn
 from repro_torch.train.optimizer import OptConfig, adamw_update, decay_mask, init_opt_state
@@ -131,31 +139,103 @@ def _group_mean(x: torch.Tensor, group=None) -> torch.Tensor:
 
 def make_pod_train_step(cfg, opt_cfg: OptConfig, group=None,
                         train_cfg: TrainConfig = TrainConfig()) -> Callable:
-    """The data-parallel step over ``group`` (the reference's ``pod`` axis).
+    """The multi-pod step over ``group``: a ``DeviceMesh`` with a ``pod``
+    axis (the reference's ``mesh``), or a process group whose ranks are the
+    pods (``None``: the world).
 
-    Every rank calls ``(state, batch)`` with the same state and the global
-    batch, computes the gradients of its shard (:func:`shard_of`) and
-    reduces them through ``cd_psum(grads, group) / n`` (``pod_reduce``
-    "auto" or "manual") or ``compressed_psum(mean=True)`` ("compressed"),
-    so the governor books one instrumented call a step.  The loss is a
-    plain mean over the group, as the reference's ``pmean``.  Every rank
-    then takes the same AdamW step."""
+    The gradients are reduced over the pods through ``cd_psum(grads) / n``
+    (``pod_reduce`` "auto" or "manual") or ``compressed_psum(mean=True)``
+    ("compressed"), so the governor books one instrumented call a step.
+    The loss is a plain mean over the pods, as the reference's ``pmean``.
+    Every pod then takes the same AdamW step.
+
+    Over a process group every rank calls ``(state, batch)`` with the same
+    plain state and the global batch and computes the gradients of its
+    shard (:func:`shard_of`).  Over a mesh see :func:`_mesh_pod_step`."""
     if train_cfg.pod_reduce not in ("auto", "manual", "compressed"):
         raise ValueError(f"unknown pod_reduce {train_cfg.pod_reduce!r}")
-    n = dist.get_world_size(group)
+    from torch.distributed.device_mesh import DeviceMesh
 
-    def reduce_grads(grads):
-        if train_cfg.pod_reduce == "compressed":
-            return compressed_psum(grads, group, mean=True)
-        return tree_map(lambda g: _div(g, n), cd_psum(grads, group))
+    if isinstance(group, DeviceMesh):
+        return _mesh_pod_step(cfg, opt_cfg, group, train_cfg)
+    n = dist.get_world_size(group)
 
     def train_step(state: Dict[str, Any], batch: Dict[str, Any]):
         params = state["params"]
         loss, _, grads = _local_grads(cfg, params, shard_of(batch, group), train_cfg)
-        grads = reduce_grads(grads)
+        grads = _pod_reduce(grads, group, n, train_cfg)
         loss = _group_mean(loss, group)
         params, opt, opt_metrics = adamw_update(params, grads, state["opt"], opt_cfg,
                                                 decay_mask(cfg, params))
+        return {"params": params, "opt": opt}, {"loss": loss, **opt_metrics}
+
+    return train_step
+
+
+def _pod_reduce(grads, group, n: int, train_cfg: TrainConfig):
+    """The mean of a tree of plain gradients over ``group``'s ``n`` ranks,
+    through the instrumented collective ``train_cfg.pod_reduce`` names."""
+    if train_cfg.pod_reduce == "compressed":
+        return compressed_psum(grads, group, mean=True)
+    return tree_map(lambda g: _div(g, n), cd_psum(grads, group))
+
+
+def _mesh_pod_step(cfg, opt_cfg: OptConfig, mesh, train_cfg: TrainConfig) -> Callable:
+    """The reference's pod-explicit step on a ``(pod, data, model)`` mesh.
+
+    ``state`` holds DTensors on ``mesh``, whole over ``pod`` (the
+    ``include_pod=False`` specs), and ``batch`` DTensors split over
+    ``pod`` (``batch_shardings``).  Each rank views its local shards as
+    DTensors on its pod's ``(data, model)`` sub-mesh (no copy), so a pod's
+    forward and backward, and their collectives, stay inside the pod.  The
+    gradients, in the parameters' placements, are reduced shard by shard
+    over the rank's pod group (its peers at the same (data, model)
+    coordinate hold the same shard of the other pods' gradients); a DTensor
+    placed over the whole mesh would claim the pods agree before they do.
+    AdamW then updates the state's shards in place on ``mesh``."""
+    from torch.distributed.tensor import DTensor
+
+    names = tuple(mesh.mesh_dim_names or ())
+    if "pod" not in names:
+        raise ValueError("make_pod_train_step needs a mesh with a 'pod' axis")
+    pod_dim = names.index("pod")
+    npod = mesh.size(pod_dim)
+    pod_group = mesh.get_group("pod")
+    inner = tuple(a for a in names if a != "pod")
+    sub = mesh[inner]
+    constraint = SH.activation_constraint_fn(sub, exclude={"pod"})
+
+    def in_pod(t):
+        """``t``'s local shard as a DTensor on the pod's sub-mesh."""
+        placements = tuple(t.placements)
+        return DTensor.from_local(t.to_local(), sub,
+                                  placements[:pod_dim] + placements[pod_dim + 1:],
+                                  run_check=False)
+
+    def train_step(state: Dict[str, Any], batch: Dict[str, Any]):
+        params = state["params"]
+        flat = leaves(params)
+        if any(p.placements[pod_dim].is_shard() for p in flat):
+            raise ValueError("the pod step keeps parameters whole over 'pod' "
+                             "(param_shardings(include_pod=False))")
+        pod_params = [in_pod(p) for p in flat]
+        old = hooks._CONSTRAIN
+        hooks.install_constraint(constraint)
+        try:
+            with SH.replicating(sub):
+                loss, _, grads = _local_grads(cfg, unflatten(params, pod_params),
+                                              tree_map(in_pod, batch), train_cfg)
+        finally:
+            hooks.install_constraint(old)
+        local = [g.redistribute(sub, p.placements).to_local()
+                 for g, p in zip(leaves(grads), pod_params)]
+        local = leaves(_pod_reduce(local, pod_group, npod, train_cfg))
+        grads = unflatten(params, [DTensor.from_local(g, mesh, p.placements, run_check=False)
+                                   for g, p in zip(local, flat)])
+        loss = _group_mean(SH.whole(loss), pod_group)
+        with SH.replicating(mesh):
+            params, opt, opt_metrics = adamw_update(params, grads, state["opt"], opt_cfg,
+                                                    decay_mask(cfg, params))
         return {"params": params, "opt": opt}, {"loss": loss, **opt_metrics}
 
     return train_step

@@ -131,5 +131,5 @@ def adamw_update(params: Any, grads: Any, state: Dict[str, Any], cfg: OptConfig,
         if master is not p:
             master.copy_(new_master)
         p.copy_(new_master.to(p.dtype))
-    state["step"] = step
+    state["step"].copy_(step)
     return params, state, {"grad_norm": gnorm, "lr": lr}

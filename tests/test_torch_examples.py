@@ -37,7 +37,7 @@ from repro_torch.train.optimizer import OptConfig
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 # the reference's serve exports the port does not have yet, and what each waits for
-SERVE_WAITING = {"make_serve_steps": "the dry run"}
+SERVE_WAITING = {}
 
 
 # --------------------------------------------------------------------------
@@ -46,7 +46,7 @@ SERVE_WAITING = {"make_serve_steps": "the dry run"}
 
 def test_serve_exports_the_reference_names_the_port_has():
     assert set(JS._EXPORTS) - set(TS._EXPORTS) == set(SERVE_WAITING)
-    assert len(TS._EXPORTS) == 23 and TS.__all__ == sorted(TS._EXPORTS)
+    assert len(TS._EXPORTS) == 24 and TS.__all__ == sorted(TS._EXPORTS)
     for name, module in TS._EXPORTS.items():
         assert module == JS._EXPORTS[name].replace("repro.", "repro_torch.", 1)
         assert getattr(TS, name) is getattr(importlib.import_module(module), name)
@@ -87,13 +87,14 @@ def test_dist_and_launch_export_what_the_port_has():
                  "compressed_psum"):
         assert getattr(JD, name).__module__.replace("repro.", "repro_torch.", 1) == \
             getattr(TD, name).__module__, name
-    assert set(JLA._SUBMODULES) - set(TLA._SUBMODULES) == {"dryrun"}
-    assert {"mesh", "serve", "train"} <= set(TLA.__all__) <= set(dir(TLA))
+    assert set(JLA._SUBMODULES) - set(TLA._SUBMODULES) == set()
+    assert {"dryrun", "mesh", "serve", "train"} <= set(TLA.__all__) <= set(dir(TLA))
     assert TLA.train.__name__ == "repro_torch.launch.train"
     assert TLA.mesh.__name__ == "repro_torch.launch.mesh"
+    assert TLA.dryrun.__name__ == "repro_torch.launch.dryrun"
     assert TD.sharding.__name__ == "repro_torch.dist.sharding"
     with pytest.raises(AttributeError):
-        TLA.dryrun
+        TLA.not_a_module
 
 
 # --------------------------------------------------------------------------

@@ -86,7 +86,7 @@ def test_every_module_imports_with_jax_and_repro_blocked():
                   "serve.fleet", "serve.fleet.prefix", "dist.checkpoint", "dist.elastic",
                   "serve.fleet.router", "serve.fleet.scenarios", "serve.fleet.autoscaler",
                   "serve.fleet.replica", "serve.fleet.fleet", "dist.sharding",
-                  "models.hooks", "launch.mesh"):
+                  "models.hooks", "launch.mesh", "launch.dryrun"):
             assert "repro_torch." + n in names, n
         examples = sorted(glob.glob(os.path.join(EXAMPLES, "torch_*.py")))
         assert len(examples) == 5, examples
@@ -98,6 +98,16 @@ def test_every_module_imports_with_jax_and_repro_blocked():
         from repro_torch.models import init_params  # noqa: F401
         from repro_torch.dist import CheckpointManager, ElasticMesh, sharding  # noqa: F401
         from repro_torch.launch import mesh  # noqa: F401
+        # the dry run counts a small cell over a fake world of 4 ranks
+        from torch.distributed.device_mesh import init_device_mesh
+        from repro_torch.configs import get_config, reduced
+        from repro_torch.configs.base import ShapeConfig
+        from repro_torch.launch import dryrun
+        dryrun.fake_world(4)
+        dryrun.get_config = lambda a: reduced(get_config(a))
+        dm = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model"))
+        fn, args = dryrun.build_cell("llama3.2-1b", ShapeConfig("d", 16, 4, "decode"), dm)
+        assert dryrun.count_step(fn, args)["memory"]["argument_bytes"] > 0
         bad = [k for k in sys.modules if k.split(".")[0] in ("jax", "jaxlib", "repro")]
         assert not bad, bad
         print(len(names))
