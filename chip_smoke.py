@@ -274,8 +274,27 @@ Builds the hand-written kernels from the five sources in this checkout (one
    (flash never writes the score chunks the plain traffic counts) and its
    time at least what any implementation must move (arguments and
    outputs at 3.35 TB/s).
+26. **the other families sharded, on one card**: ``python -m
+   repro_torch.launch.dryrun`` on granite-moe-3b-a800m ``decode_32k
+   --mesh pod`` in a subprocess, ``ok``; meanwhile the kernels at each
+   rank's shapes under model degree 2, 4 and 8, each held to its plain
+   version and timed beside it, its bound and its library call: the
+   RG-LRU scan on recurrentgemma-2b's W/mp lanes (W 1280/640/320, B 1, S
+   2032 and 128, with h0; every W a whole number of the kernel's 16-lane
+   blocks), the SSD scan on mamba2-130m's H/mp heads (H 12/6/3, B 1, P 64,
+   N 128, chunk 128, S 2048 and 128, with a state), granite's paged step
+   (B 8, Hkv 4/2/1, G 3, D 64) and flash (S 128, Hq 12/6/3, Hkv 4/2/1),
+   and recurrentgemma's degree-2 paged step (its 10 query heads split 5
+   and 5 over the one KV head, whose pages every rank holds: Hkv 1, G 5,
+   D 256, window 2048).  Then full-width granite-moe-3b-a800m,
+   recurrentgemma-2b and mamba2-130m (fp32 params, random weights from
+   seed 0) served greedy as in phase 24 by the plain-tensor engine and by
+   the sharded code path on a (1, 1) NCCL mesh: exact launches, equal
+   between the two runs; tokens equal per request (an MoE request is
+   excused only where the two runs' routers first part at a near tie,
+   probabilities within 1e-3); both decode-step p50s logged.
 
-In phases 1b, 2, 5, 8, 11, 13-16 and 18-25 every kernel count is set to 0 just
+In phases 1b, 2, 5, 8, 11, 13-16 and 18-26 every kernel count is set to 0 just
 before the run and read just after; each must equal the launches the path
 needs (RMSNorm once per norm a join and a step where the norm is RMSNorm,
 none for LayerNorm and the nonparametric norm: 2 a layer with an MLP, 1
@@ -3244,6 +3263,261 @@ def phase_dryrun(torch, mods, card):
     return res
 
 
+# --------------------------------------------------------------------------
+# phase 26: the other families sharded, on one card
+# --------------------------------------------------------------------------
+
+# per-rank widths at model degree 2, 4 and 8: recurrentgemma-2b's RG-LRU
+# lanes (W 2560), mamba2-130m's SSD heads (H 24), granite's attention heads
+# (Hq 24, Hkv 8, G 3)
+FAMILY_SHARD_LANES = (1280, 640, 320)
+FAMILY_SHARD_HEADS = (12, 6, 3)
+GRANITE_SHARD_HEADS = ((12, 4), (6, 2), (3, 1))
+# recurrentgemma-2b at degree 2: Hq 10 split 5 and 5 over its one KV head,
+# whose pages every rank holds whole (Hkv, G, D, window)
+RG_SHARD_PAGED = (1, 5, 256, 2048)
+FAMILY_SHARD_ARCHS = ("granite-moe-3b-a800m", "recurrentgemma-2b", "mamba2-130m")
+FAMILY_DRYRUN_CELL = ["--arch", "granite-moe-3b-a800m", "--shape", "decode_32k", "--mesh", "pod"]
+
+
+def shard_paged_record(torch, PA, rng, what, hkv, g, d, window):
+    """The fused paged step at one rank's shapes (B 8, page 16, slots
+    between positions 128 and 175, bf16 pages, fp32 query) against its
+    plain version, the pools bit-equal outside the scratch page; timed
+    beside its plain version, SDPA and its bound."""
+    case, pos = paged_case(torch, rng, torch.bfloat16, torch.float32, b=8, hkv=hkv, g=g,
+                           d=d, page=16, m=11, pos_lo=128)
+    plain_in = {k: v.clone() for k, v in case.items()}
+    kern_in = {k: v.clone() for k, v in case.items()}
+    want = PA.paged_attention_scatter_plain(**plain_in, window=window)
+    got = PA.paged_attention_scatter(**kern_in, window=window)
+    err = compare(torch, got, want, BF16_TOL, f"paged per rank, {what}")
+    ratio = slot_ratio(got, want)
+    require(ratio <= SLOT_REL_TOL, f"paged {what}: slot error {ratio:.3g} of its RMS")
+    for pool in ("k_pages", "v_pages"):
+        require(torch.equal(kern_in[pool][1:], plain_in[pool][1:]), f"{what}: {pool}")
+    b_ms, b_by = paged_bound(case, pos, window)
+    return dict(
+        max_abs_err=err,
+        ms=time_ms(torch, lambda: PA.paged_attention_scatter(**kern_in, window=window)),
+        plain_ms=time_ms(torch, lambda: PA.paged_attention_scatter_plain(**plain_in,
+                                                                          window=window)),
+        bound_ms=b_ms, bound_by=b_by, library_ms=paged_sdpa_ms(torch, case, window))
+
+
+def phase_family_shard_kernels(torch, mods, card):
+    """The kernels of the other families' tensor-parallel serving at each
+    rank's shapes under model degree 2, 4 and 8: the RG-LRU scan on
+    recurrentgemma-2b's W/mp lanes (B 1, S 2032 and 128, with h0), the SSD
+    scan on mamba2-130m's H/mp heads (B 1, P 64, N 128, chunk 128, S 2048
+    and 128, with a state), granite's paged step and flash at S 128 on its
+    heads, and recurrentgemma's degree-2 paged step (its query heads split
+    over the one KV head).  Each held to its plain version and timed beside
+    it, its bound and its library call.  Returns the records."""
+    import torch.nn.functional as F
+
+    PA, FA, RS, SSD = mods["PA"], mods["FA"], mods["RS"], mods["SSD"]
+    rng = np.random.default_rng(26)
+    records = {}
+    for mp, w in zip(SHARD_DEGREES, FAMILY_SHARD_LANES):
+        for s in (2032, 128):
+            a = torch.from_numpy(rng.uniform(0.3, 0.999, (1, s, w)).astype(np.float32)).to("cuda")
+            bb = randn(torch, rng, 1, s, w, std=0.3)
+            h0 = randn(torch, rng, 1, w)
+            plan = RS.scan_plan(1, s, w, RS.sm_count(a.device))
+            require(w % RS.LANES == 0, f"W {w} is not a whole number of {RS.LANES}-lane blocks")
+            err = compare(torch, RS.rglru_scan(a, bb, h0), RS.linear_scan(a, bb, h0)[0],
+                          F32_TOL, f"rglru_scan per rank, degree {mp}: W {w} S {s} with h0")
+            b_ms, b_by = bound(3 * a.numel() * 4 + h0.numel() * 4, 2 * a.numel())
+            records[f"rglru_scan S {s}", mp] = dict(
+                max_abs_err=err, ms=time_ms(torch, lambda: RS.rglru_scan(a, bb, h0)),
+                plain_ms=time_ms(torch, lambda: RS.linear_scan(a, bb, h0)),
+                bound_ms=b_ms, bound_by=b_by, library_ms=None, plan=plan._asdict())
+    b, p, n, chunk = 1, 64, 128, 128
+    for mp, h in zip(SHARD_DEGREES, FAMILY_SHARD_HEADS):
+        a_log = torch.from_numpy(-rng.uniform(1.0, 16.0, h).astype(np.float32)).to("cuda")
+        for s in (2048, 128):
+            x = randn(torch, rng, b, s, h, p)
+            dt = torch.from_numpy(rng.uniform(0.001, 0.2, (b, s, h)).astype(np.float32)).to("cuda")
+            bb, cc = randn(torch, rng, b, s, n), randn(torch, rng, b, s, n)
+            h0 = randn(torch, rng, b, h, p, n, std=0.1)
+            y, state = SSD.ssd_scan(x, dt, a_log, bb, cc, chunk=chunk, init_state=h0)
+            want_y, want_state = SSD.ssd_chunked(x, dt, a_log, bb, cc, chunk, h0)
+            what = f"ssd per rank, degree {mp}: H {h} S {s} with a state"
+            err = max(compare(torch, y, want_y, SSD_TOL, what + ": y"),
+                      compare(torch, state, want_state, SSD_TOL, what + ": final state"))
+            b_ms, b_by = ssd_bound(b, s, h, p, n, chunk, True)
+            records[f"ssd_scan S {s}", mp] = dict(
+                max_abs_err=err,
+                ms=time_ms(torch, lambda: SSD.ssd_scan(x, dt, a_log, bb, cc, chunk=chunk,
+                                                       init_state=h0), reps=20),
+                plain_ms=time_ms(torch, lambda: SSD.ssd_chunked(x, dt, a_log, bb, cc, chunk,
+                                                                h0), reps=20),
+                bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    for mp, (hq, hkv) in zip(SHARD_DEGREES, GRANITE_SHARD_HEADS):
+        records["granite paged_attention_scatter", mp] = shard_paged_record(
+            torch, PA, rng, f"granite degree {mp}: Hkv {hkv} G 3 D 64", hkv, 3, 64, 0)
+        q = randn(torch, rng, 1, hq, 128, 64)                   # fp32, as the path promotes
+        k = randn(torch, rng, 1, hkv, 128, 64)
+        v = randn(torch, rng, 1, hkv, 128, 64)
+        err = compare(torch, FA.flash_attention(q, k, v), FA.flash_attention_plain(q, k, v),
+                      F32_TOL, f"flash per rank, granite degree {mp}: Hq {hq} Hkv {hkv} S 128")
+        b_ms, b_by = bound(4 * (2 * q.numel() + 2 * k.numel()),
+                           4 * 64 * hq * flash_pairs(128, 0, True))
+        mask = flash_mask(torch, 128, 0, True)
+        records["granite flash_attention", mp] = dict(
+            max_abs_err=err, ms=time_ms(torch, lambda: FA.flash_attention(q, k, v)),
+            plain_ms=time_ms(torch, lambda: FA.flash_attention_plain(q, k, v)),
+            bound_ms=b_ms, bound_by=b_by,
+            library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask, enable_gqa=True)))
+    hkv, g, d, window = RG_SHARD_PAGED
+    records["recurrentgemma paged_attention_scatter", 2] = shard_paged_record(
+        torch, PA, rng, f"recurrentgemma degree 2: Hkv {hkv} G {g} D {d} window {window}",
+        hkv, g, d, window)
+    for (name, mp), rec in records.items():
+        log(f"per-rank timing, {name} at model degree {mp}: " + json.dumps(rec)
+            + f" (the card: {card})")
+    return records
+
+
+def first_route_flip(plain, sharded):
+    """The first router call (in call order) where a row's chosen experts
+    differ between two runs' ``RouteLog.calls``, with the largest router
+    probability difference over the calls up to it; None when every call
+    chose alike."""
+    for i, ((pp, pi), (sp, si)) in enumerate(zip(plain, sharded)):
+        if pi.shape != si.shape or not bool((pi.sort(-1).values == si.sort(-1).values).all()):
+            drift = max(float((a - b).abs().max()) for (a, _), (b, _) in
+                        zip(plain[:i + 1], sharded[:i + 1]) if a.shape == b.shape)
+            return i, drift
+    return None
+
+
+def phase_family_sharded_serving(torch, mods, card):
+    """Full-width granite-moe-3b-a800m, recurrentgemma-2b and mamba2-130m
+    (fp32 params, random weights from seed 0) served greedy, 8 requests of
+    128-token prompts and 16 new tokens, 8 slots, page 16, by the
+    plain-tensor engine and by the sharded code path on a (1, 1) NCCL mesh
+    (every leaf a DTensor, the kernels on local shards): launches exact and
+    equal, tokens equal per request (an MoE request excused only where the
+    two runs' routers part at a near tie), both decode-step p50s logged.
+    Returns the launch counts by arch."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.configs import get_config
+    from repro_torch.dist import sharding as SH
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serve.engine import ContinuousEngine
+    from repro_torch.tree import leaves
+
+    made = not dist.is_initialized()
+    if made:
+        dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    out = {}
+    try:
+        mesh = SH.replica_mesh(init_device_mesh("cuda", (1, 1),
+                                                mesh_dim_names=("data", "model")))
+        for arch in FAMILY_SHARD_ARCHS:
+            t0 = time.perf_counter()
+            cfg = get_config(arch)
+            params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+            prompts = shard_prompts(cfg.vocab)
+            max_len = 128 + SHARD_NEW + 16
+
+            def engine(p):
+                return ContinuousEngine(cfg, p, n_slots=8, max_len=max_len, page=16,
+                                        temperature=0.0)
+
+            runs, routes = {}, {}
+            with RouteLog() as rl:
+                runs["plain"] = serve_prompts(torch, mods, engine(params), prompts)
+            routes["plain"] = rl.calls
+            sharded = SH.distribute(params, SH.serve_param_shardings(mesh, params))
+            require(all(isinstance(t, DTensor) for t in leaves(sharded)),
+                    f"{arch}: a leaf is not a DTensor")
+            eng = engine(sharded)
+            require(eng.mesh is mesh, f"{arch}: the engine does not see the mesh")
+            with RouteLog() as rl:
+                runs["sharded"] = serve_prompts(torch, mods, eng, prompts, mesh)
+            routes["sharded"] = rl.calls
+            require(all(isinstance(t, DTensor) for t in leaves(eng.pool.blocks)),
+                    f"{arch}: the pool")
+            kinds = cfg.layer_kinds()
+            norms = sum(1 if k == "ssm" else 2 for k in kinds) + 1
+            for name, (tokens, counts, joins, steps, _) in runs.items():
+                want = dict.fromkeys(KERNELS, 0)
+                want.update(paged_attention_scatter=steps * kinds.count("attn"),
+                            flash_attention=joins * kinds.count("attn"),
+                            rmsnorm=(joins + steps) * norms,
+                            ssd_scan=joins * kinds.count("ssm"),
+                            rglru_scan=joins * kinds.count("rglru"))
+                require(joins == SHARD_PROMPTS and counts == want,
+                        f"{arch} {name}: {joins} joins, {steps} steps, launches {counts}, "
+                        f"want {want}")
+                for i, toks in enumerate(tokens):
+                    require(len(toks) == SHARD_NEW and all(0 <= t < cfg.vocab for t in toks),
+                            (arch, name, i))
+            (pt, pc, _, psteps, pp50), (st, sc, _, ssteps, sp50) = (runs["plain"],
+                                                                    runs["sharded"])
+            require(pc == sc and psteps == ssteps, f"{arch}: launches plain {pc}, sharded {sc}")
+            parted = [i for i, (u, w) in enumerate(zip(pt, st)) if u != w]
+            excused = ""
+            if parted:
+                flip = first_route_flip(routes["plain"], routes["sharded"]) if cfg.is_moe \
+                    else None
+                require(flip is not None and flip[1] <= ROUTE_PROB_TOL,
+                        f"{arch}: requests {parted} part from the plain engine's tokens "
+                        f"(router flip {flip})")
+                excused = (f"; requests {parted} excused: the routers part at call "
+                           f"{flip[0]} with probabilities {flip[1]:.3g} apart")
+            log(f"sharded serving, {arch} on a (1, 1) NCCL mesh: {SHARD_PROMPTS} requests, "
+                f"{psteps} decode steps, tokens equal to the plain engine's for "
+                f"{SHARD_PROMPTS - len(parted)} of {SHARD_PROMPTS} requests{excused}; launches "
+                f"{json.dumps(sc)} (equal); decode step p50 plain {pp50:.3f} ms, sharded "
+                f"{sp50:.3f} ms ({sp50 / pp50:.2f} x); {time.perf_counter() - t0:.1f} s; "
+                f"the card: {card}")
+            out[arch] = sc
+            del eng, sharded, params
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        if made:
+            dist.destroy_process_group()
+    return out
+
+
+def phase_family_sharding(torch, mods, card):
+    """Phase 26: the dry run's CLI on granite's ``decode_32k`` pod cell in a
+    subprocess (``ok``) while the kernels run at the per-rank shapes, then
+    the three families served sharded on one card."""
+    import tempfile
+
+    t0 = time.time()
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    with tempfile.TemporaryDirectory() as out_dir:
+        proc = subprocess.Popen([sys.executable, "-m", "repro_torch.launch.dryrun",
+                                 "--out-dir", out_dir, "--force"] + FAMILY_DRYRUN_CELL,
+                                env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                text=True)
+        records = phase_family_shard_kernels(torch, mods, card)
+        finish(proc, "the dry run " + " ".join(FAMILY_DRYRUN_CELL))
+        (fname,) = os.listdir(out_dir)
+        with open(os.path.join(out_dir, fname)) as f:
+            rec = json.load(f)
+        require(rec["status"] == "ok", f"{fname}: {rec.get('error')}")
+        log(f"dry run {rec['arch']} {rec['shape']} {rec['mesh']} ({rec['n_devices']} ranks): "
+            f"per-rank peak {rec['memory']['peak_args_plus_temp'] / 2**30:.4f} GiB, FLOPs "
+            f"{rec['cost']['flops']:.6e}, collectives "
+            + json.dumps({k: v["count"] for k, v in rec["collectives"].items()})
+            + f", {rec['compile_scan_s']} s")
+    counts = phase_family_sharded_serving(torch, mods, card)
+    log(f"phase 26 done in {time.time() - t0:.1f} s; the card: {card}")
+    return records, counts
+
+
 def _to(tree, torch, device, copy=False):
     """``tree``'s tensors on ``device`` (copies, with ``copy``, even where
     they are there already)."""
@@ -3370,6 +3644,8 @@ def main() -> int:
     phase_sharded_serving(torch, mods, card)
     torch.cuda.empty_cache()
     phase_dryrun(torch, mods, card)
+    torch.cuda.empty_cache()
+    _, shard_counts = phase_family_sharding(torch, mods, card)
     log("launches on the llama3.2-1b path " + json.dumps(llama_counts)
         + "; under --theta predictive " + json.dumps(predictive_counts)
         + "; with the prefix cache (warm, greedy) " + json.dumps(prefix_counts)
@@ -3380,6 +3656,8 @@ def main() -> int:
         + "; on the fleet's (flash crowd, session reuse) "
         + json.dumps({name: run["counts"] for name, run in fleet.items()}))
     log("launches on the other families' paths " + json.dumps(family_counts))
+    log("launches on the other families' sharded paths, (1, 1) mesh "
+        + json.dumps(shard_counts))
     print(card)
     print(json.dumps({"kernels": [dict(
         name=k, route="cuda", source=f"src/repro_torch/kernels/csrc/{src}.cu",

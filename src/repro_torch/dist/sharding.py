@@ -420,11 +420,23 @@ def activation_constraint_fn(
                              heads (n divisible), else replicates it there
       groups:n  (B, S, H, D) likewise for H heads about to be split into n
                              GQA groups (dim -2)
+      flat:n    (B, S, n*D)  the port's own: n pieces just flattened into the
+                             last dim; the forward keeps its layout, and
+                             the backward gives its gradient whole pieces as
+                             ``heads:n`` does (the flatten's backward views
+                             the gradient as n pieces)
       tokens    (B, S)       the port's own: token ids replicate before the
                              embedding lookup (DTensor's vocab-parallel
                              lookup masks the ids it was handed before it
                              gathers a batch split of them, and then fails
                              on the gathered ids)
+      lookup    (B, S, d)    the port's own: the looked-up rows that join a
+                             frontend's prefix rows, laid out as
+                             ``residual``; in the backward their gradient,
+                             a partial sum where it meets the prefix rows',
+                             is reduced before it reaches the lookup's
+                             masked partial sum (DTensor converts no
+                             partial sum into another)
 
     ``exclude`` removes axes from the specs, as the reference's does for
     axes that are manual in the calling context.  Specs are sanitized per
@@ -452,6 +464,11 @@ def activation_constraint_fn(
         if name.startswith(("heads:", "groups:")):
             kind, n = name.split(":")
             return _whole_pieces(x, x.ndim - (1 if kind == "heads" else 2), int(n))
+        if name.startswith("flat:"):
+            n = int(name.split(":")[1])
+            return _GradLayout.apply(x, lambda g: _whole_pieces(g, g.ndim - 1, n))
+        if name == "lookup":
+            return _GradLayout.apply(constrain(x, "residual"), _reduced)
         if name == "logits":
             entries = (batch_axes,) + (None,) * (x.ndim - 2) + (tp,)
         elif name == "residual":
@@ -465,6 +482,30 @@ def activation_constraint_fn(
         return x.redistribute(x.device_mesh, placements)
 
     return constrain
+
+
+class _GradLayout(torch.autograd.Function):
+    """``x`` itself in the forward; in the backward its gradient redistributed
+    by ``layout`` (a function of the gradient DTensor)."""
+
+    @staticmethod
+    def forward(ctx, x, layout):
+        ctx.layout = layout
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.layout(grad), None
+
+
+def _reduced(x):
+    """``x`` with every partial sum reduced (replicated on that mesh dim)."""
+    from torch.distributed.tensor import Replicate
+
+    placements = tuple(Replicate() if p.is_partial() else p for p in x.placements)
+    if placements == tuple(x.placements):
+        return x
+    return x.redistribute(x.device_mesh, placements)
 
 
 def _whole_pieces(x, dim: Optional[int], n: int):
@@ -542,11 +583,15 @@ def on_shards(fn: Callable, args: tuple, in_placements: tuple, out_placements: t
     placements and handed to ``fn`` as the local tensor (DTensor's
     ``local_map``); plain tensors and other values pass through (their
     placements are None).  ``fn``'s one tensor comes back as a DTensor on
-    ``out_placements``.  In-place writes to a local tensor land in its
-    DTensor's storage only when no redistribution was needed."""
+    ``out_placements``, or, where that is a tuple of placements tuples, its
+    tuple of tensors, each on its own.  Autograd passes through: the same
+    code trains.  In-place writes to a local tensor land in its DTensor's
+    storage only when no redistribution was needed."""
     from torch.distributed.tensor.experimental import local_map
 
-    return local_map(fn, out_placements=list(out_placements), in_placements=in_placements,
+    many = bool(out_placements) and all(isinstance(p, tuple) for p in out_placements)
+    out = tuple(out_placements) if many else list(out_placements)
+    return local_map(fn, out_placements=out, in_placements=in_placements,
                      redistribute_inputs=True)(*args)
 
 

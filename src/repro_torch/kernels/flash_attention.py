@@ -87,17 +87,20 @@ def flash_attention(q, k, v, *, positions: Optional[torch.Tensor] = None,
     (launched on the current stream, not synchronised), CPU tensors to the
     plain version; anything else raises.  DTensor q, k and v run on each
     rank's local heads when the mesh's ``'model'`` axis divides Hq and Hkv
-    (GQA groups stay whole on a rank), else on all heads; a batch split
-    over the other mesh axes is kept."""
+    (GQA groups stay whole on a rank); with one KV head, on each rank's
+    query heads against the whole K and V where the axis divides Hq; else
+    on all heads.  A batch split over the other mesh axes is kept."""
     if is_dtensor(q):
         from repro_torch.dist.sharding import local_placements, model_size, on_shards
 
         mp = model_size(q.device_mesh)
-        heads = 1 if q.shape[1] % mp == 0 and k.shape[1] % mp == 0 else None
-        pl = local_placements(q, model_dim=heads, keep=(0,))
+        split_q = q.shape[1] % mp == 0 and (k.shape[1] % mp == 0 or k.shape[1] == 1)
+        split_kv = split_q and k.shape[1] % mp == 0
+        pq = local_placements(q, model_dim=1 if split_q else None, keep=(0,))
+        pkv = local_placements(k, model_dim=1 if split_kv else None, keep=(0,))
         fn = functools.partial(flash_attention, positions=positions, window=window,
                                causal=causal)
-        return on_shards(fn, (q, k, v), (pl, pl, pl), pl)
+        return on_shards(fn, (q, k, v), (pq, pkv, pkv), pq)
     if q.dim() != 4:
         _fail(f"q must be (B,Hq,S,D), got {tuple(q.shape)}")
     if positions is not None:

@@ -26,6 +26,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.device import is_dtensor
 from repro_torch.kernels import _build
 from repro_torch.kernels.paged_attention import sm_count
 
@@ -156,7 +157,17 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor,
     """The recurrence along axis 1 of a, b (B,S,W) from h0 (B,W) (zeros when
     None); returns h (B,S,W) fp32, whose last row is the final state.  CUDA
     tensors go to the kernel (launched on the current stream, not
-    synchronised), CPU tensors to the plain version; anything else raises."""
+    synchronised), CPU tensors to the plain version; anything else raises.
+    DTensor a, b and h0 run on each rank's local lanes (W over the mesh's
+    ``'model'`` axis, where it divides W; else all lanes on every rank), a
+    batch split over the other mesh axes kept: the lanes are independent."""
+    if is_dtensor(a):
+        from repro_torch.dist.sharding import local_placements, model_size, on_shards
+
+        lanes = a.shape[2] % model_size(a.device_mesh) == 0
+        pl = local_placements(a, model_dim=2 if lanes else None, keep=(0,))
+        ph = local_placements(h0, model_dim=1 if lanes else None, keep=(0,))
+        return on_shards(_scan_local, (a, b, h0), (pl, pl, ph), pl)
     if a.device.type == "cpu":
         return linear_scan(a, b, h0)[0]
     _build.refuse_autograd("rglru_scan", "linear_scan", a, b, h0)
@@ -193,3 +204,9 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor,
     global launches
     launches += 1
     return out
+
+
+def _scan_local(a, b, h0):
+    """:func:`rglru_scan` on one rank's local lanes (a split of the lanes is
+    a strided view: the kernel takes contiguous rows)."""
+    return rglru_scan(a.contiguous(), b.contiguous(), None if h0 is None else h0.contiguous())

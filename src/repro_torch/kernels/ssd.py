@@ -33,6 +33,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.device import is_dtensor
 from repro_torch.kernels import _build
 from repro_torch.models.layers import NEG_INF
 
@@ -175,7 +176,23 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor, b: torch.Te
     """The SSD scan of :func:`ssd_chunked`: (y (B,S,H,P) in x's dtype, final
     state (B,H,P,N) fp32), from ``init_state`` (zeros when None).  CUDA
     tensors go to the kernel (launched on the current stream, not
-    synchronised), CPU tensors to the plain version; anything else raises."""
+    synchronised), CPU tensors to the plain version; anything else raises.
+    DTensor arguments run on each rank's local heads (H over the mesh's
+    ``'model'`` axis, where it divides H, with dt, a_log and the state;
+    else all heads on every rank), b and c whole, a batch split over the
+    other mesh axes kept: the heads are independent."""
+    if is_dtensor(x):
+        from repro_torch.dist.sharding import local_placements, model_size, on_shards
+
+        heads = x.shape[2] % model_size(x.device_mesh) == 0
+        px = local_placements(x, model_dim=2 if heads else None, keep=(0,))
+        ps = local_placements(x, model_dim=1 if heads else None, keep=(0,))
+        pl = (px, local_placements(dt, model_dim=2 if heads else None, keep=(0,)),
+              local_placements(a_log, model_dim=0 if heads else None),
+              local_placements(b, keep=(0,)), local_placements(c, keep=(0,)),
+              None if init_state is None else ps)
+        return on_shards(functools.partial(_scan_local, chunk=chunk),
+                         (x, dt, a_log, b, c, init_state), pl, (px, ps))
     if x.device.type == "cpu":
         return ssd_chunked(x, dt, a_log, b, c, chunk, init_state)
     _build.refuse_autograd("ssd_scan", "ssd_chunked", x, dt, a_log, b, c, init_state)
@@ -209,3 +226,13 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor, b: torch.Te
     global launches
     launches += 1
     return y, state
+
+
+def _scan_local(x, dt, a_log, b, c, init_state, *, chunk):
+    """:func:`ssd_scan` on one rank's local heads (a split of the heads is a
+    strided view: the kernels take contiguous rows)."""
+    def dense(t):
+        return None if t is None else t.contiguous()
+
+    return ssd_scan(dense(x), dense(dt), dense(a_log), dense(b), dense(c), chunk=chunk,
+                    init_state=dense(init_state))

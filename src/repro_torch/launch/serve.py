@@ -189,15 +189,6 @@ def _device(args) -> torch.device:
     return resolve_device(args.device)
 
 
-def refuse_unsharded_family(cfg) -> None:
-    """Tensor-parallel serving covers the all-attention archs without MoE
-    (dense, and the frontend-prefix families); the others are refused by
-    name rather than served unsharded."""
-    if cfg.pattern != ("attn",) or cfg.is_moe:
-        raise SystemExit(f"--model-parallel serving of {cfg.name} (family {cfg.family}) is not "
-                         "ported to repro_torch yet (ROADMAP.md, queue 1, item 9)")
-
-
 def serve_mesh(args):
     """The reference's mesh block: N ranks (the process group's, else 1),
     the model degree ``mp`` the largest divisor of N at most
@@ -209,7 +200,6 @@ def serve_mesh(args):
     mp = max(g for g in range(1, args.model_parallel + 1) if n % g == 0)
     if n == 1 and mp == 1:
         return None
-    refuse_unsharded_family(_config(args))
     from torch.distributed.device_mesh import init_device_mesh
 
     mesh = init_device_mesh(_device(args).type, (n // mp, mp),

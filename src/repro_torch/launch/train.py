@@ -261,11 +261,6 @@ def run(args) -> Dict[str, Any]:
         tap = GovernorTap(tracer, metrics=busmetrics)
         recorder = RecorderFanout([recorder, tap]) if recorder is not None else tap
     made_group = join_group(device)
-    if dist.get_world_size() > 1 and not args.live_events and (cfg.is_moe or cfg.n_prefix):
-        if made_group:
-            dist.destroy_process_group()
-        raise SystemExit(f"the 2-D sharded step for {cfg.name} (family {cfg.family}) is not "
-                         "ported to repro_torch yet (ROADMAP.md, queue 1, item 9)")
     governor = Governor(policy=policy_for_theta(args.theta), recorder=recorder)
     bus = instrument.get_event_bus()
     loader = None

@@ -14,7 +14,10 @@ token-major order; assignments at or past the capacity go to a trash row
 combine weighted by the kept gates.  Everything is index arithmetic on the
 device: no boolean indexing and no ``nonzero``, which would sync the host.
 Every kept ``(expert, position)`` has exactly one writer, so the scatter's
-order does not matter.
+order does not matter.  On a sharded model the routing, the scatter and the
+combine run on every rank over whole, replicated tensors (DTensor has no
+rule for the scatter), and the expert products on the experts' split
+weights (:func:`moe_forward`).
 
 The expert products are plain batched matrix products, which the
 reference also leaves to XLA outside any Pallas kernel; dtypes promote as
@@ -22,12 +25,14 @@ JAX promotes them (``layers.matmul``).
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Dict, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.device import is_dtensor
 from repro_torch.models.layers import matmul
 
 Params = Dict[str, Any]
@@ -75,41 +80,74 @@ def positions(gate_idx: torch.Tensor, n_experts: int, cap: int
     return my_pos, my_pos < cap
 
 
-def moe_forward(cfg, p: Params, x: torch.Tensor, cap_override: int = 0
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: (B,S,d) -> (out (B,S,d), aux load-balance loss, a scalar).
-
-    ``cap_override`` sets an explicit capacity; decode passes ``B·S`` for
-    the dropless (exact top-k) path, the serving-correct behaviour."""
-    b, s, d = x.shape
+def dispatch(cfg, router: torch.Tensor, xf: torch.Tensor, cap: int):
+    """Route the (T, d) tokens and scatter them into the expert buffer ->
+    (buf (E, C, d), each assignment's expert (T·k,) and slot in it (T·k,),
+    its combine weight (T·k,), the aux load-balance loss).  A dropped
+    assignment's slot is 0 of expert 0 with weight 0."""
     e, k = cfg.n_experts, cfg.top_k
-    t = b * s
-    xf = x.reshape(t, d)
-    probs, gate_vals, gate_idx = route(cfg, p, xf)
+    t, d = xf.shape
+    probs, gate_vals, gate_idx = route(cfg, {"router": router}, xf)
 
     # load-balance auxiliary loss (Switch/GShard)
     me = probs.mean(dim=0)                                          # (E,)
     ce = F.one_hot(gate_idx, e).float().sum(dim=1).mean(dim=0)
     aux = e * torch.sum(me * ce) * cfg.router_aux_coef
 
-    cap = cap_override or capacity(cfg, t)
     flat_e = gate_idx.reshape(-1)
     my_pos, keep = positions(gate_idx, e, cap)
     # dropped assignments go to a trash expert row e (the scatter stays static)
-    dest_e = torch.where(keep, flat_e, e)
     dest_c = torch.where(keep, my_pos, 0)
-    tok_of = torch.arange(t * k, device=x.device) // k
-    xd = xf[tok_of]                                                 # (T·k, d)
-    buf = torch.zeros((e + 1, cap, d), dtype=xf.dtype, device=x.device)
-    buf.index_put_((dest_e, dest_c), xd, accumulate=True)
-    buf = buf[:e]                                                   # (E, C, d)
+    tok_of = torch.arange(t * k, device=xf.device) // k
+    buf = torch.zeros((e + 1, cap, d), dtype=xf.dtype, device=xf.device)
+    buf.index_put_((torch.where(keep, flat_e, e), dest_c), xf[tok_of], accumulate=True)
+    w = (gate_vals.reshape(-1) * keep.float()).to(xf.dtype)
+    return buf[:e], torch.where(keep, flat_e, 0), dest_c, w, aux
+
+
+def combine(out_buf: torch.Tensor, src_e: torch.Tensor, src_c: torch.Tensor,
+            w: torch.Tensor, k: int) -> torch.Tensor:
+    """Each token's k expert outputs (E, C, d) gathered and summed by their
+    weights -> (T, d)."""
+    gathered = out_buf[src_e, src_c]                                # (T·k, d)
+    return (gathered * w[:, None]).reshape(-1, k, out_buf.shape[-1]).sum(dim=1)
+
+
+def moe_forward(cfg, p: Params, x: torch.Tensor, cap_override: int = 0
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: (B,S,d) -> (out (B,S,d), aux load-balance loss, a scalar).
+
+    ``cap_override`` sets an explicit capacity; decode passes ``B·S`` for
+    the dropless (exact top-k) path, the serving-correct behaviour.
+
+    On DTensors (a sharded model) routing and dispatch run on every rank
+    over the whole tokens and the whole router, as local tensors
+    (:func:`repro_torch.dist.sharding.on_shards`): the same index
+    arithmetic on the same values, where DTensor has no rule for the
+    scatter.  The expert products stay DTensor products on the experts'
+    split weights; their partial sum is reduced once, before the combine."""
+    b, s, d = x.shape
+    t = b * s
+    xf = x.reshape(t, d)
+    cap = cap_override or capacity(cfg, t)
+    sharded = is_dtensor(xf)
+    if sharded:
+        from repro_torch.dist.sharding import local_placements, on_shards
+
+        rep = local_placements(xf)                  # every mesh dim replicated
+        buf, src_e, src_c, w, aux = on_shards(
+            functools.partial(dispatch, cfg, cap=cap), (p["router"], xf), (rep, rep),
+            (rep,) * 5)
+    else:
+        buf, src_e, src_c, w, aux = dispatch(cfg, p["router"], xf, cap)
 
     # expert computation (SwiGLU)
     act = F.silu(matmul(buf, p["w1"])) * matmul(buf, p["w3"])
     out_buf = matmul(act, p["w2"])                                  # (E, C, d)
 
-    # combine
-    gathered = out_buf[torch.where(keep, flat_e, 0), dest_c]        # (T·k, d)
-    w = (gate_vals.reshape(-1) * keep.float()).to(xf.dtype)
-    out = (gathered * w[:, None]).reshape(t, k, d).sum(dim=1)
+    if sharded:
+        out = on_shards(functools.partial(combine, k=cfg.top_k), (out_buf, src_e, src_c, w),
+                        (rep,) * 4, rep)
+    else:
+        out = combine(out_buf, src_e, src_c, w, cfg.top_k)
     return out.reshape(b, s, d), aux

@@ -25,6 +25,7 @@ import torch.nn.functional as F
 from repro_torch.kernels import ssd as SSD
 from repro_torch.kernels.ssd import ssd_chunked
 from repro_torch.models import layers as L
+from repro_torch.models.hooks import constrain
 
 Params = Dict[str, Any]
 
@@ -116,7 +117,7 @@ def ssm_forward(cfg, p: Params, x: torch.Tensor, state: Optional[Params] = None,
     else:
         y, final = ssd_chunked(xh, dtv, a_log, b, c, cfg.ssm_chunk, h0)
     y = y + p["D"][None, None, :, None] * xh.float()
-    out = _gated_norm_out(p, y.reshape(bsz, s, di), z, x.dtype)
+    out = _gated_norm_out(p, constrain(y.reshape(bsz, s, di), f"flat:{h}"), z, x.dtype)
     if state is None:
         return out, None
     new_conv = L.concat([state["conv"], conv_in])[:, -(cfg.ssm_conv - 1):]

@@ -140,12 +140,14 @@ def _embed_inputs(cfg, params, tokens: torch.Tensor,
     first.  The result takes the ``residual`` hook: the reference's site
     after the embedding in ``forward``, which the port's prefill and
     decode share (on DTensors the lookup is a masked partial sum, which
-    must be reduced before a layer adds its own partial sum to it)."""
+    must be reduced before a layer adds its own partial sum to it).  Rows
+    that join a prefix take the ``lookup`` hook first: reduced in the
+    forward, and their gradient reduced in the backward before it reaches
+    the lookup."""
     dtype = L.dtype_of(cfg.compute_dtype)
     x = F.embedding(constrain(tokens.long(), "tokens"), params["embed"]).to(dtype)
     if cfg.n_prefix and prefix is not None:
-        # the looked-up rows reduced before they join the prefix rows
-        x = torch.cat([prefix.to(dtype), constrain(x, "residual")], dim=1)
+        x = torch.cat([prefix.to(dtype), constrain(x, "lookup")], dim=1)
     return constrain(L.scale_by(x, math.sqrt(cfg.d_model)), "residual")
 
 

@@ -100,7 +100,7 @@ def paged_attention_decode(cfg, p, x, pos, table, block, kernel: Optional[str] =
     rows = torch.arange(b, device=x.device)
     page_idx = table[rows, torch.clamp(pos // page, max=m - 1).long()]
     off = pos % page
-    hkv, hd = cfg.n_kv_heads, cfg.head_dim
+    hd = cfg.head_dim
     new = {}
     if cfg.kv_quant:
         kq, k_sc = L._kv_quantize(k)                           # (B,1,H,D),(B,1,H)
@@ -121,12 +121,11 @@ def paged_attention_decode(cfg, p, x, pos, table, block, kernel: Optional[str] =
     else:
         step = functools.partial(PA.paged_attention_scatter_plain, window=window,
                                  dequant_dtype=x.dtype)
-    g = cfg.n_heads // hkv
 
     def attend(q1, *rest):
-        # (B,Hq,D) -> (B,Hkv,G,D) on the heads this call holds; the int8
-        # pages' scales (None without them) by name
-        return step(q1.reshape(q1.shape[0], -1, g, hd), *rest[:8],
+        # (B,Hq,D) -> (B,Hkv,G,D) on the heads this call holds (the new K
+        # row's); the int8 pages' scales (None without them) by name
+        return step(q1.reshape(q1.shape[0], rest[0].shape[1], -1, hd), *rest[:8],
                     **dict(zip(_QUANT_ARGS, rest[8:])))
 
     args = (q1, k_new, v_new, block["k_pages"], block["v_pages"], table, pos, page_idx, off,
@@ -142,21 +141,27 @@ _QUANT_ARGS = ("k_scale_new", "v_scale_new", "k_scale_pages", "v_scale_pages")
 def _attend_on_shards(attend, args):
     """The paged step on each rank's local KV heads: the pool's ``'model'``
     split of its head dim (``page_pool_shardings``: only where the degree
-    divides Hkv) is the split of q's and the new rows' head dim; otherwise
-    every rank attends over all heads.  The pools keep their placements,
-    so the step writes their local storage in place; the table and
-    positions are plain tensors, the same on every rank.  q is (B,Hq,D),
-    split on whole GQA groups where the pool is split."""
-    from repro_torch.dist.sharding import local_placements, on_shards
+    divides Hkv) is the split of q's and the new rows' head dim.  A pool of
+    one KV head is whole on every rank, and each rank attends with its own
+    query heads (a split of the one group) where the degree divides Hq, and
+    writes the same new row into its copy.  Otherwise every rank attends
+    over all heads.  The pools keep their placements, so the step writes
+    their local storage in place; the table and positions are plain
+    tensors, the same on every rank.  q is (B,Hq,D), split on whole GQA
+    groups where the pool is split."""
+    from repro_torch.dist.sharding import local_placements, model_size, on_shards
 
-    pages = args[3]
+    q, pages = args[0], args[3]
     split = any(name == "model" and p.is_shard()
                 for name, p in zip(pages.device_mesh.mesh_dim_names, pages.placements))
+    mp = model_size(q.device_mesh)
+    split_q = split or (pages.shape[2] == 1 and mp > 1 and q.shape[1] % mp == 0)
     rows = [local_placements(a, model_dim=1 if split else None)
-            for a in args[:3] + args[9:11]]             # q, the new rows, their scales
+            for a in args[1:3] + args[9:11]]            # the new rows, their scales
+    pq = local_placements(q, model_dim=1 if split_q else None)
     pools = [getattr(a, "placements", None) for a in args[3:5] + args[11:]]
-    in_pl = tuple(rows[:3] + pools[:2] + [None] * 4 + rows[3:] + pools[2:])
-    return on_shards(attend, args, in_pl, rows[0])
+    in_pl = tuple([pq] + rows[:2] + pools[:2] + [None] * 4 + rows[2:] + pools[2:])
+    return on_shards(attend, args, in_pl, pq)
 
 
 PAGE_LEAVES = ("k_pages", "v_pages", "k_scale_pages", "v_scale_pages")

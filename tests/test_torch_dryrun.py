@@ -24,6 +24,11 @@ reference's ``repro.launch.dryrun``.
   run of DTensor's sharding propagation raises.
 * ``--list`` prints the reference's cells in the reference's order; one
   full-width CLI cell writes a record with the reference's keys.
+* The other families' reduced cells, each side in its own subprocess:
+  granite-moe-3b-a800m's train and tensor-parallel decode cells on (2, 4)
+  and a mamba2-130m whose model axis of 8 cuts its 64-wide heads, on
+  (2, 8): argument, output and alias bytes equal the reference's, temp
+  bytes pinned; the cut-head cell fails without the ``flat:n`` hook.
 
 The reference's dry-run module sets ``XLA_FLAGS`` when it is imported, so
 it is imported in subprocesses only.
@@ -59,6 +64,20 @@ ARGUMENT_BYTES = {"train": 612612, "prefill": 87808, "decode": 153364,
 # propagation runs for the rank's own shows
 TEMP_BYTES = {"train": 1381892, "prefill": 361088, "decode": 215040,
               "decode_serve_tp": 427008, "train_zero3": 1180948}
+
+
+# the other families' reduced cells: name -> (arch, config overrides, kind,
+# seq_len, batch, mesh shape, build_cell options).  mamba2 with 64-wide heads
+# (4 heads of d_inner 256) on a model axis of 8 cuts a head: the flatten of
+# the SSD's output views its gradient's 32-column split as heads
+FAMILY_CELLS = {
+    "granite_train": ("granite-moe-3b-a800m", {}, "train", 32, 8, (2, 4), {}),
+    "granite_decode_serve_tp": ("granite-moe-3b-a800m", {}, "decode", 64, 8, (2, 4),
+                                {"serve_tp": True}),
+    "mamba2_cut_head_train": ("mamba2-130m", {"ssm_d_head": 64}, "train", 32, 16, (2, 8), {}),
+}
+FAMILY_TEMP_BYTES = {"granite_train": 2014240, "granite_decode_serve_tp": 427008,
+                     "mamba2_cut_head_train": 6209884}
 
 
 def run_script(code, timeout=300):
@@ -218,6 +237,68 @@ PORT = textwrap.dedent("""
 """).replace("CELLS", repr(CELLS)).replace("ARCH", repr(ARCH))
 
 
+FAMILY_REFERENCE = textwrap.dedent("""
+    import json
+    import repro.launch.dryrun as D
+    import jax
+    from repro.configs import get_config, reduced
+    from repro.configs.base import ShapeConfig
+    from repro.dist import sharding as SH
+    from repro.dist.compat import set_mesh
+    from repro.models.hooks import install_constraint
+
+    out = {}
+    for name, (arch, mods, kind, seq, batch, shape, opts) in CELLS.items():
+        D.get_config = lambda a, mods=mods: reduced(get_config(a), **mods)
+        D.SHAPES = {name: ShapeConfig(name, seq, batch, kind)}
+        mesh = jax.make_mesh(shape, ("data", "model"),
+                             axis_types=(jax.sharding.AxisType.Auto,) * 2)
+        install_constraint(SH.activation_constraint_fn(mesh))
+        with set_mesh(mesh):
+            fn, args, ins, outs, donate = D.build_cell(arch, name, mesh, **opts)
+            ma = (jax.jit(fn, in_shardings=ins, out_shardings=outs, donate_argnums=donate)
+                  .lower(*args).compile().memory_analysis())
+        out[name] = {"argument_bytes": ma.argument_size_in_bytes,
+                     "output_bytes": ma.output_size_in_bytes,
+                     "alias_bytes": ma.alias_size_in_bytes}
+    install_constraint(None)
+    print(json.dumps(out))
+""").replace("CELLS", repr(FAMILY_CELLS))
+
+
+FAMILY_PORT = textwrap.dedent("""
+    import json
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.dist import sharding as SH
+    from repro_torch.launch import dryrun as D
+    from repro_torch.models.hooks import install_constraint
+
+    out = {}
+    for name, (arch, mods, kind, seq, batch, shape, opts) in CELLS.items():
+        D.get_config = lambda a, mods=mods: reduced(get_config(a), **mods)
+        cfg = D.production_config(arch)
+        D.fake_world(shape[0] * shape[1])
+        mesh = init_device_mesh("cpu", shape, mesh_dim_names=("data", "model"))
+        constrain = SH.activation_constraint_fn(mesh)
+        install_constraint(constrain)
+        fn, args = D.build_cell(arch, ShapeConfig(name, seq, batch, kind), mesh, **opts)
+        out[name] = D.count_step(fn, args, cfg)["memory"]
+        if arch == "mamba2-130m":
+            # the same cell with the flatten's hook left out fails in the backward
+            install_constraint(lambda x, n: x if n.startswith("flat:") else constrain(x, n))
+            fn, args = D.build_cell(arch, ShapeConfig(name, seq, batch, kind), mesh, **opts)
+            try:
+                D.count_step(fn, args, cfg)
+                out["without_flat"] = None
+            except RuntimeError as e:
+                out["without_flat"] = str(e)
+    install_constraint(None)
+    print(json.dumps(out))
+""").replace("CELLS", repr(FAMILY_CELLS))
+
+
 @pytest.fixture(scope="module")
 def reference():
     return run_script(REFERENCE)
@@ -226,6 +307,16 @@ def reference():
 @pytest.fixture(scope="module")
 def port():
     return run_script(PORT)
+
+
+@pytest.fixture(scope="module")
+def family_reference():
+    return run_script(FAMILY_REFERENCE)
+
+
+@pytest.fixture(scope="module")
+def family_port():
+    return run_script(FAMILY_PORT)
 
 
 # --------------------------------------------------------------------------
@@ -319,6 +410,24 @@ def test_temp_bytes_are_pinned_and_the_propagator_recognised(port):
     # a count that recognises no propagation run fails, where it would
     # have counted those runs as the rank's
     assert "sharding-propagation runs was recognised" in port["unrecognised"]
+
+
+@pytest.mark.parametrize("cell", list(FAMILY_CELLS))
+def test_other_families_per_rank_bytes_equal_the_reference(cell, family_reference,
+                                                           family_port):
+    """MoE (its dispatch on local tensors) and an SSM whose model degree cuts
+    a head: the port's per-rank argument, output and alias bytes equal the
+    reference's ``memory_analysis()``, and its temp bytes are pinned."""
+    ref, got = family_reference[cell], family_port[cell]
+    for key in ("argument_bytes", "output_bytes", "alias_bytes"):
+        assert got[key] == ref[key], (cell, key, got, ref)
+    assert got["temp_bytes"] == FAMILY_TEMP_BYTES[cell], (cell, got)
+
+
+def test_the_cut_head_cell_needs_the_flatten_hook(family_port):
+    """Without the ``flat:n`` hook the cut-head cell's backward fails to view
+    the gradient's split as heads: the cell exercises the hook."""
+    assert "Cannot unflatten unevenly sharded tensor" in family_port["without_flat"]
 
 
 def _local_bytes(tree, shardings, sizes):

@@ -40,7 +40,7 @@ def test_scan_plan_is_a_function_of_the_shapes_that_fits_and_covers():
     assert RS.SHARED_BYTES == 38_976 and RS.SHARED_BYTES <= 48 * 1024 <= SHARED_LIMIT
     shapes = [(b, s, w, n_sm) for b in (1, 2, 3, 4, 9) for s in (1, 2, 15, 17, 37, 128, 129,
                                                                    300, 2032, 8192)
-              for w in (1, 16, 33, 100, 2560, 2563) for n_sm in (8, 132)]
+              for w in (1, 16, 33, 100, 320, 640, 1280, 2560, 2563) for n_sm in (8, 132)]
     for b, s, w, n_sm in shapes:
         pl = RS.scan_plan(b, s, w, n_sm)
         assert pl == RS.scan_plan(b, s, w, n_sm)
@@ -52,6 +52,9 @@ def test_scan_plan_is_a_function_of_the_shapes_that_fits_and_covers():
     assert one_prompt.blocks > H100_SMS and one_prompt.tiles == 16
     join = RS.scan_plan(1, 128, 2560, H100_SMS)             # a 128-token join: one tile
     assert join.tiles == 1 and join.blocks > H100_SMS
+    for mp in (2, 4, 8):              # a rank's lanes under tensor-parallel serving
+        w = 2560 // mp
+        assert w % RS.LANES == 0 and RS.scan_plan(1, 2032, w, H100_SMS) == (w // RS.LANES, 16)
 
 
 @pytest.mark.parametrize("with_h0", [True, False])

@@ -23,9 +23,11 @@ package, in one process on the CPU.
   512 ranks, grouped entries included; axes named out of the mesh's order
   refused.
 * The hooks: identity when nothing is installed, the port's call sites
-  the reference's (plus its own ``tokens``, ``heads:n`` and ``groups:n``),
-  and ``forward``, ``prefill`` and ``decode_step`` bit-equal with and
-  without the constraint installed on plain tensors.
+  the reference's (plus its own ``tokens``, ``heads:n``, ``groups:n`` and
+  ``flat:n``), and ``forward``, ``prefill`` and ``decode_step`` bit-equal
+  with and without the constraint installed on plain tensors.
+* Every arch of the registry, reduced, served greedy on a one-rank (1, 1)
+  gloo mesh, every leaf a DTensor: tokens equal to the plain engine's.
 """
 import types
 
@@ -330,18 +332,52 @@ def test_make_host_mesh_follows_the_reference_degree_rule(fake_world):
 # the launchers
 # --------------------------------------------------------------------------
 
+@pytest.fixture
+def gloo_world():
+    """A ``gloo`` default group of one rank, torn down after."""
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0, world_size=1)
+    yield
+    dist.destroy_process_group()
+
+
 @pytest.mark.parametrize("arch", list(ARCHS))
-def test_serve_launcher_refuses_the_families_it_does_not_shard(arch):
-    """Tensor-parallel serving takes the all-attention archs without MoE;
-    the others are refused by name, naming ROADMAP.md queue 1 item 9."""
-    from repro_torch.launch import serve as lserve
+def test_every_family_serves_sharded_on_a_one_rank_mesh(arch, gloo_world):
+    """Tensor-parallel serving takes every arch of the registry: each reduced
+    arch served greedy by the sharded code path on a one-rank (1, 1) gloo
+    mesh (weights on ``serve_param_shardings``, the pool on
+    ``page_pool_shardings``, the hooks installed; the kernels' plain
+    versions on local shards), its tokens equal to the plain engine's."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.serve.engine import ContinuousEngine
+    from repro_torch.tree import leaves
 
     cfg = reduced(get_config(arch))
-    if cfg.pattern == ("attn",) and not cfg.is_moe:
-        lserve.refuse_unsharded_family(cfg)
-    else:
-        with pytest.raises(SystemExit, match=rf"{cfg.name} \(family {cfg.family}\).*item 9"):
-            lserve.refuse_unsharded_family(cfg)
+    params = TT.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    rng = np.random.default_rng(0)
+    batch = {"tokens": rng.integers(0, cfg.vocab, (2, 8)).astype(np.int32)}
+    if cfg.n_prefix:
+        batch["prefix_embeds"] = rng.normal(0, 0.02, (2, cfg.n_prefix, cfg.d_model)).astype(
+            np.float32)
+
+    def engine(p):
+        return ContinuousEngine(cfg, p, n_slots=2, max_len=32, page=8, device="cpu",
+                                attn_kernel="cuda")
+
+    plain = engine(params).generate(batch, n_steps=4)
+    mesh = SH.replica_mesh(init_device_mesh("cpu", (1, 1), mesh_dim_names=("data", "model")))
+    hooks.install_constraint(SH.activation_constraint_fn(mesh))
+    try:
+        eng = engine(SH.distribute(params, SH.serve_param_shardings(mesh, params)))
+        eng.pool.blocks = SH.distribute(eng.pool.blocks,
+                                        SH.page_pool_shardings(mesh, eng.pool.blocks))
+        sharded = eng.generate(batch, n_steps=4)
+    finally:
+        hooks.install_constraint(None)
+    assert eng.mesh is mesh
+    assert all(isinstance(t, DTensor) for t in leaves(eng.params) + leaves(eng.pool.blocks))
+    np.testing.assert_array_equal(sharded.numpy(), plain.numpy())
 
 
 def test_live_events_takes_model_parallel_1_with_the_references_warning(capsys):
@@ -363,7 +399,8 @@ def test_constrain_is_identity_with_nothing_installed():
     hooks.install_constraint(None)
     assert hooks.constrain(x, "residual") is x
     fn = SH.activation_constraint_fn(port_mesh((2, 2), ("data", "model")))
-    for name in ("residual", "logits", "tokens", "heads:4", "groups:2", "other"):
+    for name in ("residual", "logits", "tokens", "heads:4", "groups:2", "flat:4", "lookup",
+                 "other"):
         assert fn(x, name) is x                # a plain tensor passes through
 
 
@@ -386,9 +423,9 @@ def record_hooks(mod, run):
 def test_hook_sites_are_the_references(arch):
     """The port's ``forward``, ``prefill`` and ``decode_step`` call the hook
     with the reference's names in the reference's order, plus the port's
-    own ``tokens``, ``heads:n`` and ``groups:n`` and the residual after the
-    embedding in prefill and decode; with a recording hook installed the
-    results are bit-equal to those with none."""
+    own ``tokens``, ``heads:n``, ``groups:n`` and ``flat:n`` and the
+    residual after the embedding in prefill and decode; with a recording
+    hook installed the results are bit-equal to those with none."""
     import dataclasses
 
     from repro.models import hooks as jhooks
@@ -402,11 +439,12 @@ def test_hook_sites_are_the_references(arch):
     tp = bridge.params_from_numpy(cfg, jax.tree.map(np.asarray, jp), "cpu")
     batch = jmake_batch(jcfg, batch=1, seq_len=8, kind="train")
     tb = {k: torch.from_numpy(np.asarray(v)) for k, v in batch.items()}
-    own = ("tokens", "heads:", "groups:")
+    own = ("tokens", "heads:", "groups:", "flat:")
 
     jnames, _ = record_hooks(jhooks, lambda: JT.loss_fn(jcfg, jp, batch))
     tnames, (tl, _) = record_hooks(hooks, lambda: TT.loss_fn(cfg, tp, tb))
     assert [n for n in tnames if not n.startswith(own)] == jnames
+    assert tnames.count(f"flat:{cfg.ssm_heads}") == cfg.layer_kinds().count("ssm")
     assert torch.equal(tl, TT.loss_fn(cfg, tp, tb)[0])
 
     jnames, _ = record_hooks(jhooks, lambda: JT.prefill(
