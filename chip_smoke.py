@@ -2765,6 +2765,53 @@ SHARD_DEGREES = (2, 4, 8)        # llama3.2-1b: Hq 32, Hkv 8 split over the mode
 SHARD_PROMPTS, SHARD_NEW = 8, 16
 
 
+def shard_paged_record(torch, PA, rng, what, hkv, g, d, window):
+    """The fused paged step at one rank's shapes (B 8, page 16, slots
+    between positions 128 and 175, bf16 pages, fp32 query) against its
+    plain version, the pools bit-equal outside the scratch page; timed
+    beside its plain version, SDPA and its bound."""
+    case, pos = paged_case(torch, rng, torch.bfloat16, torch.float32, b=8, hkv=hkv, g=g,
+                           d=d, page=16, m=11, pos_lo=128)
+    plain_in = {k: v.clone() for k, v in case.items()}
+    kern_in = {k: v.clone() for k, v in case.items()}
+    want = PA.paged_attention_scatter_plain(**plain_in, window=window)
+    got = PA.paged_attention_scatter(**kern_in, window=window)
+    err = compare(torch, got, want, BF16_TOL, f"paged per rank, {what}")
+    ratio = slot_ratio(got, want)
+    require(ratio <= SLOT_REL_TOL, f"paged {what}: slot error {ratio:.3g} of its RMS")
+    for pool in ("k_pages", "v_pages"):
+        require(torch.equal(kern_in[pool][1:], plain_in[pool][1:]), f"{what}: {pool}")
+    b_ms, b_by = paged_bound(case, pos, window)
+    return dict(
+        max_abs_err=err,
+        ms=time_ms(torch, lambda: PA.paged_attention_scatter(**kern_in, window=window)),
+        plain_ms=time_ms(torch, lambda: PA.paged_attention_scatter_plain(**plain_in,
+                                                                          window=window)),
+        bound_ms=b_ms, bound_by=b_by, library_ms=paged_sdpa_ms(torch, case, window))
+
+
+def shard_flash_record(torch, FA, rng, what, hq, hkv):
+    """Causal flash at one rank's heads (B 1, S 128, D 64, fp32 as the path
+    promotes) against its plain version; timed beside its plain version,
+    SDPA and its bound."""
+    import torch.nn.functional as F
+
+    q = randn(torch, rng, 1, hq, 128, 64)
+    k = randn(torch, rng, 1, hkv, 128, 64)
+    v = randn(torch, rng, 1, hkv, 128, 64)
+    err = compare(torch, FA.flash_attention(q, k, v), FA.flash_attention_plain(q, k, v),
+                  F32_TOL, f"flash per rank, {what}: Hq {hq} Hkv {hkv} S 128")
+    b_ms, b_by = bound(4 * (2 * q.numel() + 2 * k.numel()),
+                       4 * 64 * hq * flash_pairs(128, 0, True))
+    mask = flash_mask(torch, 128, 0, True)
+    return dict(
+        max_abs_err=err, ms=time_ms(torch, lambda: FA.flash_attention(q, k, v)),
+        plain_ms=time_ms(torch, lambda: FA.flash_attention_plain(q, k, v)),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, enable_gqa=True)))
+
+
 def phase_shard_kernels(torch, mods, card):
     """The paged step, flash and RMSNorm at each rank's shapes under model
     degree 2, 4 and 8 of tensor-parallel llama3.2-1b serving, held to their
@@ -2777,38 +2824,10 @@ def phase_shard_kernels(torch, mods, card):
     records = {}
     for mp in SHARD_DEGREES:
         hq, hkv = 32 // mp, 8 // mp
-        case, pos = paged_case(torch, rng, torch.bfloat16, torch.float32, b=8, hkv=hkv, g=4,
-                               d=64, page=16, m=11, pos_lo=128)
-        plain_in = {k: v.clone() for k, v in case.items()}
-        kern_in = {k: v.clone() for k, v in case.items()}
-        want = PA.paged_attention_scatter_plain(**plain_in)
-        got = PA.paged_attention_scatter(**kern_in)
-        err = compare(torch, got, want, BF16_TOL, f"paged per rank, degree {mp}: Hkv {hkv}")
-        ratio = slot_ratio(got, want)
-        require(ratio <= SLOT_REL_TOL, f"paged degree {mp}: slot error {ratio:.3g} of its RMS")
-        for pool in ("k_pages", "v_pages"):
-            require(torch.equal(kern_in[pool][1:], plain_in[pool][1:]), pool)
-        b_ms, b_by = paged_bound(case, pos, 0)
-        records["paged_attention_scatter", mp] = dict(
-            max_abs_err=err, ms=time_ms(torch, lambda: PA.paged_attention_scatter(**kern_in)),
-            plain_ms=time_ms(torch, lambda: PA.paged_attention_scatter_plain(**plain_in)),
-            bound_ms=b_ms, bound_by=b_by, library_ms=paged_sdpa_ms(torch, case, 0))
-
-        q = randn(torch, rng, 1, hq, 128, 64)                   # fp32, as the path promotes
-        k = randn(torch, rng, 1, hkv, 128, 64)
-        v = randn(torch, rng, 1, hkv, 128, 64)
-        err = compare(torch, FA.flash_attention(q, k, v), FA.flash_attention_plain(q, k, v),
-                      F32_TOL, f"flash per rank, degree {mp}: Hq {hq} Hkv {hkv} S 128")
-        b_ms, b_by = bound(4 * (2 * q.numel() + 2 * k.numel()),
-                           4 * 64 * hq * flash_pairs(128, 0, True))
-        mask = flash_mask(torch, 128, 0, True)
-        records["flash_attention", mp] = dict(
-            max_abs_err=err, ms=time_ms(torch, lambda: FA.flash_attention(q, k, v)),
-            plain_ms=time_ms(torch, lambda: FA.flash_attention_plain(q, k, v)),
-            bound_ms=b_ms, bound_by=b_by,
-            library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
-                q, k, v, attn_mask=mask, enable_gqa=True)))
-
+        records["paged_attention_scatter", mp] = shard_paged_record(
+            torch, PA, rng, f"degree {mp}: Hkv {hkv}", hkv, 4, 64, 0)
+        records["flash_attention", mp] = shard_flash_record(torch, FA, rng, f"degree {mp}",
+                                                            hq, hkv)
         for rows in (8, 128):                  # the residual is whole on every rank
             x = randn(torch, rng, rows, 2048, std=2.0)
             scale = randn(torch, rng, 2048, mean=1.0, std=0.2)
@@ -2861,10 +2880,28 @@ def serve_prompts(torch, mods, eng, prompts, mesh=None):
             eng.n_decode_steps - steps, p50)
 
 
-def phase_sharded_serving(torch, mods, card):
-    """Full-width llama3.2-1b served by the plain-tensor engine and by the
-    sharded code path on a one-rank NCCL mesh; launches exact and equal,
-    tokens equal per request."""
+def first_route_flip(plain, sharded):
+    """The first router call (in call order) where a row's chosen experts
+    differ between two runs' ``RouteLog.calls``, with the largest router
+    probability difference over the calls up to it; None when every call
+    chose alike."""
+    for i, ((pp, pi), (sp, si)) in enumerate(zip(plain, sharded)):
+        if pi.shape != si.shape or not bool((pi.sort(-1).values == si.sort(-1).values).all()):
+            drift = max(float((a - b).abs().max()) for (a, _), (b, _) in
+                        zip(plain[:i + 1], sharded[:i + 1]) if a.shape == b.shape)
+            return i, drift
+    return None
+
+
+def phase_sharded_serving(torch, mods, card, archs):
+    """Each of ``archs`` at full width (fp32 params, random weights from
+    seed 0) served greedy, 8 requests of 128-token prompts and 16 new
+    tokens, 8 slots, page 16, by the plain-tensor engine and by the
+    sharded code path on a (1, 1) NCCL mesh
+    (every leaf a DTensor, the kernels on local shards): launches exact and
+    equal, tokens equal per request (an MoE request excused only where the
+    two runs' routers part at a near tie), both decode-step p50s logged.
+    Returns the launch counts by arch."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
     from torch.distributed.tensor import DTensor
@@ -2878,49 +2915,77 @@ def phase_sharded_serving(torch, mods, card):
     made = not dist.is_initialized()
     if made:
         dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    out = {}
     try:
         mesh = SH.replica_mesh(init_device_mesh("cuda", (1, 1),
                                                 mesh_dim_names=("data", "model")))
-        cfg = get_config("llama3.2-1b")
-        params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
-        prompts = shard_prompts(cfg.vocab)
-        max_len = 128 + SHARD_NEW + 16
+        for arch in archs:
+            t0 = time.perf_counter()
+            cfg = get_config(arch)
+            params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+            prompts = shard_prompts(cfg.vocab)
+            max_len = 128 + SHARD_NEW + 16
 
-        def engine(p):
-            return ContinuousEngine(cfg, p, n_slots=8, max_len=max_len, page=16,
-                                    temperature=0.0)
+            def engine(p):
+                return ContinuousEngine(cfg, p, n_slots=8, max_len=max_len, page=16,
+                                        temperature=0.0)
 
-        runs = {"plain": serve_prompts(torch, mods, engine(params), prompts)}
-        sharded = SH.distribute(params, SH.serve_param_shardings(mesh, params))
-        require(all(isinstance(t, DTensor) for t in leaves(sharded)), "a leaf is not a DTensor")
-        eng = engine(sharded)
-        require(eng.mesh is mesh, "the engine does not see the mesh")
-        runs["sharded"] = serve_prompts(torch, mods, eng, prompts, mesh)
-        require(all(isinstance(t, DTensor) for t in leaves(eng.pool.blocks)), "the pool")
-        kinds = cfg.layer_kinds()
-        for name, (tokens, counts, joins, steps, p50) in runs.items():
-            want = dict.fromkeys(KERNELS, 0)
-            want.update(paged_attention_scatter=steps * kinds.count("attn"),
-                        flash_attention=joins * kinds.count("attn"),
-                        rmsnorm=(joins + steps) * (2 * len(kinds) + 1))
-            require(joins == SHARD_PROMPTS and counts == want,
-                    f"{name}: {joins} joins, {steps} steps, launches {counts}, want {want}")
-            for i, out in enumerate(tokens):
-                require(len(out) == SHARD_NEW and all(0 <= t < cfg.vocab for t in out), i)
-        (pt, pc, _, psteps, pp50), (st, sc, _, ssteps, sp50) = runs["plain"], runs["sharded"]
-        require(pc == sc and psteps == ssteps, f"launches plain {pc}, sharded {sc}")
-        parted = [i for i, (a, b) in enumerate(zip(pt, st)) if a != b]
-        require(not parted, f"requests {parted} part from the plain engine's tokens")
-        log(f"sharded serving, llama3.2-1b on a (1, 1) NCCL mesh: {SHARD_PROMPTS} requests, "
-            f"{psteps} decode steps, tokens equal to the plain engine's for every request; "
-            f"launches {json.dumps(sc)} (equal); decode step p50 plain {pp50:.3f} ms, "
-            f"sharded {sp50:.3f} ms ({sp50 / pp50:.2f} x); the card: {card}")
-        del eng, sharded, params
-        gc.collect()
-        torch.cuda.empty_cache()
+            runs, routes = {}, {}
+            with RouteLog() as rl:
+                runs["plain"] = serve_prompts(torch, mods, engine(params), prompts)
+            routes["plain"] = rl.calls
+            sharded = SH.distribute(params, SH.serve_param_shardings(mesh, params))
+            require(all(isinstance(t, DTensor) for t in leaves(sharded)),
+                    f"{arch}: a leaf is not a DTensor")
+            eng = engine(sharded)
+            require(eng.mesh is mesh, f"{arch}: the engine does not see the mesh")
+            with RouteLog() as rl:
+                runs["sharded"] = serve_prompts(torch, mods, eng, prompts, mesh)
+            routes["sharded"] = rl.calls
+            require(all(isinstance(t, DTensor) for t in leaves(eng.pool.blocks)),
+                    f"{arch}: the pool")
+            kinds = cfg.layer_kinds()
+            norms = sum(1 if k == "ssm" else 2 for k in kinds) + 1
+            for name, (tokens, counts, joins, steps, _) in runs.items():
+                want = dict.fromkeys(KERNELS, 0)
+                want.update(paged_attention_scatter=steps * kinds.count("attn"),
+                            flash_attention=joins * kinds.count("attn"),
+                            rmsnorm=(joins + steps) * norms,
+                            ssd_scan=joins * kinds.count("ssm"),
+                            rglru_scan=joins * kinds.count("rglru"))
+                require(joins == SHARD_PROMPTS and counts == want,
+                        f"{arch} {name}: {joins} joins, {steps} steps, launches {counts}, "
+                        f"want {want}")
+                for i, toks in enumerate(tokens):
+                    require(len(toks) == SHARD_NEW and all(0 <= t < cfg.vocab for t in toks),
+                            (arch, name, i))
+            (pt, pc, _, psteps, pp50), (st, sc, _, ssteps, sp50) = (runs["plain"],
+                                                                    runs["sharded"])
+            require(pc == sc and psteps == ssteps, f"{arch}: launches plain {pc}, sharded {sc}")
+            parted = [i for i, (u, w) in enumerate(zip(pt, st)) if u != w]
+            excused = ""
+            if parted:
+                flip = first_route_flip(routes["plain"], routes["sharded"]) if cfg.is_moe \
+                    else None
+                require(flip is not None and flip[1] <= ROUTE_PROB_TOL,
+                        f"{arch}: requests {parted} part from the plain engine's tokens "
+                        f"(router flip {flip})")
+                excused = (f"; requests {parted} excused: the routers part at call "
+                           f"{flip[0]} with probabilities {flip[1]:.3g} apart")
+            log(f"sharded serving, {arch} on a (1, 1) NCCL mesh: {SHARD_PROMPTS} requests, "
+                f"{psteps} decode steps, tokens equal to the plain engine's for "
+                f"{SHARD_PROMPTS - len(parted)} of {SHARD_PROMPTS} requests{excused}; launches "
+                f"{json.dumps(sc)} (equal); decode step p50 plain {pp50:.3f} ms, sharded "
+                f"{sp50:.3f} ms ({sp50 / pp50:.2f} x); {time.perf_counter() - t0:.1f} s; "
+                f"the card: {card}")
+            out[arch] = sc
+            del eng, sharded, params
+            gc.collect()
+            torch.cuda.empty_cache()
     finally:
         if made:
             dist.destroy_process_group()
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -3280,31 +3345,6 @@ FAMILY_SHARD_ARCHS = ("granite-moe-3b-a800m", "recurrentgemma-2b", "mamba2-130m"
 FAMILY_DRYRUN_CELL = ["--arch", "granite-moe-3b-a800m", "--shape", "decode_32k", "--mesh", "pod"]
 
 
-def shard_paged_record(torch, PA, rng, what, hkv, g, d, window):
-    """The fused paged step at one rank's shapes (B 8, page 16, slots
-    between positions 128 and 175, bf16 pages, fp32 query) against its
-    plain version, the pools bit-equal outside the scratch page; timed
-    beside its plain version, SDPA and its bound."""
-    case, pos = paged_case(torch, rng, torch.bfloat16, torch.float32, b=8, hkv=hkv, g=g,
-                           d=d, page=16, m=11, pos_lo=128)
-    plain_in = {k: v.clone() for k, v in case.items()}
-    kern_in = {k: v.clone() for k, v in case.items()}
-    want = PA.paged_attention_scatter_plain(**plain_in, window=window)
-    got = PA.paged_attention_scatter(**kern_in, window=window)
-    err = compare(torch, got, want, BF16_TOL, f"paged per rank, {what}")
-    ratio = slot_ratio(got, want)
-    require(ratio <= SLOT_REL_TOL, f"paged {what}: slot error {ratio:.3g} of its RMS")
-    for pool in ("k_pages", "v_pages"):
-        require(torch.equal(kern_in[pool][1:], plain_in[pool][1:]), f"{what}: {pool}")
-    b_ms, b_by = paged_bound(case, pos, window)
-    return dict(
-        max_abs_err=err,
-        ms=time_ms(torch, lambda: PA.paged_attention_scatter(**kern_in, window=window)),
-        plain_ms=time_ms(torch, lambda: PA.paged_attention_scatter_plain(**plain_in,
-                                                                          window=window)),
-        bound_ms=b_ms, bound_by=b_by, library_ms=paged_sdpa_ms(torch, case, window))
-
-
 def phase_family_shard_kernels(torch, mods, card):
     """The kernels of the other families' tensor-parallel serving at each
     rank's shapes under model degree 2, 4 and 8: the RG-LRU scan on
@@ -3314,8 +3354,6 @@ def phase_family_shard_kernels(torch, mods, card):
     heads, and recurrentgemma's degree-2 paged step (its query heads split
     over the one KV head).  Each held to its plain version and timed beside
     it, its bound and its library call.  Returns the records."""
-    import torch.nn.functional as F
-
     PA, FA, RS, SSD = mods["PA"], mods["FA"], mods["RS"], mods["SSD"]
     rng = np.random.default_rng(26)
     records = {}
@@ -3357,20 +3395,8 @@ def phase_family_shard_kernels(torch, mods, card):
     for mp, (hq, hkv) in zip(SHARD_DEGREES, GRANITE_SHARD_HEADS):
         records["granite paged_attention_scatter", mp] = shard_paged_record(
             torch, PA, rng, f"granite degree {mp}: Hkv {hkv} G 3 D 64", hkv, 3, 64, 0)
-        q = randn(torch, rng, 1, hq, 128, 64)                   # fp32, as the path promotes
-        k = randn(torch, rng, 1, hkv, 128, 64)
-        v = randn(torch, rng, 1, hkv, 128, 64)
-        err = compare(torch, FA.flash_attention(q, k, v), FA.flash_attention_plain(q, k, v),
-                      F32_TOL, f"flash per rank, granite degree {mp}: Hq {hq} Hkv {hkv} S 128")
-        b_ms, b_by = bound(4 * (2 * q.numel() + 2 * k.numel()),
-                           4 * 64 * hq * flash_pairs(128, 0, True))
-        mask = flash_mask(torch, 128, 0, True)
-        records["granite flash_attention", mp] = dict(
-            max_abs_err=err, ms=time_ms(torch, lambda: FA.flash_attention(q, k, v)),
-            plain_ms=time_ms(torch, lambda: FA.flash_attention_plain(q, k, v)),
-            bound_ms=b_ms, bound_by=b_by,
-            library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
-                q, k, v, attn_mask=mask, enable_gqa=True)))
+        records["granite flash_attention", mp] = shard_flash_record(
+            torch, FA, rng, f"granite degree {mp}", hq, hkv)
     hkv, g, d, window = RG_SHARD_PAGED
     records["recurrentgemma paged_attention_scatter", 2] = shard_paged_record(
         torch, PA, rng, f"recurrentgemma degree 2: Hkv {hkv} G {g} D {d} window {window}",
@@ -3379,114 +3405,6 @@ def phase_family_shard_kernels(torch, mods, card):
         log(f"per-rank timing, {name} at model degree {mp}: " + json.dumps(rec)
             + f" (the card: {card})")
     return records
-
-
-def first_route_flip(plain, sharded):
-    """The first router call (in call order) where a row's chosen experts
-    differ between two runs' ``RouteLog.calls``, with the largest router
-    probability difference over the calls up to it; None when every call
-    chose alike."""
-    for i, ((pp, pi), (sp, si)) in enumerate(zip(plain, sharded)):
-        if pi.shape != si.shape or not bool((pi.sort(-1).values == si.sort(-1).values).all()):
-            drift = max(float((a - b).abs().max()) for (a, _), (b, _) in
-                        zip(plain[:i + 1], sharded[:i + 1]) if a.shape == b.shape)
-            return i, drift
-    return None
-
-
-def phase_family_sharded_serving(torch, mods, card):
-    """Full-width granite-moe-3b-a800m, recurrentgemma-2b and mamba2-130m
-    (fp32 params, random weights from seed 0) served greedy, 8 requests of
-    128-token prompts and 16 new tokens, 8 slots, page 16, by the
-    plain-tensor engine and by the sharded code path on a (1, 1) NCCL mesh
-    (every leaf a DTensor, the kernels on local shards): launches exact and
-    equal, tokens equal per request (an MoE request excused only where the
-    two runs' routers part at a near tie), both decode-step p50s logged.
-    Returns the launch counts by arch."""
-    import torch.distributed as dist
-    from torch.distributed.device_mesh import init_device_mesh
-    from torch.distributed.tensor import DTensor
-
-    from repro_torch.configs import get_config
-    from repro_torch.dist import sharding as SH
-    from repro_torch.models.transformer import init_params
-    from repro_torch.serve.engine import ContinuousEngine
-    from repro_torch.tree import leaves
-
-    made = not dist.is_initialized()
-    if made:
-        dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
-    out = {}
-    try:
-        mesh = SH.replica_mesh(init_device_mesh("cuda", (1, 1),
-                                                mesh_dim_names=("data", "model")))
-        for arch in FAMILY_SHARD_ARCHS:
-            t0 = time.perf_counter()
-            cfg = get_config(arch)
-            params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
-            prompts = shard_prompts(cfg.vocab)
-            max_len = 128 + SHARD_NEW + 16
-
-            def engine(p):
-                return ContinuousEngine(cfg, p, n_slots=8, max_len=max_len, page=16,
-                                        temperature=0.0)
-
-            runs, routes = {}, {}
-            with RouteLog() as rl:
-                runs["plain"] = serve_prompts(torch, mods, engine(params), prompts)
-            routes["plain"] = rl.calls
-            sharded = SH.distribute(params, SH.serve_param_shardings(mesh, params))
-            require(all(isinstance(t, DTensor) for t in leaves(sharded)),
-                    f"{arch}: a leaf is not a DTensor")
-            eng = engine(sharded)
-            require(eng.mesh is mesh, f"{arch}: the engine does not see the mesh")
-            with RouteLog() as rl:
-                runs["sharded"] = serve_prompts(torch, mods, eng, prompts, mesh)
-            routes["sharded"] = rl.calls
-            require(all(isinstance(t, DTensor) for t in leaves(eng.pool.blocks)),
-                    f"{arch}: the pool")
-            kinds = cfg.layer_kinds()
-            norms = sum(1 if k == "ssm" else 2 for k in kinds) + 1
-            for name, (tokens, counts, joins, steps, _) in runs.items():
-                want = dict.fromkeys(KERNELS, 0)
-                want.update(paged_attention_scatter=steps * kinds.count("attn"),
-                            flash_attention=joins * kinds.count("attn"),
-                            rmsnorm=(joins + steps) * norms,
-                            ssd_scan=joins * kinds.count("ssm"),
-                            rglru_scan=joins * kinds.count("rglru"))
-                require(joins == SHARD_PROMPTS and counts == want,
-                        f"{arch} {name}: {joins} joins, {steps} steps, launches {counts}, "
-                        f"want {want}")
-                for i, toks in enumerate(tokens):
-                    require(len(toks) == SHARD_NEW and all(0 <= t < cfg.vocab for t in toks),
-                            (arch, name, i))
-            (pt, pc, _, psteps, pp50), (st, sc, _, ssteps, sp50) = (runs["plain"],
-                                                                    runs["sharded"])
-            require(pc == sc and psteps == ssteps, f"{arch}: launches plain {pc}, sharded {sc}")
-            parted = [i for i, (u, w) in enumerate(zip(pt, st)) if u != w]
-            excused = ""
-            if parted:
-                flip = first_route_flip(routes["plain"], routes["sharded"]) if cfg.is_moe \
-                    else None
-                require(flip is not None and flip[1] <= ROUTE_PROB_TOL,
-                        f"{arch}: requests {parted} part from the plain engine's tokens "
-                        f"(router flip {flip})")
-                excused = (f"; requests {parted} excused: the routers part at call "
-                           f"{flip[0]} with probabilities {flip[1]:.3g} apart")
-            log(f"sharded serving, {arch} on a (1, 1) NCCL mesh: {SHARD_PROMPTS} requests, "
-                f"{psteps} decode steps, tokens equal to the plain engine's for "
-                f"{SHARD_PROMPTS - len(parted)} of {SHARD_PROMPTS} requests{excused}; launches "
-                f"{json.dumps(sc)} (equal); decode step p50 plain {pp50:.3f} ms, sharded "
-                f"{sp50:.3f} ms ({sp50 / pp50:.2f} x); {time.perf_counter() - t0:.1f} s; "
-                f"the card: {card}")
-            out[arch] = sc
-            del eng, sharded, params
-            gc.collect()
-            torch.cuda.empty_cache()
-    finally:
-        if made:
-            dist.destroy_process_group()
-    return out
 
 
 def phase_family_sharding(torch, mods, card):
@@ -3513,7 +3431,7 @@ def phase_family_sharding(torch, mods, card):
             f"{rec['cost']['flops']:.6e}, collectives "
             + json.dumps({k: v["count"] for k, v in rec["collectives"].items()})
             + f", {rec['compile_scan_s']} s")
-    counts = phase_family_sharded_serving(torch, mods, card)
+    counts = phase_sharded_serving(torch, mods, card, FAMILY_SHARD_ARCHS)
     log(f"phase 26 done in {time.time() - t0:.1f} s; the card: {card}")
     return records, counts
 
@@ -3641,7 +3559,7 @@ def main() -> int:
     fleet = phase_fleet(torch, mods, card)
     torch.cuda.empty_cache()
     phase_shard_kernels(torch, mods, card)
-    phase_sharded_serving(torch, mods, card)
+    phase_sharded_serving(torch, mods, card, ("llama3.2-1b",))
     torch.cuda.empty_cache()
     phase_dryrun(torch, mods, card)
     torch.cuda.empty_cache()

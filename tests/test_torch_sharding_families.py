@@ -1,0 +1,244 @@
+"""The other families sharded inside a pod on 2 spawned gloo ranks at model
+degree 2, against the port on plain tensors and the JAX package, on the
+CPU.
+
+* The serve launcher's ``--model-parallel 2`` path serves reduced
+  granite-moe-3b-a800m, recurrentgemma-2b and mamba2-130m greedy, every
+  request's tokens equal to the port's unsharded engine's on the same
+  (gathered) weights and to the reference's ``ContinuousEngine``'s.
+* ``moe_forward`` on DTensors (the router and experts split over the model
+  axis) equals the reference's at 2e-5, out, aux and every gradient, with
+  dropless and with capacity routing (which drops).
+* ``rglru_scan`` and ``ssd_scan`` on DTensors run their plain versions on
+  each rank's lanes or heads and equal the whole-tensor calls.
+
+The spawn helpers are ``test_torch_sharding_dist``'s; this file holds its
+own 2-rank run so that it runs beside that file's.  JAX is imported inside
+the reference-side helpers only, so the spawned ranks load torch alone.
+"""
+import os
+import pickle
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from repro_torch import bridge
+from repro_torch.configs import get_config, reduced
+from repro_torch.tree import leaves
+from test_torch_sharding_dist import init_rank, start
+
+# served through the launcher on 2 ranks at model degree 2
+FAMILY_ARCHS = ("granite-moe-3b-a800m", "recurrentgemma-2b", "mamba2-130m")
+FAMILY_ARGV = ["--reduced", "--continuous", "--device", "cpu", "--model-parallel", "2",
+               "--temperature", "0", "--n-requests", "3", "--steps", "6", "--prompt-len", "8"]
+MOE_ARCH = "granite-moe-3b-a800m"
+MOE_ROUTINGS = ("dropless", "capacity")
+F32_TOL = dict(atol=2e-5, rtol=2e-4)
+SSD_TOL = dict(atol=2e-4, rtol=2e-3)
+
+
+def reference_moe(work_dir):
+    """The reference's ``moe_forward`` on reduced granite: out, aux and the
+    gradients of ``sum(out * r) + aux`` for dropless and capacity routing;
+    the tokens share a direction, so capacity routing drops."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.configs import get_config as jget_config
+    from repro.configs import reduced as jreduced
+    from repro.models import moe as JM
+
+    jcfg = jreduced(jget_config(MOE_ARCH))
+    jp = JM.init_moe(jcfg, jax.random.PRNGKey(2), jnp.float32)
+    rng = np.random.default_rng(3)
+    b, s, d = 2, 16, jcfg.d_model
+    x = (rng.normal(0, 1, (b, s, d)) + 1.5 * rng.normal(0, 1, d)).astype(np.float32)
+    r = rng.normal(0, 1, (b, s, d)).astype(np.float32)
+    out = {"params": jax.tree.map(np.asarray, jp), "x": x, "r": r}
+    for routing in MOE_ROUTINGS:
+        cap = b * s if routing == "dropless" else 0
+
+        def loss(p, x):
+            y, aux = JM.moe_forward(jcfg, p, x, cap_override=cap)
+            return jnp.sum(y * r) + aux
+
+        y, aux = JM.moe_forward(jcfg, jp, jnp.asarray(x), cap_override=cap)
+        gp, gx = jax.grad(loss, argnums=(0, 1))(jp, jnp.asarray(x))
+        out[routing] = {"out": np.asarray(y), "aux": float(aux), "gx": np.asarray(gx),
+                        "gp": jax.tree.map(np.asarray, gp)}
+    with open(os.path.join(work_dir, "moe.pkl"), "wb") as f:
+        pickle.dump(out, f)
+    return out
+
+
+def families_through_launcher(rank):
+    """Each of ``FAMILY_ARCHS`` served by the launcher's sharded path; the
+    same prompts by the port's engine on the gathered (whole) weights."""
+    from repro_torch.dist import sharding as SH
+    from repro_torch.launch import serve as lserve
+    from repro_torch.serve.engine import ContinuousEngine
+
+    out = {}
+    for arch in FAMILY_ARCHS:
+        res = lserve.main(["--arch", arch] + FAMILY_ARGV)
+        eng = res["objects"]["engine"]
+        reqs = sorted(res["objects"]["requests"], key=lambda r: r.rid)
+        whole = SH.gather(eng.params)
+        prompts = np.stack([r.prompt for r in reqs])
+        n = max(r.max_new for r in reqs)
+        plain = ContinuousEngine(eng.cfg, whole, n_slots=eng.n_slots, max_len=eng.max_len,
+                                 page=eng.page, device="cpu").generate({"tokens": prompts},
+                                                                       n_steps=n)
+        out[arch] = dict(
+            mesh=res["mesh"], ranks=res["ranks"], tokens=[list(r.out) for r in reqs],
+            plain=[list(row[:r.max_new]) for row, r in zip(plain.tolist(), reqs)],
+            prompts=prompts, n=n, engine=(eng.n_slots, eng.max_len, eng.page),
+            all_dtensors=all(SH.mesh_of(t) is not None for t in leaves(eng.params)),
+            params=bridge.params_to_numpy(eng.cfg, whole) if rank == 0 else None)
+    return out
+
+
+def moe_on_mesh(mesh, work_dir):
+    """The port's ``moe_forward`` on DTensors: parameters on
+    ``param_shardings`` (router and experts split over the model axis), x
+    replicated; out, aux and the gradients, gathered."""
+    from repro_torch.dist import sharding as SH
+    from repro_torch.models import moe as TM
+    from repro_torch.models.hooks import install_constraint
+
+    with open(os.path.join(work_dir, "moe.pkl"), "rb") as f:
+        ref = pickle.load(f)
+    cfg = reduced(get_config(MOE_ARCH))
+    p = {k: torch.from_numpy(v) for k, v in ref["params"].items()}
+    x = torch.from_numpy(ref["x"])
+    r = torch.from_numpy(ref["r"])
+    out = {}
+    install_constraint(SH.activation_constraint_fn(mesh))
+    try:
+        for routing in MOE_ROUTINGS:
+            cap = x.shape[0] * x.shape[1] if routing == "dropless" else 0
+            dp = SH.distribute(p, SH.param_shardings(mesh, p))
+            for t in dp.values():
+                t.requires_grad_(True)
+            dx = SH.distribute(x, SH.batch_shardings(mesh, x)).requires_grad_(True)
+            with SH.replicating(mesh):
+                y, aux = TM.moe_forward(cfg, dp, dx, cap_override=cap)
+                loss = (y * r).sum() + aux
+                grads = torch.autograd.grad(loss, list(dp.values()) + [dx])
+            out[routing] = {
+                "out": SH.whole(y).detach().numpy(), "aux": float(SH.whole(aux)),
+                "gx": SH.whole(grads[-1]).numpy(),
+                "gp": {k: SH.whole(g).numpy() for k, g in zip(dp, grads)},
+                "placements": {k: str(t.placements) for k, t in dp.items()}}
+    finally:
+        install_constraint(None)
+    return out
+
+
+def scans_on_mesh(mesh):
+    """``rglru_scan`` and ``ssd_scan`` handed DTensors on the CPU: their
+    outputs' placements and their gathered values against the whole-tensor
+    calls; the SSD also at a head count the model axis does not divide."""
+    from torch.distributed.tensor import Replicate, distribute_tensor
+
+    from repro_torch.kernels import rglru_scan as RS
+    from repro_torch.kernels import ssd as SSD
+
+    g = torch.Generator().manual_seed(5)
+    rep = (Replicate(),) * mesh.ndim
+
+    def dt(t):
+        return distribute_tensor(t, mesh, rep, src_data_rank=None)
+
+    out = {}
+    a = torch.rand(2, 20, 64, generator=g) * 0.69 + 0.3
+    b = torch.randn(2, 20, 64, generator=g)
+    h0 = torch.randn(2, 64, generator=g)
+    got = RS.rglru_scan(dt(a), dt(b), dt(h0))
+    out["rglru"] = dict(placements=str(got.placements), local=tuple(got.to_local().shape),
+                        err=float((got.full_tensor() - RS.rglru_scan(a, b, h0)).abs().max()),
+                        close=bool(torch.allclose(got.full_tensor(), RS.rglru_scan(a, b, h0),
+                                                  **F32_TOL)))
+    for h in (4, 3):
+        x = torch.randn(2, 24, h, 8, generator=g)
+        dtv = torch.rand(2, 24, h, generator=g) * 0.2
+        a_log = -torch.rand(h, generator=g) * 8 - 1
+        bb, cc = torch.randn(2, 24, 16, generator=g), torch.randn(2, 24, 16, generator=g)
+        s0 = torch.randn(2, h, 8, 16, generator=g) * 0.1
+        y, state = SSD.ssd_scan(dt(x), dt(dtv), dt(a_log), dt(bb), dt(cc), chunk=8,
+                                init_state=dt(s0))
+        wy, ws = SSD.ssd_scan(x, dtv, a_log, bb, cc, chunk=8, init_state=s0)
+        out[f"ssd H {h}"] = dict(
+            placements=(str(y.placements), str(state.placements)),
+            local=tuple(y.to_local().shape),
+            close=bool(torch.allclose(y.full_tensor(), wy, **SSD_TOL)
+                       and torch.allclose(state.full_tensor(), ws, **SSD_TOL)))
+    return out
+
+
+def family_rank(rank, world, store_path, work_dir):
+    init_rank(rank, world, store_path)
+    try:
+        from repro_torch.launch.mesh import make_host_mesh
+
+        mesh = make_host_mesh(2)
+        out = {"families": families_through_launcher(rank), "moe": moe_on_mesh(mesh, work_dir),
+               "scans": scans_on_mesh(mesh)}
+        with open(os.path.join(work_dir, f"{rank}.pkl"), "wb") as f:
+            pickle.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def reference_family_tokens(case, arch):
+    """The reference's ``ContinuousEngine`` greedy on the launcher's weights
+    and prompts, each request cut to its own length."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.configs import get_config as jget_config
+    from repro.configs import reduced as jreduced
+    from repro.serve import ContinuousEngine as JContinuousEngine
+
+    n_slots, max_len, page = case["engine"]
+    jp = jax.tree.map(jnp.asarray, case["params"])
+    out = JContinuousEngine(jreduced(jget_config(arch)), jp, n_slots=n_slots, max_len=max_len,
+                            page=page).generate({"tokens": jnp.asarray(case["prompts"])},
+                                                n_steps=case["n"])
+    return [list(row[:len(toks)]) for row, toks in zip(np.asarray(out).tolist(),
+                                                       case["tokens"])]
+
+
+def test_two_ranks_serve_and_route_the_other_families(tmp_path):
+    mref = reference_moe(tmp_path)
+    got = start(family_rank, 2, tmp_path)
+    assert not np.allclose(mref["capacity"]["out"], mref["dropless"]["out"])   # it dropped
+    for arch in FAMILY_ARCHS:
+        want = reference_family_tokens(got[0]["families"][arch], arch)
+        for r, res in enumerate(got):
+            case = res["families"][arch]
+            assert case["mesh"] == [1, 2] and case["all_dtensors"], (r, arch)
+            assert case["ranks"] == [{"device": "cpu", "attn_kernel": "plain"}] * 2
+            assert case["tokens"] == case["plain"] == want, (r, arch, case["tokens"], want)
+    for r, res in enumerate(got):
+        for routing in MOE_ROUTINGS:
+            case, want = res["moe"][routing], mref[routing]
+            np.testing.assert_allclose(case["out"], want["out"], atol=2e-5, rtol=2e-5)
+            np.testing.assert_allclose(case["aux"], want["aux"], atol=2e-5, rtol=2e-5)
+            np.testing.assert_allclose(case["gx"], want["gx"], atol=2e-5, rtol=2e-5)
+            for k, g in case["gp"].items():
+                np.testing.assert_allclose(g, want["gp"][k], atol=2e-5, rtol=2e-5,
+                                           err_msg=f"{routing} d{k}")
+            assert case["placements"]["router"] == "(Replicate(), Shard(dim=1))", case
+            assert case["placements"]["w1"] == "(Replicate(), Shard(dim=2))", case
+            assert case["placements"]["w2"] == "(Replicate(), Shard(dim=1))", case
+        scans = res["scans"]
+        assert scans["rglru"]["close"] and scans["rglru"]["err"] == 0.0, scans
+        assert scans["rglru"]["placements"] == "(Replicate(), Shard(dim=2))"
+        assert scans["rglru"]["local"] == (2, 20, 32)
+        assert scans["ssd H 4"]["close"] and scans["ssd H 3"]["close"], scans
+        assert scans["ssd H 4"]["placements"] == ("(Replicate(), Shard(dim=2))",
+                                                  "(Replicate(), Shard(dim=1))")
+        assert scans["ssd H 4"]["local"] == (2, 24, 2, 8)
+        assert scans["ssd H 3"]["placements"] == ("(Replicate(), Replicate())",) * 2
