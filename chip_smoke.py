@@ -294,7 +294,18 @@ Builds the hand-written kernels from the five sources in this checkout (one
    excused only where the two runs' routers first part at a near tie,
    probabilities within 1e-3); both decode-step p50s logged.
 
-In phases 1b, 2, 5, 8, 11, 13-16 and 18-26 every kernel count is set to 0 just
+27. **the serving fleet on a mesh**: phase 23's flash-crowd fleet through
+   the serve launcher's ``run_fleet_real`` on a (1, 1) NCCL mesh, as
+   ``--fleet`` runs under ``torchrun``: both replicas on the one copy of
+   the weights as DTensors on ``serve_param_shardings``, each pool on
+   ``page_pool_shardings``, the sessions on the mesh's first rank's clock.
+   Phase 23's checks (exact launches, no plain attention, every request
+   finished, no pool storage shared; tokens against one plain engine alone
+   on the gathered weights and the fleet teacher-forced with them at the
+   bf16 bar); the sharded and the plain fleet's decode-step p50s logged
+   beside the card's name and power limit.
+
+In phases 1b, 2, 5, 8, 11, 13-16 and 18-27 every kernel count is set to 0 just
 before the run and read just after; each must equal the launches the path
 needs (RMSNorm once per norm a join and a step where the norm is RMSNorm,
 none for LayerNorm and the nonparametric norm: 2 a layer with an MLP, 1
@@ -2587,8 +2598,10 @@ FLEET_TRACES = {"flash-crowd": ["--fleet-trace", "flash-crowd", "--fleet-duratio
 
 
 def storages(eng) -> set:
-    return {t.untyped_storage().data_ptr() for layer in eng.pool.blocks["layers"]
-            for t in layer.values()}
+    from repro_torch.device import is_dtensor
+
+    return {(t.to_local() if is_dtensor(t) else t).untyped_storage().data_ptr()
+            for layer in eng.pool.blocks["layers"] for t in layer.values()}
 
 
 def check_fleet_launches(engines, counts) -> None:
@@ -2627,12 +2640,17 @@ def fleet_alone(torch, cfg, params, reqs, max_len):
     return [list(r.out) for r in alone], eng.draws
 
 
-def fleet_forced(torch, mods, res, objs, script):
+def fleet_forced(torch, mods, res, objs, script, mesh=None):
     """The same fleet again (two engines on the same weights, their prefix
     caches, the reference's warm-up), each request fed ``script``'s tokens
     in place of its own draws; returns every draw's logits by (request,
-    token) and the run's launches."""
+    token) and the run's launches.  With ``mesh`` (the weights DTensors on
+    its replica), the pools go onto ``page_pool_shardings``, the sessions
+    take the mesh's clock and the activation hooks are installed, as the
+    serve launcher's fleet does."""
     from repro_torch.core.governor import Governor
+    from repro_torch.dist import sharding as SH
+    from repro_torch.models.hooks import install_constraint
     from repro_torch.models.inputs import make_batch
     from repro_torch.serve.engine import ContinuousEngine
     from repro_torch.serve.fleet import run_engine_fleet
@@ -2641,19 +2659,29 @@ def fleet_forced(torch, mods, res, objs, script):
     cls = teacher_forced(torch, ContinuousEngine)
     engines = []
     reqs = objs["trace"].fresh_requests()
-    reset(mods)                         # the engines' counts include their warm-ups
-    for _ in objs["engines"]:
-        eng = cls(first.cfg, objs["params"], n_slots=first.n_slots, max_len=first.max_len,
-                  page=first.page, temperature=1.0, attn_kernel="cuda",
-                  device="cuda")
-        eng.enable_prefix_cache()
-        eng.generate(make_batch(first.cfg, batch=1, seq_len=len(reqs[0].prompt),
-                                kind="prefill"), n_steps=2)
-        eng.order, eng.script, eng.draws = {r.rid: i for i, r in enumerate(reqs)}, script, {}
-        engines.append(eng)
-    run_engine_fleet(engines, reqs, cap_w=res["cap_w"], floor_w=4.0,
-                     governors=[Governor() for _ in engines])
-    counts = counts_of(mods)
+    if mesh is not None:
+        install_constraint(SH.activation_constraint_fn(SH.replica_mesh(mesh)))
+    try:
+        reset(mods)                     # the engines' counts include their warm-ups
+        for _ in objs["engines"]:
+            eng = cls(first.cfg, objs["params"], n_slots=first.n_slots,
+                      max_len=first.max_len, page=first.page, temperature=1.0,
+                      attn_kernel="cuda", device="cuda")
+            if mesh is not None:
+                eng.pool.blocks = SH.distribute(
+                    eng.pool.blocks, SH.page_pool_shardings(eng.mesh, eng.pool.blocks))
+                eng.clock_mesh = mesh
+            eng.enable_prefix_cache()
+            eng.generate(make_batch(first.cfg, batch=1, seq_len=len(reqs[0].prompt),
+                                    kind="prefill"), n_steps=2)
+            eng.order, eng.script, eng.draws = ({r.rid: i for i, r in enumerate(reqs)},
+                                                script, {})
+            engines.append(eng)
+        run_engine_fleet(engines, reqs, cap_w=res["cap_w"], floor_w=4.0,
+                         governors=[Governor() for _ in engines])
+        counts = counts_of(mods)
+    finally:
+        install_constraint(None)
     check_fleet_launches(engines, counts)
     require([list(r.out) for r in reqs] == script, "the forced fleet's tokens are the script")
     draws = {}
@@ -2734,7 +2762,8 @@ def phase_fleet(torch, mods, card):
             f"model, not the card's): cap {res['cap_w']} W, last grants "
             f"{json.dumps(res['grants_w'])} over {res['arbiter_epochs']} epochs; the card: "
             f"{card}; the phase's run {wall:.3f} s")
-        summary[name] = dict(parted=len(parted), forced_err=err, counts=counts)
+        summary[name] = dict(parted=len(parted), forced_err=err, counts=counts,
+                             step_ms_p50=[r["step_ms_p50"] for r in res["per_replica"]])
         del engines, objs, forced, alone_draws
         gc.collect()            # an engine and its last session refer to each other
         torch.cuda.empty_cache()
@@ -3436,6 +3465,102 @@ def phase_family_sharding(torch, mods, card):
     return records, counts
 
 
+# --------------------------------------------------------------------------
+# phase 27: the serving fleet on a mesh
+# --------------------------------------------------------------------------
+
+def phase_fleet_on_mesh(torch, mods, card, plain):
+    """Phase 23's flash-crowd fleet (full-width llama3.2-1b, ``--fleet 2``,
+    8 slots, page 16, the kernels, seed 0) through the serve launcher's
+    ``run_fleet_real`` on a (1, 1) NCCL mesh, as ``--fleet`` runs under
+    ``torchrun``: the weights DTensors on ``serve_param_shardings``, each
+    replica's pool on ``page_pool_shardings``, the sessions on the mesh's
+    clock.  Phase 23's rules: exact launches, no plain attention, every
+    request finished, one copy of the weights and no pool storage shared;
+    each request's tokens against one plain engine alone on the same
+    (gathered) weights, and the fleet teacher-forced with that engine's
+    tokens, every draw's logits at the bf16 bar (3e-2).  Logged: the
+    sharded fleet's per-replica decode-step p50 beside phase 23's plain
+    fleet's (``plain``, its flash-crowd summary) and the card."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.device import is_dtensor
+    from repro_torch.dist import sharding as SH
+    from repro_torch.launch import serve
+    from repro_torch.models.hooks import install_constraint
+    from repro_torch.tree import leaves
+
+    t0 = time.perf_counter()
+    made = not dist.is_initialized()
+    if made:
+        dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+        args = serve.parser().parse_args(FLEET_ARGV + FLEET_TRACES["flash-crowd"])
+        args.mesh = mesh
+        install_constraint(SH.activation_constraint_fn(SH.replica_mesh(mesh)))
+        try:
+            reset(mods)
+            res = serve.run_fleet_real(args)
+            counts = counts_of(mods)
+        finally:
+            install_constraint(None)
+        objs = res.pop("objects")
+        engines, reqs = objs["engines"], objs["requests"]
+        cfg = engines[0].cfg
+        require((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.vocab)
+                == LLAMA_DIMS, cfg)
+        require(all(is_dtensor(t) for t in leaves(objs["params"])), "a weight is not a DTensor")
+        for e in engines:
+            require(e.mesh is not None and e.clock_mesh is mesh
+                    and all(is_dtensor(t) for t in leaves(e.pool.blocks)),
+                    "a replica is not on the mesh")
+        check_fleet_launches(engines, counts)
+        require(res["requests"] == res["n_requests"] == len(reqs) == len(objs["finished"]) > 0,
+                res)
+        for r in reqs:
+            require(len(r.out) == r.max_new and all(0 <= t < cfg.vocab for t in r.out), r.rid)
+        require(all(e.params is objs["params"] for e in engines), "one copy of the weights")
+        require(not storages(engines[0]) & storages(engines[1]), "replicas share a pool")
+        fleet = [list(r.out) for r in reqs]
+        whole = SH.gather(objs["params"])
+        alone, alone_draws = fleet_alone(torch, cfg, whole, reqs, engines[0].max_len)
+        parted = {i: next(k for k, (a, b) in enumerate(zip(f, s)) if a != b)
+                  for i, (f, s) in enumerate(zip(fleet, alone)) if f != s}
+        forced, forced_counts = fleet_forced(torch, mods, res, objs, alone, mesh=mesh)
+        require(set(forced) == set(alone_draws), "the draws")
+        err = 0.0
+        for key in alone_draws:
+            torch.testing.assert_close(forced[key], alone_draws[key], **BF16_TOL)
+            err = max(err, float((forced[key] - alone_draws[key]).abs().max()))
+        margins = {i: dict(step=k, fleet_top2=top2_margin(torch, forced[i, k]),
+                           alone_top2=top2_margin(torch, alone_draws[i, k]))
+                   for i, k in parted.items()}
+        sharded_p50 = [r["step_ms_p50"] for r in res["per_replica"]]
+        log(f"fleet llama3.2-1b flash-crowd on a (1, 1) NCCL mesh: {res['requests']} "
+            f"requests, {res['tokens']} tokens, routed {res['routed']}, prefix-routed "
+            f"{res['prefix_routed']}, prefix hits {res['prefix_hits']} of "
+            f"{res['prefix_lookups']} lookups, wall {res['wall_s']:.3f} s, "
+            f"{res['tok_per_s']:.2f} tok/s; launches {json.dumps(counts)}")
+        log(f"fleet llama3.2-1b flash-crowd on a (1, 1) NCCL mesh: tokens equal one plain "
+            f"engine alone for {len(reqs) - len(parted)} of {len(reqs)} requests; parted "
+            f"(request: first step, top-2 logit margins fleet/alone there) "
+            f"{json.dumps(margins)}; teacher-forced with the single engine's tokens: "
+            f"max_abs_err {err:.4g} over {len(alone_draws)} draws (atol/rtol 3e-2), launches "
+            f"{json.dumps(forced_counts)}")
+        log(f"fleet llama3.2-1b flash-crowd decode-step p50 per replica: sharded "
+            f"{json.dumps(sharded_p50)} ms, plain (phase 23) {json.dumps(plain['step_ms_p50'])} "
+            f"ms; the phase's run {time.perf_counter() - t0:.3f} s; the card: {card}")
+        del engines, objs, forced, alone_draws, whole
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        if made:
+            dist.destroy_process_group()
+    return counts
+
+
 def _to(tree, torch, device, copy=False):
     """``tree``'s tensors on ``device`` (copies, with ``copy``, even where
     they are there already)."""
@@ -3564,6 +3689,8 @@ def main() -> int:
     phase_dryrun(torch, mods, card)
     torch.cuda.empty_cache()
     _, shard_counts = phase_family_sharding(torch, mods, card)
+    torch.cuda.empty_cache()
+    mesh_fleet_counts = phase_fleet_on_mesh(torch, mods, card, fleet["flash-crowd"])
     log("launches on the llama3.2-1b path " + json.dumps(llama_counts)
         + "; under --theta predictive " + json.dumps(predictive_counts)
         + "; with the prefix cache (warm, greedy) " + json.dumps(prefix_counts)
@@ -3576,6 +3703,8 @@ def main() -> int:
     log("launches on the other families' paths " + json.dumps(family_counts))
     log("launches on the other families' sharded paths, (1, 1) mesh "
         + json.dumps(shard_counts))
+    log("launches on the fleet's path on a (1, 1) mesh (flash crowd) "
+        + json.dumps(mesh_fleet_counts))
     print(card)
     print(json.dumps({"kernels": [dict(
         name=k, route="cuda", source=f"src/repro_torch/kernels/csrc/{src}.cu",

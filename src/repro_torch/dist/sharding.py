@@ -578,21 +578,26 @@ def local_placements(t, *, model_dim: Optional[int] = None, keep: Tuple[int, ...
     return tuple(out)
 
 
-def on_shards(fn: Callable, args: tuple, in_placements: tuple, out_placements: tuple):
+def on_shards(fn: Callable, args: tuple, in_placements: tuple, out_placements: tuple,
+              grad_placements: Optional[tuple] = None):
     """``fn(*args)`` with each DTensor of ``args`` redistributed to its
     placements and handed to ``fn`` as the local tensor (DTensor's
     ``local_map``); plain tensors and other values pass through (their
     placements are None).  ``fn``'s one tensor comes back as a DTensor on
     ``out_placements``, or, where that is a tuple of placements tuples, its
     tuple of tensors, each on its own.  Autograd passes through: the same
-    code trains.  In-place writes to a local tensor land in its DTensor's
-    storage only when no redistribution was needed."""
+    code trains.  ``grad_placements`` gives the layout of each argument's
+    local gradient where it is not that of the argument (a ``Partial`` on
+    a mesh dim whose ranks each use their own part of a replicated
+    argument); None: the arguments' own.  In-place writes to a local
+    tensor land in its DTensor's storage only when no redistribution was
+    needed."""
     from torch.distributed.tensor.experimental import local_map
 
     many = bool(out_placements) and all(isinstance(p, tuple) for p in out_placements)
     out = tuple(out_placements) if many else list(out_placements)
     return local_map(fn, out_placements=out, in_placements=in_placements,
-                     redistribute_inputs=True)(*args)
+                     in_grad_placements=grad_placements, redistribute_inputs=True)(*args)
 
 
 def write_on_shards(fn: Callable, args: tuple, in_placements: tuple) -> None:
@@ -653,11 +658,17 @@ def whole(t):
 
 
 def agree(mesh, value: float, device) -> float:
-    """``value`` as the first rank of ``mesh`` (one dim: a replica) has it,
-    on every rank of the mesh (one broadcast over its group): the ranks of
-    one engine take every host decision from the same clock."""
+    """``value`` as the first rank of ``mesh`` has it, on every rank of the
+    mesh (one broadcast over each mesh dim's group, from the rank at
+    coordinate 0 of that dim: after the last, every rank holds the value
+    of the rank at coordinate 0 of every dim).  The ranks of one engine,
+    or of one fleet, take every host decision from the same clock."""
     import torch.distributed as dist
 
     buf = torch.tensor([value], dtype=torch.float64, device=device)
-    dist.broadcast(buf, src=int(mesh.mesh.flatten()[0]), group=mesh.get_group())
+    coord = mesh.get_coordinate()
+    for dim in range(mesh.ndim):
+        src = list(coord)
+        src[dim] = 0
+        dist.broadcast(buf, src=int(mesh.mesh[tuple(src)]), group=mesh.get_group(dim))
     return float(buf.item())

@@ -71,6 +71,10 @@ outputs.
   PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.serve \\
       --reduced --continuous --device cpu --model-parallel 2 --temperature 0
 
+  # a replica fleet over the same mesh: every replica on the sharded weights
+  PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.serve \\
+      --reduced --device cpu --model-parallel 2 --fleet 2 --fleet-duration 3
+
 The static, continuous and fleet modes of ``repro.launch.serve`` are
 ported, with the continuous mode's ``--trace-out``, ``--perfetto-out``,
 ``--metrics-out``, ``--dashboard``, ``--power-cap``, ``--tpot-target`` and
@@ -81,9 +85,12 @@ of N ranks is a ``(N // mp, mp)`` ``DeviceMesh`` of ``("data", "model")``,
 continuous engine's pool on ``page_pool_shardings``, the activation hooks
 are installed, and the static and continuous modes run sharded (each rank
 runs the kernels on its local shards; every rank takes the first rank's
-clock).  One rank with ``--model-parallel 1`` wraps nothing.  ``--fleet``
-over more than one rank is refused (ROADMAP.md, queue 1, item 8), and only
-the first rank prints the result.
+clock).  ``--fleet`` runs on the mesh as the reference's does: every
+replica an engine on the one copy of the sharded weights, every rank the
+same fleet on the first rank's clock; ``--fleet --autoscale`` (no model)
+runs the same simulation on every rank.  One rank with
+``--model-parallel 1`` wraps nothing, and only the first rank prints the
+result.
 ``--power-cap`` and the fleet's watts are those of
 ``core.pstate.DEFAULT_HW``'s CPU-node model, not the card's draw; the
 result says so.  The fleet's traces draw tokens below ``min(1000,
@@ -476,10 +483,15 @@ def run_fleet_real(args) -> Dict[str, Any]:
     on first use).  Returns the reference's ``fleet_done`` numbers, each
     replica's decode-step p50 and decode path, with the engines, sessions,
     router, arbiter, the requests in trace order and in the order they
-    finished, the trace and the weights under ``"objects"``."""
+    finished, the trace and the weights under ``"objects"``.  On a mesh,
+    as the reference's, every replica is an engine on the whole mesh's
+    one copy of the weights (this rank's replica of
+    ``serve_param_shardings``), its pool on ``page_pool_shardings``; every
+    rank runs the same fleet, its host decisions on the mesh's first
+    rank's clock, and serves the same tokens."""
     from repro_torch.serve.fleet import run_engine_fleet
 
-    device, cfg, params = _model(args)
+    device, cfg, params = _model(args, args.mesh)
     trace = fleet_trace(args, cfg)
     reqs = trace.fresh_requests()
     longest = max(len(r.prompt) + r.max_new for r in reqs)
@@ -497,6 +509,10 @@ def run_fleet_real(args) -> Dict[str, Any]:
         eng = ContinuousEngine(cfg, params, n_slots=args.slots, max_len=max_len,
                                page=args.page_size, temperature=args.temperature,
                                attn_kernel=args.attn_kernel, device=device)
+        if args.mesh is not None:
+            eng.pool.blocks = SH.distribute(
+                eng.pool.blocks, SH.page_pool_shardings(eng.mesh, eng.pool.blocks))
+            eng.clock_mesh = args.mesh
         eng.enable_prefix_cache()
         warm = make_batch(cfg, batch=1, seq_len=len(reqs[0].prompt), kind="prefill")
         eng.generate(warm, n_steps=2)
@@ -645,9 +661,6 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
         made_group = join_group(_device(args))     # torchrun's world
     try:
         args.mesh = serve_mesh(args)
-        if args.fleet and dist.is_initialized() and dist.get_world_size() > 1:
-            raise SystemExit("--fleet over more than one rank is not ported to repro_torch "
-                             "yet (ROADMAP.md, queue 1, item 8)")
         if args.fleet:
             res = run_fleet_sim(args) if args.autoscale else run_fleet_real(args)
         elif args.continuous:
@@ -663,9 +676,9 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
         res["mesh"] = None if args.mesh is None else list(args.mesh.shape)
         if args.mesh is not None:
             # each rank's kernel path, in rank order
-            path = {"device": res["device"],
-                    "attn_kernel": res.get("attn_kernel", "plain" if res["device"] == "cpu"
-                                           else "cuda")}
+            kernel = "none" if res.get("mode") == "fleet_sim" else (
+                "plain" if res["device"] == "cpu" else "cuda")
+            path = {"device": res["device"], "attn_kernel": res.get("attn_kernel", kernel)}
             paths = [None] * dist.get_world_size()
             dist.all_gather_object(paths, path)
             res["ranks"] = paths

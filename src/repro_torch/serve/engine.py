@@ -264,6 +264,9 @@ class ContinuousEngine:
         # the params' mesh when they are DTensors (tensor parallel): the
         # launcher puts the pool on it too; None for plain tensors
         self.mesh = SH.mesh_of(self.params)
+        # the ranks whose first rank's clock the engine's sessions take: the
+        # engine's own, or a whole fleet's mesh (set where the fleet is built)
+        self.clock_mesh = self.mesh
         self.pool = PagedKVPool(self.cfg, self.n_slots, self.max_len, self.page,
                                 self.num_pages, device=self.device)
         # greedy decoding samples inside the step; a temperature needs logits
@@ -495,12 +498,12 @@ class EngineSession:
     def now(self) -> float:
         """Session seconds.  A tensor-parallel engine runs one session on
         every rank of its mesh, and every rank takes the first rank's
-        clock (one broadcast a call), so all admit the same requests on
-        the same step."""
+        clock (a broadcast a call, over the engine's ``clock_mesh``), so
+        all admit the same requests on the same step."""
         return self._agreed(time.monotonic() - self.t_start)
 
     def _agreed(self, t: float) -> float:
-        mesh = self.engine.mesh
+        mesh = self.engine.clock_mesh
         return t if mesh is None else SH.agree(mesh, t, self.engine.device)
 
     # ---- queue state -----------------------------------------------------

@@ -384,7 +384,7 @@ def run_engine_fleet(engines, requests, *, cap_w: float, floor_w: float,
     steps = 0
     stalls = 0
     while True:
-        now = _time.monotonic() - t_start
+        now = sessions[0].now()
         routed = False
         while i < len(pending) and pending[i].arrival <= now:
             req = pending[i]
@@ -404,7 +404,7 @@ def run_engine_fleet(engines, requests, *, cap_w: float, floor_w: float,
             raise RuntimeError(f"fleet exceeded {max_steps} decode steps")
         if routed or any_active:
             stalls = 0
-        if _time.monotonic() - t_start >= next_epoch:
+        if sessions[0].now() >= next_epoch:
             samples = []
             for k, gov in enumerate(governors):
                 if gov is None:

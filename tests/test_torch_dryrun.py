@@ -76,7 +76,7 @@ FAMILY_CELLS = {
                                 {"serve_tp": True}),
     "mamba2_cut_head_train": ("mamba2-130m", {"ssm_d_head": 64}, "train", 32, 16, (2, 8), {}),
 }
-FAMILY_TEMP_BYTES = {"granite_train": 2014240, "granite_decode_serve_tp": 427008,
+FAMILY_TEMP_BYTES = {"granite_train": 1748512, "granite_decode_serve_tp": 427008,
                      "mamba2_cut_head_train": 6209884}
 
 

@@ -64,6 +64,12 @@ DOCSTRING_PORT = '''    decode path (``attn_kernel="plain"``/``"cuda"``) — the
 DOCSTRING_REFERENCE = '''    decode kernel (``attn_kernel="xla"``/``"pallas"``) — both are
     token-for-token identical, so routing/prefix decisions never depend
     on which replica serves a request.  Returns'''
+# run_engine_fleet routes and reprices on the first session's clock: on a
+# mesh that is the first rank's, so that every rank of the fleet decides alike
+CLOCK_PORT = (("        now = sessions[0].now()\n",
+               "        now = _time.monotonic() - t_start\n"),
+              ("        if sessions[0].now() >= next_epoch:\n",
+               "        if _time.monotonic() - t_start >= next_epoch:\n"))
 TRACES = ("diurnal", "flash-crowd", "session-reuse")
 
 
@@ -97,6 +103,9 @@ def test_fleet_module_text_equals_the_original(name):
     if name == "fleet":
         assert mine.count(DOCSTRING_PORT) == 1
         mine = mine.replace(DOCSTRING_PORT, DOCSTRING_REFERENCE)
+        for port, reference in CLOCK_PORT:
+            assert mine.count(port) == 1
+            mine = mine.replace(port, reference)
     assert mine.replace("repro_torch", "repro") == theirs
 
 

@@ -13,8 +13,8 @@ tensors and the JAX package, on the CPU.
   calls as on the card.  One decode step's collectives are counted by kind
   (``CommDebugMode``), and none of them moves a parameter's storage; the
   pool's local shards are the DTensors' own storage, written in place.
-  The serve launcher runs ``--model-parallel 2`` over the 2 ranks and
-  refuses ``--fleet``.
+  The serve launcher runs ``--model-parallel 2`` over the 2 ranks, and
+  ``--fleet`` (held to one engine's tokens in ``test_torch_fleet_dist.py``).
 * On the same 2 ranks the static launcher serves mamba2-130m sharded and
   the train launcher takes reduced granite's sharded step.  The other
   families' serving, ``moe_forward`` and the scans on DTensors are held
@@ -225,7 +225,7 @@ def serve_rank(rank, world, store_path, work_dir, model_parallel):
             out["launcher_tokens"] = [list(r.out) for r in res["objects"]["requests"]]
             refused = {}
             for name, main, argv in (
-                    ("fleet", lserve.main, ["--fleet", "2"]),
+                    ("fleet", lserve.main, ["--fleet", "2", "--fleet-duration", "1"]),
                     ("ssm", lserve.main, ["--arch", "mamba2-130m", "--model-parallel", "2"]),
                     ("moe train", ltrain.main, ["--arch", "granite-moe-3b-a800m"])):
                 try:
@@ -270,8 +270,7 @@ def test_two_ranks_serve_tensor_parallel(tmp_path):
         assert launcher["ranks"] == [{"device": "cpu", "attn_kernel": "plain"}] * 2
         assert res["launcher_tokens"] == got[0]["launcher_tokens"]     # the ranks agree
         refused = res["refused"]
-        assert "--fleet over more than one rank" in refused["fleet"] and "item 8" in \
-            refused["fleet"]
+        assert refused["fleet"] == ("ran", [2, 1]), refused
         assert refused["ssm"] == ("ran", [1, 2]), refused        # the static mode, sharded
         assert refused["moe train"] == ("ran", [2, 1]), refused
     print("decode-step collectives, 2 ranks:",

@@ -6,9 +6,13 @@ CPU.
   granite-moe-3b-a800m, recurrentgemma-2b and mamba2-130m greedy, every
   request's tokens equal to the port's unsharded engine's on the same
   (gathered) weights and to the reference's ``ContinuousEngine``'s.
-* ``moe_forward`` on DTensors (the router and experts split over the model
-  axis) equals the reference's at 2e-5, out, aux and every gradient, with
-  dropless and with capacity routing (which drops).
+* ``moe_forward`` on DTensors equals the reference's at 2e-5, out, aux
+  and every gradient, with dropless routing, with capacity routing (which
+  drops) and with capacity routing at a capacity factor of 0.5 (which
+  drops on both ranks' tokens), on the (1, 2) mesh (the router and
+  experts split over the model axis, every rank routing the whole batch)
+  and on the (2, 1) mesh (the tokens split over the data axis: each rank
+  routes only its own T/2 rows, at the whole batch's slots).
 * ``rglru_scan`` and ``ssd_scan`` on DTensors run their plain versions on
   each rank's lanes or heads and equal the whole-tensor calls.
 
@@ -20,6 +24,7 @@ import os
 import pickle
 
 import numpy as np
+import pytest
 import torch
 import torch.distributed as dist
 
@@ -33,15 +38,27 @@ FAMILY_ARCHS = ("granite-moe-3b-a800m", "recurrentgemma-2b", "mamba2-130m")
 FAMILY_ARGV = ["--reduced", "--continuous", "--device", "cpu", "--model-parallel", "2",
                "--temperature", "0", "--n-requests", "3", "--steps", "6", "--prompt-len", "8"]
 MOE_ARCH = "granite-moe-3b-a800m"
-MOE_ROUTINGS = ("dropless", "capacity")
+# routing -> (capacity override, config overrides); at a capacity factor of
+# 1.25 a rank's T/2 tokens cannot fill an expert's capacity alone, so only
+# the second rank's assignments drop; at 0.5 (capacity T/4) both ranks' do
+MOE_ROUTINGS = {"dropless": ("whole", {}), "capacity": (0, {}),
+                "tight capacity": (0, {"capacity_factor": 0.5})}
+# model-parallel degree on 2 ranks -> the mesh
+MOE_MESHES = {2: (1, 2), 1: (2, 1)}
+MOE_BATCH = (2, 16)
 F32_TOL = dict(atol=2e-5, rtol=2e-4)
 SSD_TOL = dict(atol=2e-4, rtol=2e-3)
 
 
+def moe_cap(routing):
+    cap, _ = MOE_ROUTINGS[routing]
+    return MOE_BATCH[0] * MOE_BATCH[1] if cap == "whole" else cap
+
+
 def reference_moe(work_dir):
     """The reference's ``moe_forward`` on reduced granite: out, aux and the
-    gradients of ``sum(out * r) + aux`` for dropless and capacity routing;
-    the tokens share a direction, so capacity routing drops."""
+    gradients of ``sum(out * r) + aux`` for each of ``MOE_ROUTINGS``; the
+    tokens share a direction, so capacity routing drops."""
     import jax
     import jax.numpy as jnp
 
@@ -49,15 +66,15 @@ def reference_moe(work_dir):
     from repro.configs import reduced as jreduced
     from repro.models import moe as JM
 
-    jcfg = jreduced(jget_config(MOE_ARCH))
-    jp = JM.init_moe(jcfg, jax.random.PRNGKey(2), jnp.float32)
+    jp = JM.init_moe(jreduced(jget_config(MOE_ARCH)), jax.random.PRNGKey(2), jnp.float32)
     rng = np.random.default_rng(3)
-    b, s, d = 2, 16, jcfg.d_model
+    (b, s), d = MOE_BATCH, jp["w1"].shape[1]
     x = (rng.normal(0, 1, (b, s, d)) + 1.5 * rng.normal(0, 1, d)).astype(np.float32)
     r = rng.normal(0, 1, (b, s, d)).astype(np.float32)
     out = {"params": jax.tree.map(np.asarray, jp), "x": x, "r": r}
-    for routing in MOE_ROUTINGS:
-        cap = b * s if routing == "dropless" else 0
+    for routing, (_, mods) in MOE_ROUTINGS.items():
+        jcfg = jreduced(jget_config(MOE_ARCH), **mods)
+        cap = moe_cap(routing)
 
         def loss(p, x):
             y, aux = JM.moe_forward(jcfg, p, x, cap_override=cap)
@@ -101,37 +118,53 @@ def families_through_launcher(rank):
 
 def moe_on_mesh(mesh, work_dir):
     """The port's ``moe_forward`` on DTensors: parameters on
-    ``param_shardings`` (router and experts split over the model axis), x
-    replicated; out, aux and the gradients, gathered."""
+    ``param_shardings``, x on ``batch_shardings``; out, aux and the
+    gradients, gathered, the rows each call of ``route`` saw, and which of
+    the whole batch's assignments the routing kept."""
     from repro_torch.dist import sharding as SH
     from repro_torch.models import moe as TM
     from repro_torch.models.hooks import install_constraint
 
     with open(os.path.join(work_dir, "moe.pkl"), "rb") as f:
         ref = pickle.load(f)
-    cfg = reduced(get_config(MOE_ARCH))
     p = {k: torch.from_numpy(v) for k, v in ref["params"].items()}
     x = torch.from_numpy(ref["x"])
     r = torch.from_numpy(ref["r"])
     out = {}
+    real_route = TM.route
+    rows = []
+
+    def route(cfg, p, xf):
+        rows.append(xf.shape[0])
+        return real_route(cfg, p, xf)
+
     install_constraint(SH.activation_constraint_fn(mesh))
+    TM.route = route
     try:
-        for routing in MOE_ROUTINGS:
-            cap = x.shape[0] * x.shape[1] if routing == "dropless" else 0
+        for routing, (_, mods) in MOE_ROUTINGS.items():
+            cfg = reduced(get_config(MOE_ARCH), **mods)
+            cap = moe_cap(routing)
             dp = SH.distribute(p, SH.param_shardings(mesh, p))
             for t in dp.values():
                 t.requires_grad_(True)
             dx = SH.distribute(x, SH.batch_shardings(mesh, x)).requires_grad_(True)
+            del rows[:]
             with SH.replicating(mesh):
                 y, aux = TM.moe_forward(cfg, dp, dx, cap_override=cap)
                 loss = (y * r).sum() + aux
                 grads = torch.autograd.grad(loss, list(dp.values()) + [dx])
+            t = x.shape[0] * x.shape[1]
+            _, _, idx = real_route(cfg, p, x.reshape(t, -1))
+            _, keep = TM.positions(idx, cfg.n_experts, cap or TM.capacity(cfg, t))
             out[routing] = {
                 "out": SH.whole(y).detach().numpy(), "aux": float(SH.whole(aux)),
                 "gx": SH.whole(grads[-1]).numpy(),
                 "gp": {k: SH.whole(g).numpy() for k, g in zip(dp, grads)},
-                "placements": {k: str(t.placements) for k, t in dp.items()}}
+                "placements": {k: str(t.placements) for k, t in dp.items()},
+                "x placements": str(dx.placements), "out placements": str(y.placements),
+                "route rows": list(rows), "keep": keep.reshape(t, -1).numpy()}
     finally:
+        TM.route = real_route
         install_constraint(None)
     return out
 
@@ -183,8 +216,9 @@ def family_rank(rank, world, store_path, work_dir):
         from repro_torch.launch.mesh import make_host_mesh
 
         mesh = make_host_mesh(2)
-        out = {"families": families_through_launcher(rank), "moe": moe_on_mesh(mesh, work_dir),
-               "scans": scans_on_mesh(mesh)}
+        out = {"families": families_through_launcher(rank), "scans": scans_on_mesh(mesh),
+               "moe": {MOE_MESHES[mp]: moe_on_mesh(make_host_mesh(mp), work_dir)
+                       for mp in MOE_MESHES}}
         with open(os.path.join(work_dir, f"{rank}.pkl"), "wb") as f:
             pickle.dump(out, f)
     finally:
@@ -210,9 +244,17 @@ def reference_family_tokens(case, arch):
                                                        case["tokens"])]
 
 
-def test_two_ranks_serve_and_route_the_other_families(tmp_path):
+@pytest.fixture(scope="module")
+def two_ranks(tmp_path_factory):
+    """One spawn of the 2 ranks for every test of this file, and the
+    reference's MoE figures."""
+    tmp_path = tmp_path_factory.mktemp("families")
     mref = reference_moe(tmp_path)
-    got = start(family_rank, 2, tmp_path)
+    return mref, start(family_rank, 2, tmp_path)
+
+
+def test_two_ranks_serve_and_route_the_other_families(two_ranks):
+    mref, got = two_ranks
     assert not np.allclose(mref["capacity"]["out"], mref["dropless"]["out"])   # it dropped
     for arch in FAMILY_ARCHS:
         want = reference_family_tokens(got[0]["families"][arch], arch)
@@ -223,13 +265,7 @@ def test_two_ranks_serve_and_route_the_other_families(tmp_path):
             assert case["tokens"] == case["plain"] == want, (r, arch, case["tokens"], want)
     for r, res in enumerate(got):
         for routing in MOE_ROUTINGS:
-            case, want = res["moe"][routing], mref[routing]
-            np.testing.assert_allclose(case["out"], want["out"], atol=2e-5, rtol=2e-5)
-            np.testing.assert_allclose(case["aux"], want["aux"], atol=2e-5, rtol=2e-5)
-            np.testing.assert_allclose(case["gx"], want["gx"], atol=2e-5, rtol=2e-5)
-            for k, g in case["gp"].items():
-                np.testing.assert_allclose(g, want["gp"][k], atol=2e-5, rtol=2e-5,
-                                           err_msg=f"{routing} d{k}")
+            case = res["moe"][(1, 2)][routing]
             assert case["placements"]["router"] == "(Replicate(), Shard(dim=1))", case
             assert case["placements"]["w1"] == "(Replicate(), Shard(dim=2))", case
             assert case["placements"]["w2"] == "(Replicate(), Shard(dim=1))", case
@@ -242,3 +278,48 @@ def test_two_ranks_serve_and_route_the_other_families(tmp_path):
                                                   "(Replicate(), Shard(dim=1))")
         assert scans["ssd H 4"]["local"] == (2, 24, 2, 8)
         assert scans["ssd H 3"]["placements"] == ("(Replicate(), Replicate())",) * 2
+
+
+@pytest.mark.parametrize("routing", list(MOE_ROUTINGS))
+@pytest.mark.parametrize("shape", list(MOE_MESHES.values()), ids=str)
+def test_moe_on_two_ranks_equals_the_reference(two_ranks, shape, routing):
+    """Out, aux and the gradients of x and of every parameter at 2e-5 on
+    both ranks; on (2, 1) the tokens and the output split over the data
+    axis."""
+    mref, got = two_ranks
+    want = mref[routing]
+    for r, res in enumerate(got):
+        case = res["moe"][shape][routing]
+        np.testing.assert_allclose(case["out"], want["out"], atol=2e-5, rtol=2e-5)
+        np.testing.assert_allclose(case["aux"], want["aux"], atol=2e-5, rtol=2e-5)
+        np.testing.assert_allclose(case["gx"], want["gx"], atol=2e-5, rtol=2e-5)
+        for k, g in case["gp"].items():
+            np.testing.assert_allclose(g, want["gp"][k], atol=2e-5, rtol=2e-5,
+                                       err_msg=f"{shape} {routing} d{k}")
+        split = "(Shard(dim=0), Replicate())" if shape == (2, 1) else None
+        if split:
+            assert case["x placements"] == case["out placements"] == split, case
+
+
+@pytest.mark.parametrize("shape", list(MOE_MESHES.values()), ids=str)
+def test_moe_routes_each_ranks_own_rows(two_ranks, shape):
+    """With the tokens split over the data axis every rank's one ``route``
+    call sees its T/2 rows; with them replicated, all T."""
+    _, got = two_ranks
+    t = MOE_BATCH[0] * MOE_BATCH[1]
+    for res in got:
+        for routing in MOE_ROUTINGS:
+            assert res["moe"][shape][routing]["route rows"] == [t // shape[0]], routing
+
+
+def test_moe_capacity_drops_fall_on_both_sides_of_the_rank_boundary(two_ranks):
+    """The data-split dispatch is held to the reference where it drops: at
+    a capacity factor of 1.25 only the second rank's tokens drop (the
+    first's fill the experts), at 0.5 both ranks' do; dropless keeps all."""
+    _, got = two_ranks
+    half = MOE_BATCH[0] * MOE_BATCH[1] // 2
+    cases = got[0]["moe"][(2, 1)]
+    dropped = {routing: (not case["keep"][:half].all(), not case["keep"][half:].all())
+               for routing, case in cases.items()}
+    assert dropped == {"dropless": (False, False), "capacity": (False, True),
+                       "tight capacity": (True, True)}, dropped
