@@ -305,7 +305,17 @@ Builds the hand-written kernels from the five sources in this checkout (one
    bf16 bar); the sharded and the plain fleet's decode-step p50s logged
    beside the card's name and power limit.
 
-In phases 1b, 2, 5, 8, 11, 13-16 and 18-27 every kernel count is set to 0 just
+28. **the data-split MoE exchange**: ``models/moe.py``'s all-to-all of the
+   kept rows (``plan_exchange``, ``send_rows``, the experts on the rank's
+   slots, ``return_rows``) at granite-moe-3b-a800m's full width (d 1536,
+   E 40, top-8, moe_d_ff 512; T = 8 × 128 bf16 tokens, skewed routing)
+   over a one-rank NCCL group, called directly (a one-rank mesh has no
+   token group): its output and the gradients of x, the router and the
+   expert weights against the plain ``dispatch`` and ``combine`` at the
+   bf16 bar, no kernel launched; both paths' forward and backward times
+   and peak bytes logged.
+
+In phases 1b, 2, 5, 8, 11, 13-16 and 18-28 every kernel count is set to 0 just
 before the run and read just after; each must equal the launches the path
 needs (RMSNorm once per norm a join and a step where the norm is RMSNorm,
 none for LayerNorm and the nonparametric norm: 2 a layer with an MLP, 1
@@ -3561,6 +3571,95 @@ def phase_fleet_on_mesh(torch, mods, card, plain):
     return counts
 
 
+def moe_exchange_step(torch, cfg, p, x, r, exchange, group=None):
+    """One forward and backward of granite's MoE layer on a plain (T, d)
+    batch, the aux loss left out: through the data-split exchange on a
+    one-rank ``group`` (``exchange``: route, plan, ``send_rows``, the
+    experts on the rank's slots, ``return_rows``) or through the plain
+    ``dispatch`` and ``combine``.  Returns the output and the gradients of
+    ``sum(out * r)`` for x and every parameter."""
+    from repro_torch.models import moe as M
+
+    p = {k: v.detach().clone().requires_grad_(True) for k, v in p.items()}
+    x = x.detach().clone().requires_grad_(True)
+    cap = M.capacity(cfg, x.shape[0])
+    if exchange:
+        _, counts, gates, idx = M._route_own(cfg, p["router"], x)
+        starts, sizes = M.slot_spans(cap, [1])
+        ex, keep = M.plan_exchange(counts, idx, 0, cap, starts, sizes)
+        out_buf = M.experts(p, M.send_rows(x, ex, cfg.n_experts, cfg.top_k, group))
+        w = (gates.reshape(-1) * keep.float()).to(x.dtype)
+        out = M.return_rows(out_buf, ex, w, cfg.top_k, group)
+    else:
+        buf, src_e, src_c, w, _ = M.dispatch(cfg, p["router"], x, cap)
+        out = M.combine(M.experts(p, buf), src_e, src_c, w, cfg.top_k)
+    (out.float() * r).sum().backward()
+    return out.detach(), {"x": x.grad, **{k: v.grad for k, v in p.items()}}
+
+
+def phase_moe_exchange(torch, mods, card):
+    """The data-split MoE exchange (``models/moe.py``: ``plan_exchange``,
+    ``send_rows``, ``return_rows``) at granite-moe-3b-a800m's full width
+    (d 1536, E 40, top-8, moe_d_ff 512) on T = 8 × 128 bf16 tokens that
+    share a direction (skewed routing, capacity 256), over a one-rank NCCL
+    group (a one-rank mesh has no token group, so the exchange functions
+    are called directly), against the plain ``dispatch`` and ``combine``
+    on the same inputs: the output and the gradients of x, the router and
+    w1, w3, w2 at the bf16 bar (3e-2); no kernel launched.  Logged: both
+    paths' forward and backward on the host clock (synchronised; medians
+    of 20 each, run in turns plain, exchange, exchange, plain) and peak
+    bytes, and the card."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe as M
+
+    t0 = time.perf_counter()
+    cfg = get_config("granite-moe-3b-a800m")
+    require((cfg.d_model, cfg.n_experts, cfg.top_k, cfg.moe_d_ff) == (1536, 40, 8, 512), cfg)
+    p = {k: v.to("cuda") for k, v in
+         M.init_moe(cfg, torch.Generator().manual_seed(0), torch.bfloat16, "cpu").items()}
+    rng = np.random.default_rng(11)
+    t, d = 8 * 128, cfg.d_model
+    x = (randn(torch, rng, t, d) + randn(torch, rng, d, std=1.5)).to(torch.bfloat16)
+    r = randn(torch, rng, t, d)
+    made = not dist.is_initialized()
+    if made:
+        dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        group = dist.group.WORLD
+        reset(mods)
+        got, got_g = moe_exchange_step(torch, cfg, p, x, r, True, group)
+        counts = counts_of(mods)
+        want, want_g = moe_exchange_step(torch, cfg, p, x, r, False)
+        require(not any(counts.values()), f"a kernel launched: {counts}")
+        errs = {"out": compare(torch, got, want, BF16_TOL, "MoE exchange: out")}
+        for k in want_g:
+            errs[k] = compare(torch, got_g[k], want_g[k], BF16_TOL, f"MoE exchange: d{k}")
+        times, peaks = {True: [], False: []}, {}
+        for exchange in (False, True, True, False):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            for _ in range(10):
+                t1 = time.perf_counter()
+                moe_exchange_step(torch, cfg, p, x, r, exchange, group)
+                torch.cuda.synchronize()
+                times[exchange].append((time.perf_counter() - t1) * 1e3)
+            peaks[exchange] = torch.cuda.max_memory_allocated() - base
+        log(f"MoE exchange, granite-moe-3b-a800m full width (T {t}, d {d}, E 40, top-8, "
+            f"capacity {M.capacity(cfg, t)}, bf16) on a one-rank NCCL group: max_abs_err "
+            f"{json.dumps({k: float(f'{v:.4g}') for k, v in errs.items()})} (atol/rtol 3e-2); "
+            f"forward and backward, host clock median of 20: exchange "
+            f"{np.median(times[True]):.3f} ms, plain dispatch/combine "
+            f"{np.median(times[False]):.3f} ms; peak above the inputs: exchange "
+            f"{peaks[True]} B, plain {peaks[False]} B; the phase's run "
+            f"{time.perf_counter() - t0:.3f} s; the card: {card}")
+    finally:
+        if made:
+            dist.destroy_process_group()
+
+
 def _to(tree, torch, device, copy=False):
     """``tree``'s tensors on ``device`` (copies, with ``copy``, even where
     they are there already)."""
@@ -3691,6 +3790,8 @@ def main() -> int:
     _, shard_counts = phase_family_sharding(torch, mods, card)
     torch.cuda.empty_cache()
     mesh_fleet_counts = phase_fleet_on_mesh(torch, mods, card, fleet["flash-crowd"])
+    torch.cuda.empty_cache()
+    phase_moe_exchange(torch, mods, card)
     log("launches on the llama3.2-1b path " + json.dumps(llama_counts)
         + "; under --theta predictive " + json.dumps(predictive_counts)
         + "; with the prefix cache (warm, greedy) " + json.dumps(prefix_counts)

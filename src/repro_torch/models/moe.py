@@ -16,9 +16,12 @@ device: no boolean indexing and no ``nonzero``, which would sync the host.
 Every kept ``(expert, position)`` has exactly one writer, so the scatter's
 order does not matter.  On a sharded model the routing, the scatter and the
 combine run on local tensors (DTensor has no rule for the scatter), and
-the expert products on the experts' split weights (:func:`moe_forward`):
-where the tokens are split over the data ranks each rank routes its own
-and writes them at the slots the whole batch's running count gives them.
+the expert products on the experts' split weights (:func:`moe_forward`).
+Where the tokens are split over the data ranks, each rank routes its own
+and sends its kept rows, at the slots the whole batch's running count
+gives them, to the ranks that own those slots: an all-to-all each way, no
+rank holding more than its own slots of the buffer.  Its split sizes are
+read on the host, the one sync of this module (:func:`plan_exchange`).
 
 The expert products are plain batched matrix products, which the
 reference also leaves to XLA outside any Pallas kernel; dtypes promote as
@@ -28,9 +31,10 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.device import is_dtensor
@@ -140,39 +144,197 @@ def _first_slots(counts: torch.Tensor):
     return torch.cumsum(counts, dim=0) - counts, counts.sum(dim=0)
 
 
-def _split_dispatch(cfg, p: Params, xf, cap: int, group: Tuple[int, ...]):
-    """:func:`dispatch` on a DTensor ``xf`` (T, d) whose tokens are split
-    over the mesh dims ``group``, no rank holding more than its own T/D
-    rows: each routes its tokens, one all-gather brings every rank's (E,)
-    counts, and each writes its kept rows at their slots in the whole
-    batch's running count.  That count runs token-major over the batch,
-    whose dim 0 DTensor splits in the group's rank order, so the ranks
-    below this one hold exactly the assignments that come before its own.
-    A rank's own partial buffer, summed over the group, is the whole
-    buffer (every kept slot has one writer): one reduce-scatter leaves each
-    rank its C/D slots of every expert for the expert products.  Returns
-    that buffer (E, C, d), the four (T·k,) tensors split as the tokens
-    are, and the aux loss."""
-    from torch.distributed.tensor import Partial, Replicate, Shard
+class Exchange(NamedTuple):
+    """One rank's half of the all-to-all that carries a data-split batch's
+    kept assignments to the ranks that own their slots (:func:`plan_exchange`)."""
+    send_splits: List[int]     # rows this rank sends to each rank of the group
+    recv_splits: List[int]     # rows it receives from each
+    send_idx: torch.Tensor     # (n·k,) each assignment's row of the send buffer
+                               # (the buffer's length for a dropped one)
+    assign_of_row: torch.Tensor  # (rows sent,) the assignment each sent row carries
+    recv_expert: torch.Tensor  # (rows received,) each one's expert
+    recv_slot: torch.Tensor    # ... and its slot among this rank's C_g
+    slots: int                 # C_g, this rank's slots of every expert
+
+
+def slot_spans(cap: int, sizes: Sequence[int]) -> Tuple[Tuple[int, ...], Tuple[int, ...]]:
+    """Where each rank of a token group's slots start, and how many of each
+    expert's ``cap`` slots it owns: ``Shard(1)`` over the group's mesh dims
+    of ``sizes``, as DTensor lays it out.  Each mesh dim in turn cuts what
+    the dims before it left into ``torch.chunk``'s pieces (``ceil(n/D)``
+    each, the last ones smaller or empty); the ranks in the row-major order
+    of their coordinates, which is their order in the flattened group."""
+    spans = [(0, cap)]
+    for g in sizes:
+        cut = []
+        for start, n in spans:
+            step = -(-n // g)
+            cut += [(start + min(i * step, n), max(0, min(step, n - i * step)))
+                    for i in range(g)]
+        spans = cut
+    return tuple(s for s, _ in spans), tuple(n for _, n in spans)
+
+
+def _exchange_runs(counts: torch.Tensor, cap: int, starts: Sequence[int],
+                  sizes: Sequence[int]) -> torch.Tensor:
+    """Every rank's assignment counts (D, E), in the order of its tokens in
+    the batch -> the rows of rank r's assignments to expert e that land in
+    rank q's slots (D, E, D).  Rank r's kept rows of expert e hold the
+    slots ``[first, min(first + count, cap))`` (the running count is
+    token-major over the batch), one run that each owner's span cuts."""
+    first, _ = _first_slots(counts)
+    lo = first[:, :, None]
+    hi = torch.clamp(first + counts, max=cap)[:, :, None]
+    start = torch.tensor(starts, dtype=counts.dtype, device=counts.device)
+    end = start + torch.tensor(sizes, dtype=counts.dtype, device=counts.device)
+    return (torch.minimum(hi, end) - torch.maximum(lo, start)).clamp(min=0)
+
+
+def even_counts(n_ranks: int, n_experts: int, n_assign: int) -> torch.Tensor:
+    """The counts (D, E) of routing that spreads each rank's ``n_assign``
+    assignments evenly over the experts: what :func:`plan_exchange` takes
+    for its split sizes on ``meta``, where the counts hold no values."""
+    c = torch.full((n_ranks, n_experts), n_assign // n_experts, dtype=torch.long)
+    c[:, :n_assign % n_experts] += 1
+    return c
+
+
+def plan_exchange(counts: torch.Tensor, gate_idx: torch.Tensor, rank: int, cap: int,
+                  starts: Sequence[int], sizes: Sequence[int]
+                  ) -> Tuple[Exchange, torch.Tensor]:
+    """Rank ``rank``'s :class:`Exchange` from every rank's counts (D, E) and
+    its own expert ids (n, k), and which of its assignments fit under
+    ``cap``.  The send buffer holds the kept rows by owner, then expert,
+    then slot; a rank receives, from each rank in turn, each expert's run
+    of rows in slot order, so the receiver places them from the counts
+    alone.  The split sizes are read on the host: one sync, here."""
+    e = counts.shape[1]
+    runs = _exchange_runs(counts, cap, starts, sizes)             # (D, E, D)
+    host = even_counts(*counts.shape, gate_idx.numel()) if counts.is_meta else counts.cpu()
+    splits = _exchange_runs(host, cap, starts, sizes).sum(dim=1)  # (D, D)
+    send_splits, recv_splits = splits[rank].tolist(), splits[:, rank].tolist()
+    n_send, n_recv = sum(send_splits), sum(recv_splits)
+    dev = gate_idx.device
+    first = _first_slots(counts)[0]
+    start = torch.tensor(starts, dtype=first.dtype, device=dev)
+
+    # send: each kept assignment's row, from its owner's chunk, its expert's
+    # run in that chunk and its place in the run
+    flat_e = gate_idx.reshape(-1)
+    pos, keep = positions(gate_idx, e, cap, base=first[rank])
+    ends = start + torch.tensor(sizes, dtype=first.dtype, device=dev)
+    owner = torch.searchsorted(ends, pos, right=True).clamp(max=len(sizes) - 1)
+    mine = runs[rank]                                             # (E, D)
+    chunk = torch.cumsum(mine.sum(dim=0), 0) - mine.sum(dim=0)    # (D,)
+    run_at = torch.cumsum(mine, 0) - mine                         # (E, D)
+    row = (chunk[owner] + run_at[flat_e, owner] + pos
+           - torch.maximum(first[rank][flat_e], start[owner]))
+    send_idx = torch.where(keep, row, n_send)
+    assign_of_row = torch.zeros(n_send + 1, dtype=send_idx.dtype, device=dev).index_copy(
+        0, send_idx, torch.arange(flat_e.numel(), device=dev))[:n_send]
+
+    # receive: rank r's run of expert e starts at its first slot past this
+    # rank's start
+    c_g = sizes[rank]
+    lens = runs[:, :, rank].reshape(-1)                           # (D·E,)
+    lo = (torch.maximum(first, start[rank]) - start[rank]).reshape(-1)
+    run_of = torch.repeat_interleave(torch.arange(lens.numel(), device=dev), lens,
+                                     output_size=n_recv)
+    within = torch.arange(n_recv, device=dev) - (torch.cumsum(lens, 0) - lens)[run_of]
+    return Exchange(send_splits, recv_splits, send_idx, assign_of_row, run_of % e,
+                    lo[run_of] + within, c_g), keep
+
+
+def send_rows(xf: torch.Tensor, ex: Exchange, n_experts: int, k: int,
+              group) -> torch.Tensor:
+    """A rank's (n, d) tokens -> its slots of the expert buffer (E, C_g, d):
+    the kept rows sent to their owners in one all-to-all, each received row
+    written at its slot, every other slot zero.  The rows are the tokens'
+    k copies in assignment order (:func:`scatter`'s), so that the backward
+    sums each token's k gradients in the order the reference does."""
+    from torch.distributed._functional_collectives import all_to_all_single_autograd
+
+    tok_of = torch.arange(xf.shape[0] * k, device=xf.device) // k
+    recv = all_to_all_single_autograd(xf[tok_of][ex.assign_of_row], ex.recv_splits,
+                                      ex.send_splits, group)
+    buf = torch.zeros(n_experts, ex.slots, xf.shape[-1], dtype=xf.dtype, device=xf.device)
+    return buf.index_put((ex.recv_expert, ex.recv_slot), recv)
+
+
+def return_rows(out_buf: torch.Tensor, ex: Exchange, w: torch.Tensor, k: int,
+                group) -> torch.Tensor:
+    """The inverse all-to-all of :func:`send_rows`: each expert output row
+    of this rank's slots (E, C_g, d) back to its token's rank, and the
+    rank's k rows a token summed by their weights ``w`` (n·k,) -> (n, d)."""
+    from torch.distributed._functional_collectives import all_to_all_single_autograd
+
+    rows = out_buf[ex.recv_expert, ex.recv_slot]
+    back = all_to_all_single_autograd(rows, ex.send_splits, ex.recv_splits, group)
+    back = F.pad(back, (0, 0, 0, 1))                  # a dropped assignment's zero row
+    return (back[ex.send_idx] * w[:, None]).reshape(-1, k, out_buf.shape[-1]).sum(dim=1)
+
+
+def _group_of(mesh, dims: Tuple[int, ...]):
+    """The process group over the mesh dims ``dims`` (one flattened group,
+    its ranks in the row-major order of their coordinates)."""
+    if len(dims) == 1:
+        return mesh.get_group(dims[0])
+    return mesh[tuple(mesh.mesh_dim_names[i] for i in dims)]._flatten().get_group()
+
+
+def _split_moe(cfg, p: Params, xf, cap: int, group: Tuple[int, ...]):
+    """:func:`moe_forward`'s layer on a DTensor ``xf`` (T, d) whose tokens
+    are split over the mesh dims ``group``, no rank holding more than its
+    own T/D rows or its C/D slots of each expert -> (out (T, d) split as
+    ``xf``, aux).
+
+    Each rank routes its tokens, and one all-gather brings every rank's
+    (E,) counts.  The running count runs token-major over the batch, whose
+    dim 0 DTensor splits in the group's rank order, so the ranks below this
+    one hold exactly the assignments that come before its own: the
+    exclusive scan of the counts gives each kept row its slot in the whole
+    batch's buffer.  One all-to-all sends each kept row to the rank that
+    owns its slot under ``Shard(1)`` (the layout a reduce-scatter of the
+    whole buffer would give); the experts run on those slots; the inverse
+    all-to-all brings each output row back to its token's rank for the
+    combine.  Autograd runs the two exchanges in reverse."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
     mesh = xf.device_mesh
-    t = xf.shape[0]
+    (t, d), e = xf.shape, cfg.n_experts
     tok = SH.local_placements(xf, keep=(0,))
     rep = (Replicate(),) * mesh.ndim
     part = tuple(Partial() if i in group else Replicate() for i in range(mesh.ndim))
     probs_sum, counts, gate_vals, gate_idx = SH.on_shards(
         functools.partial(_route_own, cfg), (p["router"], xf), (rep, tok),
         (part, tok, tok, tok), grad_placements=(part, tok))
-    first, total = SH.on_shards(_first_slots, (counts,), (rep,), (rep, rep))
+    counts, first, total = SH.on_shards(lambda c: (c, *_first_slots(c)), (counts,), (rep,),
+                                        (rep, rep, rep))
     # load-balance auxiliary loss over the whole batch
-    me = probs_sum / t
-    ce = total.float() / t
-    aux = (cfg.n_experts * torch.sum(me * ce) * cfg.router_aux_coef).redistribute(mesh, rep)
-    buf, src_e, src_c, w = SH.on_shards(
-        lambda x, g, i, f: scatter(cfg, x, g, i, cap, base=f[0]),
-        (xf, gate_vals, gate_idx, first), (tok, tok, tok, tok), (part, tok, tok, tok))
+    aux = (e * torch.sum(probs_sum / t * (total.float() / t))
+           * cfg.router_aux_coef).redistribute(mesh, rep)
+
+    pg = _group_of(mesh, group)
+    starts, sizes = slot_spans(cap, [mesh.size(i) for i in group])
+    gates, idx = gate_vals.to_local(), gate_idx.to_local()
+    ex, keep = plan_exchange(counts.to_local(), idx, dist.get_rank(pg), cap, starts, sizes)
     slots = tuple(Shard(1) if i in group else Replicate() for i in range(mesh.ndim))
-    return buf.redistribute(mesh, slots), src_e, src_c, w, aux
+    buf = DTensor.from_local(send_rows(xf.redistribute(mesh, tok).to_local(), ex, e,
+                                       cfg.top_k, pg),
+                             mesh, slots, run_check=False, shape=(e, cap, d),
+                             stride=(cap * d, d, 1))
+
+    # the experts on this rank's slots, each expert weight whole over the
+    # token group (FSDP's gather; its gradient comes back reduce-scattered),
+    # so that DTensor moves no slot of the buffer
+    out_buf = experts({n: p[n].redistribute(mesh, tuple(
+        Replicate() if i in group else pl for i, pl in enumerate(p[n].placements)))
+        for n in ("w1", "w3", "w2")}, buf)
+
+    w = (gates.reshape(-1) * keep.float()).to(xf.dtype)
+    out = return_rows(out_buf.redistribute(mesh, slots).to_local(), ex, w, cfg.top_k, pg)
+    return DTensor.from_local(out, mesh, tok, run_check=False, shape=(t, d),
+                              stride=(d, 1)), aux
 
 
 def _token_group(xf) -> Tuple[int, ...]:
@@ -183,6 +345,12 @@ def _token_group(xf) -> Tuple[int, ...]:
     sizes = xf.device_mesh.shape
     return tuple(i for i, pl in enumerate(xf.placements)
                  if pl.is_shard(0) and sizes[i] > 1)
+
+
+def experts(p: Params, buf: torch.Tensor) -> torch.Tensor:
+    """The SwiGLU experts over the buffer (E, C, d) -> (E, C, d)."""
+    act = F.silu(matmul(buf, p["w1"])) * matmul(buf, p["w3"])
+    return matmul(act, p["w2"])
 
 
 def combine(out_buf: torch.Tensor, src_e: torch.Tensor, src_c: torch.Tensor,
@@ -203,9 +371,9 @@ def moe_forward(cfg, p: Params, x: torch.Tensor, cap_override: int = 0
     On DTensors (a sharded model) routing and dispatch run on local
     tensors (:func:`repro_torch.dist.sharding.on_shards`), where DTensor
     has no rule for the scatter.  Where the tokens are split over data
-    ranks (:func:`_split_dispatch`) each rank routes, scatters and combines
-    its own, at the whole batch's slots and capacity, and ``out`` comes
-    back split as ``x`` is; otherwise every rank runs them over the whole
+    ranks (:func:`_split_moe`) each rank routes its own and exchanges its
+    kept rows with the ranks that own their slots, and ``out`` comes back
+    split as ``x`` is; otherwise every rank runs them over the whole
     tokens and the whole router, the same index arithmetic on the same
     values.  The expert products stay DTensor products on the experts'
     split weights; their partial sums are reduced once, before the
@@ -216,8 +384,9 @@ def moe_forward(cfg, p: Params, x: torch.Tensor, cap_override: int = 0
     cap = cap_override or capacity(cfg, t)
     group = _token_group(xf)
     if group:
-        buf, src_e, src_c, w, aux = _split_dispatch(cfg, p, xf, cap, group)
-    elif is_dtensor(xf):
+        out, aux = _split_moe(cfg, p, xf, cap, group)
+        return out.reshape(b, s, d), aux
+    if is_dtensor(xf):
         rep = SH.local_placements(xf)                  # every mesh dim replicated
         buf, src_e, src_c, w, aux = SH.on_shards(
             functools.partial(dispatch, cfg, cap=cap), (p["router"], xf), (rep, rep),
@@ -225,21 +394,10 @@ def moe_forward(cfg, p: Params, x: torch.Tensor, cap_override: int = 0
     else:
         buf, src_e, src_c, w, aux = dispatch(cfg, p["router"], xf, cap)
 
-    # expert computation (SwiGLU)
-    act = F.silu(matmul(buf, p["w1"])) * matmul(buf, p["w3"])
-    out_buf = matmul(act, p["w2"])                                  # (E, C, d)
-
+    out_buf = experts(p, buf)
     if is_dtensor(xf):
-        from torch.distributed.tensor import Partial, Replicate
-
-        mesh = xf.device_mesh
-        tok = SH.local_placements(xf, keep=(0,) if group else ())
-        rep = (Replicate(),) * mesh.ndim
-        # each rank gathers its own assignments' rows: the buffer's
-        # gradient is its partial sum over the token group
-        part = tuple(Partial() if i in group else Replicate() for i in range(mesh.ndim))
         out = SH.on_shards(functools.partial(combine, k=cfg.top_k), (out_buf, src_e, src_c, w),
-                           (rep, tok, tok, tok), tok, grad_placements=(part, tok, tok, tok))
+                           (rep,) * 4, rep)
     else:
         out = combine(out_buf, src_e, src_c, w, cfg.top_k)
     return out.reshape(b, s, d), aux

@@ -76,7 +76,9 @@ FAMILY_CELLS = {
                                 {"serve_tp": True}),
     "mamba2_cut_head_train": ("mamba2-130m", {"ssm_d_head": 64}, "train", 32, 16, (2, 8), {}),
 }
-FAMILY_TEMP_BYTES = {"granite_train": 1748512, "granite_decode_serve_tp": 427008,
+# (granite_train: the reference's memory_analysis() gives 1692264; the
+# port's MoE layer exchanges its kept rows and holds only its own slots)
+FAMILY_TEMP_BYTES = {"granite_train": 1499352, "granite_decode_serve_tp": 427008,
                      "mamba2_cut_head_train": 6209884}
 
 

@@ -9,10 +9,13 @@ CPU.
 * ``moe_forward`` on DTensors equals the reference's at 2e-5, out, aux
   and every gradient, with dropless routing, with capacity routing (which
   drops) and with capacity routing at a capacity factor of 0.5 (which
-  drops on both ranks' tokens), on the (1, 2) mesh (the router and
-  experts split over the model axis, every rank routing the whole batch)
-  and on the (2, 1) mesh (the tokens split over the data axis: each rank
-  routes only its own T/2 rows, at the whole batch's slots).
+  drops on both ranks' tokens), and with skewed routing at a capacity
+  that the two ranks' slots split unevenly (one owner receives most
+  rows), on the (1, 2) mesh (the router and experts split over the model
+  axis, every rank routing the whole batch) and on the (2, 1) mesh (the
+  tokens split over the data axis: each rank routes only its own T/2
+  rows, at the whole batch's slots, and sends its kept rows to the rank
+  that owns their slots; no rank allocates the whole (E, C, d) buffer).
 * ``rglru_scan`` and ``ssd_scan`` on DTensors run their plain versions on
   each rank's lanes or heads and equal the whole-tensor calls.
 
@@ -27,6 +30,8 @@ import numpy as np
 import pytest
 import torch
 import torch.distributed as dist
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_leaves
 
 from repro_torch import bridge
 from repro_torch.configs import get_config, reduced
@@ -40,9 +45,14 @@ FAMILY_ARGV = ["--reduced", "--continuous", "--device", "cpu", "--model-parallel
 MOE_ARCH = "granite-moe-3b-a800m"
 # routing -> (capacity override, config overrides); at a capacity factor of
 # 1.25 a rank's T/2 tokens cannot fill an expert's capacity alone, so only
-# the second rank's assignments drop; at 0.5 (capacity T/4) both ranks' do
+# the second rank's assignments drop; at 0.5 (capacity T/4) both ranks' do.
+# The tokens share a direction, so routing is skewed (half the assignments
+# go to one expert, almost none to another): at a capacity of 47 slots, 24
+# and 23 a rank, no expert's rows reach the second rank's slots but the
+# busiest one's, and that rank receives a few rows against the first's many
 MOE_ROUTINGS = {"dropless": ("whole", {}), "capacity": (0, {}),
-                "tight capacity": (0, {"capacity_factor": 0.5})}
+                "tight capacity": (0, {"capacity_factor": 0.5}),
+                "skewed": (0, {"capacity_factor": 2.9})}
 # model-parallel degree on 2 ranks -> the mesh
 MOE_MESHES = {2: (1, 2), 1: (2, 1)}
 MOE_BATCH = (2, 16)
@@ -116,11 +126,34 @@ def families_through_launcher(rank):
     return out
 
 
+class LocalShapes(TorchDispatchMode):
+    """The shapes of the plain tensors that the operations below DTensor
+    return on this rank (DTensor's own operations let through, as
+    ``CommDebugMode`` does; its propagation's ``meta`` runs left out)."""
+
+    def __init__(self):
+        super().__init__()
+        self.shapes = set()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        from torch.distributed.tensor import DTensor
+
+        if any(issubclass(t, DTensor) for t in types):
+            return NotImplemented
+        out = func(*args, **(kwargs or {}))
+        for t in tree_leaves(out):
+            if type(t) is torch.Tensor and not t.is_meta:
+                self.shapes.add(tuple(t.shape))
+        return out
+
+
 def moe_on_mesh(mesh, work_dir):
     """The port's ``moe_forward`` on DTensors: parameters on
     ``param_shardings``, x on ``batch_shardings``; out, aux and the
-    gradients, gathered, the rows each call of ``route`` saw, and which of
-    the whole batch's assignments the routing kept."""
+    gradients, gathered, the rows each call of ``route`` saw, which of the
+    whole batch's assignments the routing kept, the split sizes of the
+    rank's exchange (where the tokens are split) and the shapes of the
+    tensors it allocated in the forward and backward pass."""
     from repro_torch.dist import sharding as SH
     from repro_torch.models import moe as TM
     from repro_torch.models.hooks import install_constraint
@@ -131,15 +164,20 @@ def moe_on_mesh(mesh, work_dir):
     x = torch.from_numpy(ref["x"])
     r = torch.from_numpy(ref["r"])
     out = {}
-    real_route = TM.route
-    rows = []
+    real_route, real_plan = TM.route, TM.plan_exchange
+    rows, splits = [], []
 
     def route(cfg, p, xf):
         rows.append(xf.shape[0])
         return real_route(cfg, p, xf)
 
+    def plan_exchange(*args):
+        ex, keep = real_plan(*args)
+        splits.append((ex.send_splits, ex.recv_splits))
+        return ex, keep
+
     install_constraint(SH.activation_constraint_fn(mesh))
-    TM.route = route
+    TM.route, TM.plan_exchange = route, plan_exchange
     try:
         for routing, (_, mods) in MOE_ROUTINGS.items():
             cfg = reduced(get_config(MOE_ARCH), **mods)
@@ -148,8 +186,8 @@ def moe_on_mesh(mesh, work_dir):
             for t in dp.values():
                 t.requires_grad_(True)
             dx = SH.distribute(x, SH.batch_shardings(mesh, x)).requires_grad_(True)
-            del rows[:]
-            with SH.replicating(mesh):
+            del rows[:], splits[:]
+            with SH.replicating(mesh), LocalShapes() as shapes:
                 y, aux = TM.moe_forward(cfg, dp, dx, cap_override=cap)
                 loss = (y * r).sum() + aux
                 grads = torch.autograd.grad(loss, list(dp.values()) + [dx])
@@ -162,9 +200,11 @@ def moe_on_mesh(mesh, work_dir):
                 "gp": {k: SH.whole(g).numpy() for k, g in zip(dp, grads)},
                 "placements": {k: str(t.placements) for k, t in dp.items()},
                 "x placements": str(dx.placements), "out placements": str(y.placements),
-                "route rows": list(rows), "keep": keep.reshape(t, -1).numpy()}
+                "route rows": list(rows), "keep": keep.reshape(t, -1).numpy(),
+                "splits": list(splits), "shapes": shapes.shapes,
+                "cap": cap or TM.capacity(cfg, t)}
     finally:
-        TM.route = real_route
+        TM.route, TM.plan_exchange = real_route, real_plan
         install_constraint(None)
     return out
 
@@ -322,4 +362,43 @@ def test_moe_capacity_drops_fall_on_both_sides_of_the_rank_boundary(two_ranks):
     dropped = {routing: (not case["keep"][:half].all(), not case["keep"][half:].all())
                for routing, case in cases.items()}
     assert dropped == {"dropless": (False, False), "capacity": (False, True),
-                       "tight capacity": (True, True)}, dropped
+                       "tight capacity": (True, True), "skewed": (False, False)}, dropped
+
+
+@pytest.mark.parametrize("routing", list(MOE_ROUTINGS))
+def test_moe_exchange_sends_each_kept_row_to_its_slots_owner(two_ranks, routing):
+    """On (2, 1) each rank plans one exchange: what rank r sends rank q is
+    what q receives from r, and the rows sent are the batch's kept
+    assignments, each once; with skewed routing the first rank's slots
+    take more than twice the second's rows."""
+    _, got = two_ranks
+    plans = [res["moe"][(2, 1)][routing]["splits"] for res in got]
+    assert all(len(p) == 1 for p in plans), plans
+    send = [p[0][0] for p in plans]
+    recv = [p[0][1] for p in plans]
+    assert [[recv[q][r] for r in range(2)] for q in range(2)] == [
+        [send[r][q] for r in range(2)] for q in range(2)], (send, recv)
+    kept = int(got[0]["moe"][(2, 1)][routing]["keep"].sum())
+    assert sum(map(sum, send)) == sum(map(sum, recv)) == kept, (send, recv, kept)
+    if routing == "skewed":
+        assert sum(recv[0]) > 2 * sum(recv[1]) > 0, recv
+
+
+@pytest.mark.parametrize("routing", list(MOE_ROUTINGS))
+def test_moe_split_path_allocates_no_whole_buffer(two_ranks, routing):
+    """With the tokens split (2, 1), no rank allocates the whole batch's
+    (E, C, d) buffer (nor its trash row's (E + 1, C, d)) or its (T·k, d)
+    assignment rows, in the forward or the backward pass; with them
+    replicated (1, 2), where every rank runs the whole batch, the same
+    record holds the buffer.  By shape: at the tight capacity E·C·d equals
+    the element count of a rank's own (T/2·k, d) rows."""
+    _, got = two_ranks
+    cfg = reduced(get_config(MOE_ARCH), **MOE_ROUTINGS[routing][1])
+    e, k, d = cfg.n_experts, cfg.top_k, cfg.d_model
+    t = MOE_BATCH[0] * MOE_BATCH[1]
+    for res in got:
+        cap = res["moe"][(2, 1)][routing]["cap"]
+        whole = {(e, cap, d), (e + 1, cap, d), (t * k, d), (t, k, d)}
+        assert not whole & res["moe"][(2, 1)][routing]["shapes"], (
+            routing, whole & res["moe"][(2, 1)][routing]["shapes"])
+        assert (e + 1, cap, d) in res["moe"][(1, 2)][routing]["shapes"], routing
