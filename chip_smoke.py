@@ -240,11 +240,17 @@ Builds the hand-written kernels from the five sources in this checkout (one
    engine and by the sharded code path on a (1, 1) NCCL ``DeviceMesh``
    (weights on ``serve_param_shardings``, pool on
    ``page_pool_shardings``, the activation hooks installed: every leaf a
-   DTensor, the kernels run on local shards): exact launches, equal to the
-   plain engine's, tokens equal per request, both decode-step p50s
-   logged.  Two ranks sharing the one card are not run: NCCL refuses two
-   ranks on one device, and under gloo DTensor's all-gather of CUDA
-   tensors crashed its process (PERF.md, section 7).
+   DTensor, the kernels run on local shards; the engine's slots split
+   over the mesh's data axis, at one data rank the whole batch, and its
+   data degree logged): exact launches, equal to the plain engine's,
+   tokens equal per request, both decode-step p50s logged.  Two ranks
+   sharing the one card are not run: NCCL refuses two ranks on one
+   device, and under gloo DTensor's all-gather of CUDA tensors crashed its
+   process (PERF.md, section 7); so the split's gather of the step's new
+   K/V rows, and their scatter into the pages, which happen only at two
+   data ranks and more, do not run here.  The scatter's kernel is held at
+   their shapes (8 rows of llama's (8, 64) bf16 pages, duplicate
+   destinations included) in phase 1b.
 25. **the dry run against the card**: ``python -m
    repro_torch.launch.dryrun`` in subprocesses (each its own fake world of
    256 or 512 ranks, records in a temporary directory) on llama3.2-1b
@@ -289,7 +295,8 @@ Builds the hand-written kernels from the five sources in this checkout (one
    D 256, window 2048).  Then full-width granite-moe-3b-a800m,
    recurrentgemma-2b and mamba2-130m (fp32 params, random weights from
    seed 0) served greedy as in phase 24 by the plain-tensor engine and by
-   the sharded code path on a (1, 1) NCCL mesh: exact launches, equal
+   the sharded code path on a (1, 1) NCCL mesh, the slots split over its
+   one data rank: exact launches, equal
    between the two runs; tokens equal per request (an MoE request is
    excused only where the two runs' routers first part at a near tie,
    probabilities within 1e-3); both decode-step p50s logged.
@@ -298,7 +305,8 @@ Builds the hand-written kernels from the five sources in this checkout (one
    the serve launcher's ``run_fleet_real`` on a (1, 1) NCCL mesh, as
    ``--fleet`` runs under ``torchrun``: both replicas on the one copy of
    the weights as DTensors on ``serve_param_shardings``, each pool on
-   ``page_pool_shardings``, the sessions on the mesh's first rank's clock.
+   ``page_pool_shardings``, each replica's slots split over the mesh's
+   one data rank, the sessions on the mesh's first rank's clock.
    Phase 23's checks (exact launches, no plain attention, every request
    finished, no pool storage shared; tokens against one plain engine alone
    on the gathered weights and the fleet teacher-forced with them at the
@@ -2655,8 +2663,9 @@ def fleet_forced(torch, mods, res, objs, script, mesh=None):
     caches, the reference's warm-up), each request fed ``script``'s tokens
     in place of its own draws; returns every draw's logits by (request,
     token) and the run's launches.  With ``mesh`` (the weights DTensors on
-    its replica), the pools go onto ``page_pool_shardings``, the sessions
-    take the mesh's clock and the activation hooks are installed, as the
+    its replica), the engines serve on it (their slots split over its data
+    axis, the sessions on its clock), the pools go onto
+    ``page_pool_shardings`` and the activation hooks are installed, as the
     serve launcher's fleet does."""
     from repro_torch.core.governor import Governor
     from repro_torch.dist import sharding as SH
@@ -2676,11 +2685,10 @@ def fleet_forced(torch, mods, res, objs, script, mesh=None):
         for _ in objs["engines"]:
             eng = cls(first.cfg, objs["params"], n_slots=first.n_slots,
                       max_len=first.max_len, page=first.page, temperature=1.0,
-                      attn_kernel="cuda", device="cuda")
+                      attn_kernel="cuda", device="cuda", serve_mesh=mesh)
             if mesh is not None:
                 eng.pool.blocks = SH.distribute(
                     eng.pool.blocks, SH.page_pool_shardings(eng.mesh, eng.pool.blocks))
-                eng.clock_mesh = mesh
             eng.enable_prefix_cache()
             eng.generate(make_batch(first.cfg, batch=1, seq_len=len(reqs[0].prompt),
                                     kind="prefill"), n_steps=2)
@@ -2937,10 +2945,11 @@ def phase_sharded_serving(torch, mods, card, archs):
     seed 0) served greedy, 8 requests of 128-token prompts and 16 new
     tokens, 8 slots, page 16, by the plain-tensor engine and by the
     sharded code path on a (1, 1) NCCL mesh
-    (every leaf a DTensor, the kernels on local shards): launches exact and
-    equal, tokens equal per request (an MoE request excused only where the
-    two runs' routers part at a near tie), both decode-step p50s logged.
-    Returns the launch counts by arch."""
+    (every leaf a DTensor, the kernels on local shards, the engine's slots
+    split over the mesh's data axis: at one data rank all 8): launches
+    exact and equal, tokens equal per request (an MoE request excused only
+    where the two runs' routers part at a near tie), both decode-step p50s
+    and the data degree logged.  Returns the launch counts by arch."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
     from torch.distributed.tensor import DTensor
@@ -2956,8 +2965,8 @@ def phase_sharded_serving(torch, mods, card, archs):
         dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
     out = {}
     try:
-        mesh = SH.replica_mesh(init_device_mesh("cuda", (1, 1),
-                                                mesh_dim_names=("data", "model")))
+        whole = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+        mesh = SH.replica_mesh(whole)
         for arch in archs:
             t0 = time.perf_counter()
             cfg = get_config(arch)
@@ -2965,9 +2974,9 @@ def phase_sharded_serving(torch, mods, card, archs):
             prompts = shard_prompts(cfg.vocab)
             max_len = 128 + SHARD_NEW + 16
 
-            def engine(p):
+            def engine(p, serve_mesh=None):
                 return ContinuousEngine(cfg, p, n_slots=8, max_len=max_len, page=16,
-                                        temperature=0.0)
+                                        temperature=0.0, serve_mesh=serve_mesh)
 
             runs, routes = {}, {}
             with RouteLog() as rl:
@@ -2976,8 +2985,11 @@ def phase_sharded_serving(torch, mods, card, archs):
             sharded = SH.distribute(params, SH.serve_param_shardings(mesh, params))
             require(all(isinstance(t, DTensor) for t in leaves(sharded)),
                     f"{arch}: a leaf is not a DTensor")
-            eng = engine(sharded)
+            eng = engine(sharded, whole)
             require(eng.mesh is mesh, f"{arch}: the engine does not see the mesh")
+            split = eng.split
+            require((split.lo, split.hi, split.size) == (0, 8, 1) and eng.clock_mesh is whole,
+                    f"{arch}: the slots over one data rank: {split}")
             with RouteLog() as rl:
                 runs["sharded"] = serve_prompts(torch, mods, eng, prompts, mesh)
             routes["sharded"] = rl.calls
@@ -3011,7 +3023,8 @@ def phase_sharded_serving(torch, mods, card, archs):
                         f"(router flip {flip})")
                 excused = (f"; requests {parted} excused: the routers part at call "
                            f"{flip[0]} with probabilities {flip[1]:.3g} apart")
-            log(f"sharded serving, {arch} on a (1, 1) NCCL mesh: {SHARD_PROMPTS} requests, "
+            log(f"sharded serving, {arch} on a (1, 1) NCCL mesh, data degree {split.size} "
+                f"(slots {split.lo}-{split.hi - 1} on this rank): {SHARD_PROMPTS} requests, "
                 f"{psteps} decode steps, tokens equal to the plain engine's for "
                 f"{SHARD_PROMPTS - len(parted)} of {SHARD_PROMPTS} requests{excused}; launches "
                 f"{json.dumps(sc)} (equal); decode step p50 plain {pp50:.3f} ms, sharded "
@@ -3526,6 +3539,8 @@ def phase_fleet_on_mesh(torch, mods, card, plain):
             require(e.mesh is not None and e.clock_mesh is mesh
                     and all(is_dtensor(t) for t in leaves(e.pool.blocks)),
                     "a replica is not on the mesh")
+            require((e.split.lo, e.split.hi, e.split.size) == (0, e.n_slots, 1)
+                    and res["data_ranks"] == 1, f"a replica's slots: {e.split}")
         check_fleet_launches(engines, counts)
         require(res["requests"] == res["n_requests"] == len(reqs) == len(objs["finished"]) > 0,
                 res)
@@ -3548,7 +3563,8 @@ def phase_fleet_on_mesh(torch, mods, card, plain):
                            alone_top2=top2_margin(torch, alone_draws[i, k]))
                    for i, k in parted.items()}
         sharded_p50 = [r["step_ms_p50"] for r in res["per_replica"]]
-        log(f"fleet llama3.2-1b flash-crowd on a (1, 1) NCCL mesh: {res['requests']} "
+        log(f"fleet llama3.2-1b flash-crowd on a (1, 1) NCCL mesh, data degree "
+            f"{res['data_ranks']}: {res['requests']} "
             f"requests, {res['tokens']} tokens, routed {res['routed']}, prefix-routed "
             f"{res['prefix_routed']}, prefix hits {res['prefix_hits']} of "
             f"{res['prefix_lookups']} lookups, wall {res['wall_s']:.3f} s, "

@@ -616,14 +616,81 @@ def write_on_shards(fn: Callable, args: tuple, in_placements: tuple) -> None:
 # --------------------------------------------------------------------------
 
 def replica_mesh(mesh):
-    """A serving replica's mesh: the ``'model'`` axis of this rank's row of
-    ``mesh``.  ``serve_param_shardings`` and ``page_pool_shardings``
-    replicate weights and pages over the data axes, so each row is one
-    tensor-parallel replica serving its own requests; its DTensors live on
-    the row's sub-mesh.  On the whole mesh DTensor would split a step's
-    replicated work over the idle data axis (a contraction, or a batch that
-    the data size does not divide, which it then cannot reshape)."""
+    """The mesh of a serving engine's weights and pages: the ``'model'``
+    axis of this rank's row of ``mesh``.  ``serve_param_shardings`` and
+    ``page_pool_shardings`` replicate both over the data axes, so the
+    DTensors live on the row's sub-mesh, where only the model split is
+    theirs.  The data split of the batch is not DTensor's: an engine on
+    ``mesh`` decodes its own span of the slots as plain local rows
+    (:func:`slot_split`) and meets the other data ranks in explicit
+    collectives.  On the whole mesh DTensor would split a step's
+    replicated work over the data axis (a contraction, or a batch that the
+    data size does not divide, which it then cannot reshape)."""
     return mesh["model"] if mesh.ndim > 1 else mesh
+
+
+class SlotSplit:
+    """A data rank's span of a batch of ``n`` slots: ``Shard(0)``'s
+    ``torch.chunk`` piece over the data axes, ``[lo, hi)``, on the rank of
+    index ``index`` among ``size`` ranks, whose process ``group`` is the
+    ranks of this rank's ``'model'`` coordinate.  Where the data size does
+    not divide ``n`` (as ``sanitize_spec`` does), or is 1, the batch
+    replicates: the span is the whole batch, ``size`` 1 and no group, and
+    :meth:`gather` is the identity."""
+
+    __slots__ = ("n", "lo", "hi", "index", "size", "group")
+
+    def __init__(self, n: int, index: int = 0, size: int = 1, group=None):
+        self.n, self.index, self.size, self.group = n, index, size, group
+        rows = n // size
+        self.lo, self.hi = index * rows, (index + 1) * rows
+
+    @property
+    def rows(self) -> int:
+        return self.hi - self.lo
+
+    @property
+    def split(self) -> bool:
+        return self.size > 1
+
+    def owns(self, slot: int) -> bool:
+        return self.lo <= slot < self.hi
+
+    def gather(self, t: torch.Tensor) -> torch.Tensor:
+        """Every data rank's ``t`` (its rows first), concatenated along dim
+        0 in the ranks' order: the whole batch's rows in slot order (one
+        all-gather over the data group; none when the batch replicates)."""
+        if not self.split:
+            return t
+        import torch.distributed as dist
+
+        t = t.contiguous()
+        out = t.new_empty((self.size * t.shape[0],) + tuple(t.shape[1:]))
+        dist.all_gather_into_tensor(out, t, group=self.group)
+        return out
+
+    def __repr__(self) -> str:
+        return f"SlotSplit(n={self.n}, slots=[{self.lo}, {self.hi}), {self.size} data ranks)"
+
+
+def slot_split(mesh, n: int) -> SlotSplit:
+    """This rank's :class:`SlotSplit` of ``n`` slots over ``mesh``'s data
+    axes (every axis but ``'model'``; several are taken together, in the
+    mesh's order).  No mesh, one data rank, or a data size that does not
+    divide ``n``: the whole batch."""
+    if mesh is None:
+        return SlotSplit(n)
+    names = [a for a in _axis_names(mesh) if a != "model"]
+    size = 1
+    for a in names:
+        size *= _axis_sizes(mesh)[a]
+    if size == 1 or n % size:
+        return SlotSplit(n)
+    import torch.distributed as dist
+
+    sub = mesh[names[0]] if len(names) == 1 else mesh[tuple(names)]._flatten()
+    group = sub.get_group()
+    return SlotSplit(n, dist.get_group_rank(group, dist.get_rank()), size, group)
 
 
 def mesh_of(tree: Any):

@@ -83,12 +83,14 @@ def _hash(k0: Word, k1: Word, counters: torch.Tensor) -> torch.Tensor:
     return o0 ^ o1
 
 
-def bits(key: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
-    """``jax.random.bits(key, shape)`` (uint32), as int64 on the key's device."""
+def bits(key: torch.Tensor, shape: Sequence[int], start: int = 0) -> torch.Tensor:
+    """``jax.random.bits(key, shape)`` (uint32), as int64 on the key's device;
+    with ``start``, the elements ``start ..`` of a larger draw's row-major
+    flattened shape under the same key."""
     n = 1
     for s in shape:
         n *= s
-    counters = torch.arange(n, dtype=torch.int64, device=key.device)
+    counters = torch.arange(start, start + n, dtype=torch.int64, device=key.device)
     return _hash(key[0], key[1], counters).reshape(tuple(shape))
 
 
@@ -124,10 +126,15 @@ def gumbel(key: torch.Tensor, shape: Sequence[int],
     return _gumbel_from(bits(key, shape), dtype)
 
 
-def categorical(key: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
+def categorical(key: torch.Tensor, logits: torch.Tensor, row0: int = 0) -> torch.Tensor:
     """``jax.random.categorical(key, logits)`` over the last axis: one key
-    draws the whole shape; the first index wins a tie, as ``jnp.argmax``."""
-    g = gumbel(key.to(logits.device), logits.shape, logits.dtype)
+    draws the whole shape; the first index wins a tie, as ``jnp.argmax``.
+    With ``row0``, ``logits (R, ...)`` are rows ``row0 .. row0 + R - 1`` of
+    a larger batch, and each row gets its draw in that batch's one-key
+    draw (a data rank's rows of a batch split over ranks)."""
+    key = key.to(logits.device)
+    start = row0 * (logits[0].numel() if logits.dim() > 1 else 1)
+    g = _gumbel_from(bits(key, logits.shape, start), logits.dtype)
     return torch.argmax(g + logits, dim=-1)
 
 

@@ -71,6 +71,10 @@ outputs.
   PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.serve \\
       --reduced --continuous --device cpu --model-parallel 2 --temperature 0
 
+  # data-parallel serving: a (2, 1) mesh, each rank decoding 2 of the 4 slots
+  PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.serve \\
+      --reduced --continuous --device cpu --slots 4 --temperature 0
+
   # a replica fleet over the same mesh: every replica on the sharded weights
   PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.serve \\
       --reduced --device cpu --model-parallel 2 --fleet 2 --fleet-duration 3
@@ -82,11 +86,15 @@ ported, with the continuous mode's ``--trace-out``, ``--perfetto-out``,
 of N ranks is a ``(N // mp, mp)`` ``DeviceMesh`` of ``("data", "model")``,
 ``mp`` the largest divisor of N at most ``--model-parallel``; when ``mp >
 1`` or N > 1 the weights are DTensors on ``serve_param_shardings`` and the
-continuous engine's pool on ``page_pool_shardings``, the activation hooks
-are installed, and the static and continuous modes run sharded (each rank
-runs the kernels on its local shards; every rank takes the first rank's
-clock).  ``--fleet`` runs on the mesh as the reference's does: every
-replica an engine on the one copy of the sharded weights, every rank the
+continuous engine's pool on ``page_pool_shardings``, both on the rank's
+row of the ``model`` axis, the activation hooks are installed, and the
+static and continuous modes run sharded: each rank runs the kernels on its
+local shards, and each data rank decodes its own span of the slots (of the
+static ``--batch``), as the reference's batch constraint splits them,
+where N // mp divides them (otherwise every rank decodes the whole batch);
+every rank takes the first rank's clock.  ``--fleet`` runs on the mesh as
+the reference's does: every replica an engine on the one copy of the
+sharded weights, its slots split over the data ranks alike, every rank the
 same fleet on the first rank's clock; ``--fleet --autoscale`` (no model)
 runs the same simulation on every rank.  One rank with
 ``--model-parallel 1`` wraps nothing, and only the first rank prints the
@@ -200,9 +208,10 @@ def serve_mesh(args):
     """The reference's mesh block: N ranks (the process group's, else 1),
     the model degree ``mp`` the largest divisor of N at most
     ``--model-parallel``, a ``(N // mp, mp)`` ``("data", "model")`` mesh
-    with the activation hooks installed for this rank's replica (its row's
-    model axis, :func:`~repro_torch.dist.sharding.replica_mesh`).  None when
-    N and ``mp`` are both 1: nothing is wrapped."""
+    with the activation hooks installed for the DTensors of this rank's row
+    (its model axis, :func:`~repro_torch.dist.sharding.replica_mesh`); the
+    engines split their slots over the data axis themselves.  None when N
+    and ``mp`` are both 1: nothing is wrapped."""
     n = dist.get_world_size() if dist.is_initialized() else 1
     mp = max(g for g in range(1, args.model_parallel + 1) if n % g == 0)
     if n == 1 and mp == 1:
@@ -218,8 +227,8 @@ def serve_mesh(args):
 def _model(args, mesh=None):
     """(device, config, random weights from ``--seed``) for the run; on a
     mesh the weights are DTensors on ``serve_param_shardings`` over this
-    rank's replica (every rank draws the same weights and keeps its
-    slice)."""
+    rank's row of the model axis (every rank draws the same weights and
+    keeps its slice)."""
     device = _device(args)
     cfg = _config(args)
     params = init_params(cfg, torch.Generator(device=device).manual_seed(args.seed), device)
@@ -233,11 +242,12 @@ def run_static(args) -> Dict[str, Any]:
     """The reference's static batch: ``make_batch(kind="prefill")`` of
     ``--batch`` prompts of ``--prompt-len`` positions, ``--steps`` tokens
     each through :class:`ServeEngine`, sampled with ``key(1)``; one
-    warm-up generate, then the timed one.  Returns the run's numbers and
-    its tokens, with the engine and the weights under ``"objects"``."""
+    warm-up generate, then the timed one.  On a mesh each data rank runs
+    its rows of the batch.  Returns the run's numbers and its tokens, with
+    the engine and the weights under ``"objects"``."""
     device, cfg, params = _model(args, args.mesh)
     eng = ServeEngine(cfg, params, max_len=args.prompt_len + args.steps + 8,
-                      temperature=args.temperature, device=device)
+                      temperature=args.temperature, device=device, serve_mesh=args.mesh)
     batch = make_batch(cfg, batch=args.batch, seq_len=args.prompt_len, kind="prefill")
     t0 = time.time()
     eng.generate(batch, n_steps=args.steps, key=jrandom.key(1)).cpu()
@@ -250,6 +260,7 @@ def run_static(args) -> Dict[str, Any]:
         "temperature": args.temperature, "shape": list(out.shape), "wall_s": dt,
         "tok_per_s": args.batch * args.steps / dt, "warmup_s": t_warm,
         "kv_int8": args.kv_int8, "tokens": out.tolist(),
+        "data_ranks": SH.slot_split(args.mesh, args.batch).size,
         "objects": {"engine": eng, "params": params},
     }
 
@@ -261,14 +272,15 @@ def run_continuous(args, subscribers: Sequence[Any] = ()) -> Dict[str, Any]:
     phase recorder, an :class:`~repro_torch.core.profiler.EventProfiler`).
     The telemetry flags wire as the reference's: the trace recorder, the
     span tracer and the bus metrics ride the governor's recorder slot.  On
-    a mesh the pool is put on ``page_pool_shardings``."""
+    a mesh the pool is put on ``page_pool_shardings`` and the slots are
+    split over the data ranks."""
     device, cfg, params = _model(args, args.mesh)
     max_len = (max(args.prompt_len, args.long_prompt) + cfg.n_prefix + args.steps
                + args.page_size)
     max_len += (-max_len) % args.page_size
     eng = ContinuousEngine(cfg, params, n_slots=args.slots, max_len=max_len,
                            page=args.page_size, temperature=args.temperature,
-                           attn_kernel=args.attn_kernel, device=device)
+                           attn_kernel=args.attn_kernel, device=device, serve_mesh=args.mesh)
     if args.mesh is not None:
         eng.pool.blocks = SH.distribute(
             eng.pool.blocks, SH.page_pool_shardings(eng.mesh, eng.pool.blocks))
@@ -385,7 +397,7 @@ def run_continuous(args, subscribers: Sequence[Any] = ()) -> Dict[str, Any]:
                        trace_records=trace_rec.n_seen, trace_dropped=trace_rec.n_dropped)
     return {
         "arch": cfg.name, "n_layers": cfg.n_layers, "device": str(device),
-        "attn_kernel": eng.attn_kernel,
+        "attn_kernel": eng.attn_kernel, "data_ranks": eng.split.size,
         "temperature": args.temperature, "policy": gov.policy.name,
         "requests": len(done), "tokens": n_tok, "wall_s": dt,
         "tok_per_s": n_tok / dt, "warmup_s": t_warm,
@@ -485,10 +497,10 @@ def run_fleet_real(args) -> Dict[str, Any]:
     router, arbiter, the requests in trace order and in the order they
     finished, the trace and the weights under ``"objects"``.  On a mesh,
     as the reference's, every replica is an engine on the whole mesh's
-    one copy of the weights (this rank's replica of
-    ``serve_param_shardings``), its pool on ``page_pool_shardings``; every
-    rank runs the same fleet, its host decisions on the mesh's first
-    rank's clock, and serves the same tokens."""
+    one copy of the weights (this rank's row of ``serve_param_shardings``),
+    its pool on ``page_pool_shardings`` and its slots split over the data
+    ranks; every rank runs the same fleet, its host decisions on the
+    mesh's first rank's clock, and books the same tokens."""
     from repro_torch.serve.fleet import run_engine_fleet
 
     device, cfg, params = _model(args, args.mesh)
@@ -508,11 +520,11 @@ def run_fleet_real(args) -> Dict[str, Any]:
     for _ in range(args.fleet):
         eng = ContinuousEngine(cfg, params, n_slots=args.slots, max_len=max_len,
                                page=args.page_size, temperature=args.temperature,
-                               attn_kernel=args.attn_kernel, device=device)
+                               attn_kernel=args.attn_kernel, device=device,
+                               serve_mesh=args.mesh)
         if args.mesh is not None:
             eng.pool.blocks = SH.distribute(
                 eng.pool.blocks, SH.page_pool_shardings(eng.mesh, eng.pool.blocks))
-            eng.clock_mesh = args.mesh
         eng.enable_prefix_cache()
         warm = make_batch(cfg, batch=1, seq_len=len(reqs[0].prompt), kind="prefill")
         eng.generate(warm, n_steps=2)
@@ -555,6 +567,7 @@ def run_fleet_real(args) -> Dict[str, Any]:
     return {
         "mode": "fleet", "arch": cfg.name, "n_layers": cfg.n_layers, "device": str(device),
         "temperature": args.temperature, "trace": trace.name, "replicas": args.fleet,
+        "data_ranks": engines[0].split.size,
         "requests": len(finished), "n_requests": len(reqs), "tokens": n_tok,
         "wall_s": dt, "tok_per_s": n_tok / dt, "warmup_s": t_warm,
         "routed": len(router.decisions), "prefix_routed": router.n_prefix_routed,

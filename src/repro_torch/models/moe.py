@@ -337,6 +337,39 @@ def _split_moe(cfg, p: Params, xf, cap: int, group: Tuple[int, ...]):
                               stride=(d, 1)), aux
 
 
+def _split_rows_moe(cfg, p: Params, xf, cap: int, split):
+    """:func:`moe_forward`'s layer on this data rank's own (T/D, d) rows of
+    a batch whose rows are split over the data group of ``split`` (a
+    :class:`~repro_torch.dist.sharding.SlotSplit`) as plain local rows, not
+    as a DTensor: a serving engine's split batch -> (out (T/D, d), aux).
+    The exchange of :func:`_split_moe` on the data group: each rank routes
+    its rows, one gather of every rank's (E,) counts (and router
+    probabilities, for the aux loss) gives its assignments' slots in the
+    whole batch's running count at the whole batch's capacity ``cap``, one
+    all-to-all sends its kept rows to the ranks that own their slots, the
+    experts run on the rank's slots (weights whole over the model axis
+    where they are split), and the inverse all-to-all brings its rows
+    back.  Inference only: the collectives are not differentiated."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    e, k = cfg.n_experts, cfg.top_k
+    xl = SH.whole(xf)
+    probs_sum, counts, gate_vals, gate_idx = _route_own(cfg, SH.whole(p["router"]), xl)
+    counts = split.gather(counts)                                  # (D, E)
+    t = xl.shape[0] * split.size
+    aux = (e * torch.sum(split.gather(probs_sum[None]).sum(dim=0) / t
+                         * (counts.sum(dim=0).float() / t)) * cfg.router_aux_coef)
+    starts, sizes = slot_spans(cap, [split.size])
+    ex, keep = plan_exchange(counts, gate_idx, split.index, cap, starts, sizes)
+    out_buf = SH.whole(experts(p, send_rows(xl, ex, e, k, split.group)))
+    w = (gate_vals.reshape(-1) * keep.float()).to(xl.dtype)
+    out = return_rows(out_buf, ex, w, k, split.group)
+    if is_dtensor(xf):
+        mesh = xf.device_mesh
+        out = DTensor.from_local(out, mesh, (Replicate(),) * mesh.ndim, run_check=False)
+    return out, aux
+
+
 def _token_group(xf) -> Tuple[int, ...]:
     """The mesh dims of more than one rank that split a DTensor's tokens
     (dim 0); none for a plain tensor."""
@@ -361,12 +394,17 @@ def combine(out_buf: torch.Tensor, src_e: torch.Tensor, src_c: torch.Tensor,
     return (gathered * w[:, None]).reshape(-1, k, out_buf.shape[-1]).sum(dim=1)
 
 
-def moe_forward(cfg, p: Params, x: torch.Tensor, cap_override: int = 0
+def moe_forward(cfg, p: Params, x: torch.Tensor, cap_override: int = 0, split=None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B,S,d) -> (out (B,S,d), aux load-balance loss, a scalar).
 
     ``cap_override`` sets an explicit capacity; decode passes ``B·S`` for
     the dropless (exact top-k) path, the serving-correct behaviour.
+    ``split`` (a :class:`~repro_torch.dist.sharding.SlotSplit` over more
+    than one data rank) says that ``x`` is this rank's rows of a batch
+    split over the data ranks as local rows: the capacity is the whole
+    batch's, and each rank routes its own rows at the whole batch's slots
+    (:func:`_split_rows_moe`).
 
     On DTensors (a sharded model) routing and dispatch run on local
     tensors (:func:`repro_torch.dist.sharding.on_shards`), where DTensor
@@ -381,6 +419,10 @@ def moe_forward(cfg, p: Params, x: torch.Tensor, cap_override: int = 0
     b, s, d = x.shape
     t = b * s
     xf = x.reshape(t, d)
+    if split is not None and split.split:
+        out, aux = _split_rows_moe(cfg, p, xf, cap_override or capacity(cfg, t * split.size),
+                                   split)
+        return out.reshape(b, s, d), aux
     cap = cap_override or capacity(cfg, t)
     group = _token_group(xf)
     if group:

@@ -151,12 +151,13 @@ def _embed_inputs(cfg, params, tokens: torch.Tensor,
     return constrain(L.scale_by(x, math.sqrt(cfg.d_model)), "residual")
 
 
-def _ffn(cfg, kind: str, p: Params, h, decode: bool = False):
+def _ffn(cfg, kind: str, p: Params, h, decode: bool = False, split=None):
     """The FFN after a block's mixer -> (y, aux or None): the MLP, or in an
     MoE arch's attention blocks the MoE layer, capacity-routed over a
-    sequence and dropless at decode."""
+    sequence and dropless at decode; ``split`` as :func:`prefill`'s."""
     if kind == "attn" and cfg.is_moe:
-        return M.moe_forward(cfg, p, h, cap_override=h.shape[0] * h.shape[1] if decode else 0)
+        return M.moe_forward(cfg, p, h, cap_override=h.shape[0] * h.shape[1] if decode else 0,
+                             split=split)
     return L.mlp_forward(cfg, p, h), None
 
 
@@ -270,7 +271,7 @@ def init_cache(cfg, batch: int, max_len: int, device) -> Params:
         for kind in cfg.layer_kinds()]}
 
 
-def _block_prefill(cfg, kind, p, x, bc, kernel):
+def _block_prefill(cfg, kind, p, x, bc, kernel, split=None):
     """One block over the whole prompt, at positions 0..S-1."""
     h = L.apply_norm(cfg, p["ln1"], x, kernel)
     if kind == "ssm":
@@ -284,7 +285,7 @@ def _block_prefill(cfg, kind, p, x, bc, kernel):
         bc.update(state)
     x = x + y
     h = L.apply_norm(cfg, p["ln2"], x, kernel)
-    y, _ = _ffn(cfg, kind, p["ffn"], h)
+    y, _ = _ffn(cfg, kind, p["ffn"], h, split=split)
     return constrain(x + y, "residual"), bc
 
 
@@ -310,16 +311,19 @@ def _block_decode(cfg, kind, p, x, pos, bc, attn_fn, kernel):
     return x + y, bc
 
 
-def prefill(cfg, params, batch, cache, *, kernel: Optional[str] = None
+def prefill(cfg, params, batch, cache, *, kernel: Optional[str] = None, split=None
             ) -> Tuple[torch.Tensor, Params]:
     """Full-sequence prefill of ``batch["tokens"]`` (B,S), after
     ``batch["prefix_embeds"]`` where the config has a prefix.  Fills
-    ``cache`` in place; returns (last-token logits (B,V), cache)."""
+    ``cache`` in place; returns (last-token logits (B,V), cache).
+    ``split`` (a :class:`~repro_torch.dist.sharding.SlotSplit`): the B rows
+    are this data rank's of a batch split over data ranks, which an MoE
+    layer routes at the whole batch's capacity."""
     tokens = batch["tokens"]
     kernel = resolve_kernel(kernel, tokens.device)
     x = _embed_inputs(cfg, params, tokens, batch.get("prefix_embeds"))
     for kind, p, bc in zip(cfg.layer_kinds(), params["layers"], cache["layers"]):
-        x, _ = _block_prefill(cfg, kind, p, x, bc, kernel)
+        x, _ = _block_prefill(cfg, kind, p, x, bc, kernel, split)
     x = L.apply_norm(cfg, params["final_norm"], x, kernel)
     return logits_fn(cfg, params, x[:, -1:])[:, 0], cache
 

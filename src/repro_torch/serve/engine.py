@@ -38,6 +38,20 @@ decode step as *forced* tokens; a retiring request's pages join the trie.
 ``join`` and ``evict`` instants, stamped on ``time.monotonic`` as the
 decode phases are (the reference stamps them on the session's clock, so
 its trace puts them apart from the phases; ROADMAP.md, queue 3).
+
+On a ``(data, model)`` mesh (``serve_mesh``) an engine splits its slots
+over the data ranks, as the reference's batch constraint does under XLA:
+the weights and the pages are DTensors on the rank's ``model`` row
+(:func:`~repro_torch.dist.sharding.replica_mesh`), and each data rank
+decodes its own span of the slots
+(:func:`~repro_torch.dist.sharding.slot_split`) as plain local rows, with
+only those slots' recurrent state.  Once a step the ranks gather the new
+K/V rows into every rank's replicated pages
+(:func:`~repro_torch.serve.kvcache.share_new_rows`) and the sampled
+tokens, so that every rank's host runs the same scheduler on the same
+tokens.  Joins prefill on every rank, as the reference's batch-1 prefill
+replicates.  A batch the data size does not divide replicates: every rank
+decodes all of it.
 """
 from __future__ import annotations
 
@@ -61,6 +75,7 @@ from repro_torch.serve.kvcache import (
     make_clone_pages,
     paged_attention_decode,
     scatter_prefill_attn,
+    share_new_rows,
 )
 from repro_torch.serve.scheduler import Request, Scheduler
 from repro_torch.serve.slack import DecodeSlackMeter
@@ -114,11 +129,17 @@ def make_serve_steps(cfg, kernel: Optional[str] = None):
 
 @dataclass
 class ServeEngine:
+    """The static batch.  ``serve_mesh`` (a ``(data, model)`` mesh, the
+    params DTensors on its :func:`~repro_torch.dist.sharding.replica_mesh`)
+    splits each batch's rows over the data ranks where the data size
+    divides it."""
+
     cfg: Any
     params: Any
     max_len: int
     temperature: float = 0.0
     device: Any = None
+    serve_mesh: Any = None
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
@@ -130,32 +151,42 @@ class ServeEngine:
         """Greedy/sampled continuation of ``batch['tokens']`` (B,S) for
         n_steps, after ``batch['prefix_embeds']`` where there is one.  With
         DTensor params the cache takes ``cache_shardings(serve_tp=True)``
-        and the logits are gathered before the draw."""
-        tokens = torch.as_tensor(np.asarray(batch["tokens"]), device=self.device)
+        and the logits are gathered over the model axis before the draw.
+        On ``serve_mesh`` each data rank decodes its own rows, draws them
+        as the whole batch's draw does, and the (B, n_steps) tokens are
+        gathered once at the end.  An MoE prefill routes each rank's rows at
+        the whole batch's capacity and slots (``transformer.prefill``'s
+        ``split``)."""
+        split = SH.slot_split(self.serve_mesh, len(batch["tokens"]))
+        rows = slice(split.lo, split.hi)
+        tokens = torch.as_tensor(np.asarray(batch["tokens"])[rows], device=self.device)
         b, s = tokens.shape
         prompt_len = s + self.cfg.n_prefix
         inputs = {"tokens": tokens}
         if "prefix_embeds" in batch:
-            inputs["prefix_embeds"] = torch.as_tensor(np.array(batch["prefix_embeds"]),
+            inputs["prefix_embeds"] = torch.as_tensor(np.array(batch["prefix_embeds"])[rows],
                                                       device=self.device)
         cache = _sharded_cache(self.mesh, init_cache(self.cfg, b, self.max_len, self.device))
         with SH.replicating(self.mesh):
-            logits, cache = _prefill(self.cfg, self.params, inputs, cache)
-            tok = self._select(SH.whole(logits), key, 0)
+            logits, cache = _prefill(self.cfg, self.params, inputs, cache, split=split)
+            tok = self._select(SH.whole(logits), key, 0, split.lo)
             out = [tok]
             for i in range(1, n_steps):
                 logits, cache = _decode(self.cfg, self.params, tok, prompt_len + i - 1, cache)
-                tok = self._select(SH.whole(logits), key, i)
+                tok = self._select(SH.whole(logits), key, i, split.lo)
                 out.append(tok)
-        return torch.stack(out, dim=1)                         # (B, n_steps)
+        return split.gather(torch.stack(out, dim=1))          # (B, n_steps)
 
-    def _select(self, logits: torch.Tensor, key: Optional[torch.Tensor], i: int):
+    def _select(self, logits: torch.Tensor, key: Optional[torch.Tensor], i: int,
+                row0: int = 0):
         """Greedy, or one draw over the whole (B, V) logits with
-        ``fold_in(key, i)``, as the reference's ``_select``."""
+        ``fold_in(key, i)``, as the reference's ``_select``; ``logits`` are
+        the batch's rows from ``row0`` on, drawn as in that draw."""
         if self.temperature <= 0.0 or key is None:
             return torch.argmax(logits, dim=-1).to(torch.int32)
         sub = jrandom.fold_in(key, i)
-        return jrandom.categorical(sub, _tempered(logits, self.temperature)).to(torch.int32)
+        return jrandom.categorical(sub, _tempered(logits, self.temperature),
+                                   row0).to(torch.int32)
 
 
 def _sharded_cache(mesh, cache):
@@ -172,7 +203,8 @@ def _sharded_cache(mesh, cache):
 # --------------------------------------------------------------------------
 
 def make_paged_decode_step(cfg, attn_kernel: Optional[str] = None,
-                           fused_sample: bool = False) -> Callable:
+                           fused_sample: bool = False, split: Optional[SH.SlotSplit] = None
+                           ) -> Callable:
     """decode(params, token (B,), pos (B,), table (B,M), blocks) -> (out, blocks).
 
     Reuses ``transformer.decode_step`` and swaps only the attention for the
@@ -183,20 +215,35 @@ def make_paged_decode_step(cfg, attn_kernel: Optional[str] = None,
     ``fused_sample`` the greedy argmax runs in the step and ``out`` is the
     sampled (B,) int32 tokens on the device; otherwise the logits.  With
     DTensor params (tensor parallel) the step runs with plain inputs
-    replicated and ``out`` is whole on every rank.
+    replicated and ``out`` is whole over the model axis.  With ``split``
+    (a :class:`~repro_torch.dist.sharding.SlotSplit` that splits the B
+    slots over data ranks) the step takes the whole batch's inputs and
+    decodes the rank's own rows ``[split.lo, split.hi)`` alone, on a pool
+    whose recurrent state holds those rows; ``out`` is those rows', and
+    every rank's new K/V rows land in every rank's pages before it returns
+    (:func:`~repro_torch.serve.kvcache.share_new_rows`).
     """
     resolve_kernel(attn_kernel, "cpu")            # refuse an unknown name now
+    shared = split is not None and split.split
 
     def step(params, token, pos, table, blocks):
         kernel = resolve_kernel(attn_kernel, token.device)
+        whole_pos, whole_table = pos, table
+        new_rows = None
+        if shared:
+            token, pos, table = (t[split.lo:split.hi] for t in (token, pos, table))
+            new_rows = []
 
         def paged_attn(p_attn, h, bc):
-            return paged_attention_decode(cfg, p_attn, h, pos, table, bc, kernel=kernel)
+            return paged_attention_decode(cfg, p_attn, h, pos, table, bc, kernel=kernel,
+                                          new_rows=new_rows)
 
         with SH.replicating(SH.mesh_of(params["embed"])):
             logits, blocks = _decode(cfg, params, token, pos, blocks, attn_fn=paged_attn,
                                      kernel=kernel)
             logits = SH.whole(logits)
+        if shared:
+            blocks = share_new_rows(cfg, blocks, new_rows, whole_pos, whole_table, split)
         if fused_sample:
             return torch.argmax(logits, dim=-1).to(torch.int32), blocks
         return logits, blocks
@@ -204,19 +251,23 @@ def make_paged_decode_step(cfg, attn_kernel: Optional[str] = None,
     return step
 
 
-def make_join_step(cfg) -> Callable:
+def make_join_step(cfg, split: Optional[SH.SlotSplit] = None) -> Callable:
     """join(blocks, prefill_cache, page_ids (n_used,), slot) -> blocks:
     scatter a batch-1 prefill cache into the pool, in place: attention K/V
     into the slot's freshly allocated pages, recurrent state into the
-    slot's row (cast to the pool's dtype, as the reference's ``.set``)."""
+    slot's row (cast to the pool's dtype, as the reference's ``.set``).
+    With ``split``, the slot's row of recurrent state is written by the
+    rank that owns the slot, at its local row; the pages by every rank."""
+    lo = 0 if split is None else split.lo
 
     def join(blocks, cache, page_ids, slot: int):
+        owned = split is None or split.owns(slot)
         for kind, pb, cb in zip(cfg.layer_kinds(), blocks["layers"], cache["layers"]):
             if kind == "attn":
                 scatter_prefill_attn(pb, cb, page_ids)
-            else:
+            elif owned:
                 for name, big in pb.items():
-                    big[slot] = cb[name][0].to(big.dtype)
+                    big[slot - lo] = cb[name][0].to(big.dtype)
         return blocks
 
     return join
@@ -240,7 +291,10 @@ class ContinuousEngine:
     ``device`` is ``cuda`` unless the caller names another; the params
     must already be there.  ``tracer`` (duck-typed: ``.serve_event``) gets
     each join and evict instant; ``prefix_cache`` is attached by
-    :meth:`enable_prefix_cache`.
+    :meth:`enable_prefix_cache`.  ``serve_mesh``, a ``(data, model)``
+    mesh whose :func:`~repro_torch.dist.sharding.replica_mesh` holds the
+    params, splits the slots over the data ranks (``split``) and gives the
+    sessions its first rank's clock.
     """
 
     cfg: Any
@@ -254,6 +308,7 @@ class ContinuousEngine:
     device: Any = None
     tracer: Any = None
     prefix_cache: Any = None
+    serve_mesh: Any = None
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
@@ -264,16 +319,19 @@ class ContinuousEngine:
         # the params' mesh when they are DTensors (tensor parallel): the
         # launcher puts the pool on it too; None for plain tensors
         self.mesh = SH.mesh_of(self.params)
+        # this rank's span of the slots (all of them without a data split)
+        self.split = SH.slot_split(self.serve_mesh, self.n_slots)
         # the ranks whose first rank's clock the engine's sessions take: the
-        # engine's own, or a whole fleet's mesh (set where the fleet is built)
-        self.clock_mesh = self.mesh
+        # whole serving mesh, else the params' own
+        self.clock_mesh = self.mesh if self.serve_mesh is None else self.serve_mesh
         self.pool = PagedKVPool(self.cfg, self.n_slots, self.max_len, self.page,
-                                self.num_pages, device=self.device)
+                                self.num_pages, device=self.device,
+                                state_rows=self.split.rows)
         # greedy decoding samples inside the step; a temperature needs logits
         self._fused_sample = self.temperature <= 0.0
         self._decode = make_paged_decode_step(self.cfg, self.attn_kernel,
-                                              self._fused_sample)
-        self._join = make_join_step(self.cfg)
+                                              self._fused_sample, self.split)
+        self._join = make_join_step(self.cfg, self.split)
         self._clone = make_clone_pages(self.cfg)
         m = self.pool.max_pages_per_req
         self._table = np.full((self.n_slots, m), SCRATCH_PAGE, np.int32)
@@ -376,9 +434,10 @@ class ContinuousEngine:
         return int(self._select_step(logits[None], [(0, req)])[0])
 
     def _select_step(self, logits: torch.Tensor, active: List[tuple]) -> torch.Tensor:
-        """(B,) int32 tokens on the device from (B, V) logits: at a
-        temperature, every active slot whose request has a key draws with
-        ``fold_in(req.key, req.n_generated)``; the others take the argmax."""
+        """(R,) int32 tokens on the device from (R, V) logits: at a
+        temperature, every active ``(row, request)`` whose request has a key
+        draws its row with ``fold_in(req.key, req.n_generated)``; the other
+        rows take the argmax.  A data rank's step hands it its own rows."""
         keyed = [(slot, req) for slot, req in active
                  if req.key is not None and self.temperature > 0.0]
         keys = None
@@ -496,10 +555,11 @@ class EngineSession:
 
     # ---- clock -----------------------------------------------------------
     def now(self) -> float:
-        """Session seconds.  A tensor-parallel engine runs one session on
-        every rank of its mesh, and every rank takes the first rank's
-        clock (a broadcast a call, over the engine's ``clock_mesh``), so
-        all admit the same requests on the same step."""
+        """Session seconds.  An engine on a mesh runs one session on every
+        rank of it, and every rank takes the first rank's clock (a
+        broadcast a mesh dim a call, over the engine's ``clock_mesh``: its
+        whole serving mesh, data and model ranks alike), so all admit the
+        same requests on the same step."""
         return self._agreed(time.monotonic() - self.t_start)
 
     def _agreed(self, t: float) -> float:
@@ -576,7 +636,10 @@ class EngineSession:
             self.meter.idle(t0, t1)
 
     def decode_step(self) -> None:
-        """One batched decode step over all active slots."""
+        """One batched decode step over all active slots: this rank's span
+        of them where the slots are split over data ranks, whose sampled
+        tokens are then gathered, so that every rank's host books the whole
+        batch's tokens."""
         eng = self.engine
         sched = self.sched
         for req in sched.active.values():
@@ -601,12 +664,13 @@ class EngineSession:
         if self.meter is not None:
             self.meter.step(t0, t1, sched.n_active, eng.n_slots)
         active = list(sched.active.items())
+        split = eng.split
         if not eng._fused_sample:
             # a slot still replaying its prompt suffix discards this step's
-            # token, so it draws nothing
-            out = eng._select_step(out, [(slot, req) for slot, req in active
-                                         if slot not in eng._forced])
-        tokens = out.cpu().numpy()             # the step's one copy to the host
+            # token, so it draws nothing; a rank draws its own slots' rows
+            out = eng._select_step(out, [(slot - split.lo, req) for slot, req in active
+                                         if slot not in eng._forced and split.owns(slot)])
+        tokens = split.gather(out).cpu().numpy()   # the step's one copy to the host
         tnow = self.now()
         for slot, req in active:
             eng._lengths[slot] += 1

@@ -20,6 +20,14 @@ Ported from ``repro.serve.kvcache``:
   through the kernel wrapper of :mod:`repro_torch.kernels.paged_attention`.
   Both quantise (or round to the page dtype) the new K/V rows first, so the
   stored pages are bit-identical, and both update the pages **in place**.
+* :func:`share_new_rows` — where an engine's slots are split over data
+  ranks (:func:`repro_torch.dist.sharding.slot_split`), each rank's decode
+  step writes its own slots' new rows; once a step every rank's rows of
+  every attention layer are gathered, in one collective, and written into
+  each rank's pages in slot order (:func:`repro_torch.kernels.ops.paged_scatter`),
+  so that every rank's replicated pages stay those of one engine over the
+  whole batch: a page one rank's slot writes may later be read by another
+  rank's (the prefix cache shares pages across slots).
 * :func:`make_clone_pages` — the prefix cache's copy-on-write page clone:
   one page copied onto another in every attention layer's page leaves, in
   place on the pool's device (the reference clones with XLA's
@@ -33,6 +41,7 @@ from typing import Any, Callable, Dict, List, Optional
 import torch
 
 from repro_torch.device import is_dtensor, resolve_device, resolve_kernel
+from repro_torch.kernels import ops
 from repro_torch.kernels import paged_attention as PA
 from repro_torch.models import layers as L
 from repro_torch.models.transformer import check_supported, init_recurrent_state
@@ -69,7 +78,9 @@ def _attn_page_block(cfg, num_pages: int, page: int, dtype, device) -> Params:
 
 def init_pool_blocks(cfg, num_pages: int, page: int, n_slots: int, device) -> Params:
     """``{"layers": [...]}``: a page block per attention layer (pages in the
-    compute dtype), the per-slot recurrent state per RG-LRU or SSM layer."""
+    compute dtype), the per-slot recurrent state per RG-LRU or SSM layer,
+    ``n_slots`` rows of it (a data rank's span where the slots are split
+    over data ranks: its own slots' rows alone)."""
     check_supported(cfg)
     dtype = L.dtype_of(cfg.compute_dtype)
     return {"layers": [
@@ -82,24 +93,35 @@ def init_pool_blocks(cfg, num_pages: int, page: int, n_slots: int, device) -> Pa
 # paged decode attention
 # --------------------------------------------------------------------------
 
-def paged_attention_decode(cfg, p, x, pos, table, block, kernel: Optional[str] = None):
+def write_slots(pos: torch.Tensor, table: torch.Tensor, page: int):
+    """(page_idx, off), (B,) int32 each: where each slot's row at ``pos``
+    lands, its table's page for ``pos`` (the last column past the table's
+    width) and the offset in it."""
+    rows = torch.arange(table.shape[0], device=table.device)
+    page_idx = table[rows, torch.clamp(pos // page, max=table.shape[1] - 1).long()]
+    return page_idx, pos % page
+
+
+def paged_attention_decode(cfg, p, x, pos, table, block, kernel: Optional[str] = None,
+                           new_rows: Optional[list] = None):
     """Single-token attention over paged KV.
 
     x: (B,1,d); pos: (B,) int32 write positions; table: (B, M) int32 page
     table (0 = scratch); block: one layer's page block, updated in place.
-    ``kernel`` None follows x's device.  Returns (out (B,1,d), block).
+    ``kernel`` None follows x's device.  ``new_rows``, where given, gets
+    the rows this call wrote, as the step held them: ``(k, v)`` (B, Hkv,
+    D) in the page dtype, with their (B, Hkv) fp32 scales for int8 pages,
+    this rank's heads of them on a sharded pool.  Returns (out (B,1,d),
+    block).
     """
     kernel = resolve_kernel(kernel, x.device)
     b = x.shape[0]
     page = block["k_pages"].shape[1]
-    m = table.shape[1]
     q, k, v = L._project_qkv(cfg, p, x)                        # (B,1,H*,D)
     q = rope_at(q, pos, cfg.rope_theta)
     k = rope_at(k, pos, cfg.rope_theta)
 
-    rows = torch.arange(b, device=x.device)
-    page_idx = table[rows, torch.clamp(pos // page, max=m - 1).long()]
-    off = pos % page
+    page_idx, off = write_slots(pos, table, page)
     hd = cfg.head_dim
     new = {}
     if cfg.kv_quant:
@@ -125,6 +147,8 @@ def paged_attention_decode(cfg, p, x, pos, table, block, kernel: Optional[str] =
     def attend(q1, *rest):
         # (B,Hq,D) -> (B,Hkv,G,D) on the heads this call holds (the new K
         # row's); the int8 pages' scales (None without them) by name
+        if new_rows is not None:
+            new_rows.append(tuple(t for t in rest[:2] + rest[8:10] if t is not None))
         return step(q1.reshape(q1.shape[0], rest[0].shape[1], -1, hd), *rest[:8],
                     **dict(zip(_QUANT_ARGS, rest[8:])))
 
@@ -165,6 +189,50 @@ def _attend_on_shards(attend, args):
 
 
 PAGE_LEAVES = ("k_pages", "v_pages", "k_scale_pages", "v_scale_pages")
+
+
+def share_new_rows(cfg, blocks, new_rows: List[tuple], pos: torch.Tensor,
+                   table: torch.Tensor, split) -> Params:
+    """Every data rank's new rows of one decode step into this rank's pages.
+
+    ``new_rows`` holds, for each attention layer in order, the rows this
+    rank's step wrote for its own slots (:func:`paged_attention_decode`'s
+    ``new_rows``); ``pos`` (B,) and ``table`` (B, M) are the whole batch's,
+    as the step had them.  All layers' rows go in one all-gather over the
+    data group (``split``, a :class:`~repro_torch.dist.sharding.SlotSplit`),
+    as bytes, and each layer's whole batch of rows is written in slot order
+    with :func:`repro_torch.kernels.ops.paged_scatter` (the last row aimed
+    at a place wins, as in one engine's step over the whole batch; a rank's
+    own rows land again with the same bits).  On a sharded pool the rows
+    are this rank's heads, and so are the pages written: the data group's
+    ranks share the model coordinate.  Nothing happens where the batch is
+    not split."""
+    if not split.split or not new_rows:
+        return blocks
+    flat = [t.reshape(t.shape[0], -1).contiguous() for rows in new_rows for t in rows]
+    whole = split.gather(torch.cat([t.view(torch.uint8) for t in flat], dim=1))
+    attn = [pb for kind, pb in zip(cfg.layer_kinds(), blocks["layers"]) if kind == "attn"]
+    page_idx, off = write_slots(pos, table, attn[0]["k_pages"].shape[1])
+    at = 0
+    for rows, block in zip(new_rows, attn):
+        got = []
+        for t in rows:
+            width = t[0].numel() * t.element_size()
+            got.append(whole[:, at:at + width].contiguous().view(t.dtype)
+                       .reshape((whole.shape[0],) + tuple(t.shape[1:])))
+            at += width
+        pools = [_local(block[name]) for name in PAGE_LEAVES if name in block]
+        if len(pools) == 4:
+            ops.paged_scatter_quant(*pools, *got, page_idx, off)
+        else:
+            ops.paged_scatter(*pools, *got, page_idx, off)
+    return blocks
+
+
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's local shard (its storage: the caller writes it in place);
+    a plain tensor as it is."""
+    return t.to_local() if is_dtensor(t) else t
 
 
 def make_clone_pages(cfg) -> Callable:
@@ -242,11 +310,13 @@ class PagedKVPool:
 
     ``materialize=False`` skips building the device tensors; otherwise
     they go to ``device`` (``cuda`` unless the caller names another).
+    ``state_rows`` is how many slots' recurrent state the device blocks
+    hold (a data rank's span of the ``n_slots``; None: all of them).
     """
 
     def __init__(self, cfg, n_slots: int, max_len: int, page: int = 16,
                  num_pages: Optional[int] = None, materialize: bool = True,
-                 device=None):
+                 device=None, state_rows: Optional[int] = None):
         if max_len % page:
             raise ValueError(f"max_len {max_len} must be a multiple of page {page}")
         self.cfg = cfg
@@ -265,7 +335,9 @@ class PagedKVPool:
         # asked to free >= n resident pages; returns how many it freed
         self.on_pressure: Optional[Any] = None
         self.blocks = (
-            init_pool_blocks(cfg, self.num_pages, page, n_slots, resolve_device(device))
+            init_pool_blocks(cfg, self.num_pages, page,
+                             n_slots if state_rows is None else state_rows,
+                             resolve_device(device))
             if materialize else None
         )
 

@@ -4,7 +4,8 @@ Reduced llama3.2-1b, greedy, through ``repro_torch.launch.serve.main``:
 
 * ``--fleet 2 --model-parallel 2`` (a (1, 2) mesh: both replicas
   tensor-parallel over the two ranks) and ``--fleet 2`` (a (2, 1) mesh:
-  each rank runs both replicas on its own copy of the weights) finish
+  each rank runs both replicas on its own copy of the weights, decoding
+  2 of each replica's 4 slots) finish
   every request of a short flash crowd, and each request's tokens equal
   one unsharded engine's on the same (gathered) weights, as
   ``test_torch_fleet.test_engine_fleet_serves_the_reference_tokens`` holds
@@ -56,6 +57,7 @@ def fleet_on_mesh(extra):
     single.serve(alone)
     return dict(
         mesh=res["mesh"], ranks=res["ranks"], requests=res["requests"],
+        data_ranks=res["data_ranks"], spans=[(e.split.lo, e.split.hi) for e in engines],
         n_requests=res["n_requests"], routed=res["routed"],
         tokens=[list(r.out) for r in reqs], max_new=[r.max_new for r in reqs],
         single=[list(r.out) for r in alone],
@@ -102,6 +104,9 @@ def test_fleet_on_two_ranks_serves_one_engines_tokens(two_ranks, shape):
         assert case["tokens"] == case["single"], (r, case["tokens"], case["single"])
         assert case["one_copy"] and case["all_dtensors"] and case["pools_on_mesh"], (r, case)
         assert case["clock"] == [shape] * 2, case["clock"]
+        assert case["data_ranks"] == shape[0], case["data_ranks"]
+        span = 4 // shape[0]
+        assert case["spans"] == [(r * span % 4, r * span % 4 + span)] * 2, case["spans"]
 
 
 @pytest.mark.parametrize("shape", list(MESHES), ids=str)

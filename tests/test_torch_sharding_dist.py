@@ -7,8 +7,10 @@ tensors and the JAX package, on the CPU.
   unsharded engine's and the reference's ``ContinuousEngine``'s (and the
   static engine's the reference's ``ServeEngine``'s), with KV heads that
   split over the ranks (8/2 heads) and with ones that do not (the reduced
-  config's single KV head).  Each rank's DTensors live on its replica's
-  model axis (at (2, 2) two replicas of 2 ranks).  The kernels take
+  config's single KV head).  Each rank's DTensors live on its row's
+  model axis; at (2, 2) the continuous engine's 4 slots split over the
+  two data rows, each decoding 2 (``test_torch_serve_data_split.py``
+  holds the split on its own).  The kernels take
   their plain versions on these CPU tensors, through the same local-shard
   calls as on the card.  One decode step's collectives are counted by kind
   (``CommDebugMode``), and none of them moves a parameter's storage; the
@@ -152,7 +154,7 @@ def serve_on_mesh(mesh, work_dir):
         try:
             sp = SH.distribute(params, SH.serve_param_shardings(replica, params))
             eng = ContinuousEngine(cfg, sp, n_slots=4, max_len=32, page=8, device="cpu",
-                                   attn_kernel="cuda")
+                                   attn_kernel="cuda", serve_mesh=mesh)
             eng.pool.blocks = SH.distribute(eng.pool.blocks,
                                             SH.page_pool_shardings(replica, eng.pool.blocks))
             assert eng.mesh is replica
@@ -193,8 +195,8 @@ def serve_on_mesh(mesh, work_dir):
                 _dispatch.redistribute_local_tensor = real
             param_storages = {p.to_local().untyped_storage().data_ptr()
                               for p in leaves(sp)}
-            static = ServeEngine(cfg, sp, max_len=PROMPT_LEN + N_STEPS + 8,
-                                 device="cpu").generate(batch, n_steps=N_STEPS)
+            static = ServeEngine(cfg, sp, max_len=PROMPT_LEN + N_STEPS + 8, device="cpu",
+                                 serve_mesh=mesh).generate(batch, n_steps=N_STEPS)
         finally:
             install_constraint(None)
         out[name] = dict(
@@ -202,6 +204,7 @@ def serve_on_mesh(mesh, work_dir):
             all_dtensors=all(isinstance(p, DTensor) for p in leaves(sp)),
             pool_placements=[str(p) for p in pool.placements],
             written=written, same_storage=same_storage, pool_close=pool_close,
+            data_ranks=eng.split.size,
             comm={str(k): v for k, v in comm.get_comm_counts().items()},
             n_redistributions=len(moved),
             params_moved=len(param_storages & set(moved)))
@@ -263,6 +266,7 @@ def test_two_ranks_serve_tensor_parallel(tmp_path):
     for r, res in enumerate(got):
         assert res["mesh"] == [1, 2]
         pl = res["serve"]
+        assert all(case["data_ranks"] == 1 for case in pl.values()), pl
         assert pl["hkv2"]["pool_placements"] == ["S(2)"], pl
         assert pl["hkv1"]["pool_placements"] == ["R"], pl
         launcher = res["launcher"]
@@ -444,6 +448,7 @@ def test_four_ranks_serve_train_and_restart_on_a_smaller_mesh(tmp_path):
                             jax.tree.leaves(want)):
                 np.testing.assert_allclose(g, w, rtol=1e-4, atol=1e-4, err_msg=arch)
     for r, res in enumerate(got):
+        assert all(case["data_ranks"] == 2 for case in res["serve"].values()), r
         el = res["elastic"]
         assert el["mesh"] == [1, 2] and el["in_mesh"] == (r < 2)
         assert np.isfinite(el["before"])
