@@ -65,6 +65,22 @@ Builds the hand-written kernels from the five sources in this checkout (one
    50280: bits and uniforms bit-equal, tokens equal but for near ties (the
    two highest perturbed scores within 1e-5 relative); the decode step's
    draw timed and its launches counted.
+1d. **the data-split step's scatter** (``paged_scatter_step``, row 3's
+   redesign): every attention layer's new rows of 8 slots, gathered from
+   D = 2 fake data ranks of 4 slots as one byte buffer, written into
+   full-width pools (8 slots of 11 pages of 16): llama3.2-1b (16 layers,
+   Hkv 8, D 64) in bf16 and int8, granite-moe-3b-a800m (32 layers) in
+   bf16, two idle slots on the scratch row and two slots of the two ranks
+   on one place.  ``kvcache.share_new_rows`` with a stand-in for the
+   all-gather, three calls a case, launches the kernel once a call and
+   nothing else; the per-layer loop through the per-call scatter kernel
+   and the plain version on copies of the pools leave them bit-equal; a
+   call's device operations (the nodes of a CUDA graph that captures it)
+   are the kernel's 1 against the loop's 3 L (5 L with int8 pages); the
+   send side's pack's device operations, the device times of the kernel,
+   the loop, the plain version (three runs) and one ``index_put_`` a
+   leaf, beside the byte bound, and the host wall time of one call of
+   each are logged.
 2. **llama3.2-1b serving**: ``repro_torch.launch.serve.run_continuous``
    drives full-width llama3.2-1b at the reference's default temperature
    (0.8: tokens sampled; random weights from a seed) over 16
@@ -248,9 +264,9 @@ Builds the hand-written kernels from the five sources in this checkout (one
    device, and under gloo DTensor's all-gather of CUDA tensors crashed its
    process (PERF.md, section 7); so the split's gather of the step's new
    K/V rows, and their scatter into the pages, which happen only at two
-   data ranks and more, do not run here.  The scatter's kernel is held at
-   their shapes (8 rows of llama's (8, 64) bf16 pages, duplicate
-   destinations included) in phase 1b.
+   data ranks and more, do not run here.  Their write is held at
+   llama's and granite's full width, two ranks' rows gathered, in phase
+   1d.
 25. **the dry run against the card**: ``python -m
    repro_torch.launch.dryrun`` in subprocesses (each its own fake world of
    256 or 512 ranks, records in a temporary directory) on llama3.2-1b
@@ -323,20 +339,23 @@ Builds the hand-written kernels from the five sources in this checkout (one
    bf16 bar, no kernel launched; both paths' forward and backward times
    and peak bytes logged.
 
-In phases 1b, 2, 5, 8, 11, 13-16 and 18-28 every kernel count is set to 0 just
+In phases 1b, 1d, 2, 5, 8, 11, 13-16 and 18-28 every kernel count is set to 0 just
 before the run and read just after; each must equal the launches the path
 needs (RMSNorm once per norm a join and a step where the norm is RMSNorm,
 none for LayerNorm and the nonparametric norm: 2 a layer with an MLP, 1
 an SSM layer, plus the final norm; flash, the RG-LRU scan and the SSD scan
 once per attention / RG-LRU / SSM layer a join; the fused paged kernel
 once per attention layer a step; the unfused paged kernels only on the ops
-path; none on the training path, which runs plain PyTorch under autograd).
+path; the data-split step's scatter once a ``share_new_rows`` call, only
+in phase 1d; none on the training path, which runs plain PyTorch under
+autograd).
 Each step check profiles the step: device time by kernel, the paged
 kernels' walk and combine together and apart.
 Prints the card's name and power limit, then one JSON line of kernel
 numbers (each kernel's launches from its own path: the ops surface for the
-unfused paged kernels, mamba2's for RMSNorm and the SSD scan,
-recurrentgemma's for the rest), and last ``{"ok": true, "device": {...}}``.
+unfused paged kernels, phase 1d's ``share_new_rows`` calls for the step
+scatter, mamba2's for RMSNorm and the SSD scan, recurrentgemma's for the
+rest), and last ``{"ok": true, "device": {...}}``.
 Needs CUDA and this repository's ``src/``; without either it fails before
 printing a result.
 """
@@ -370,6 +389,8 @@ KERNELS = {
                         "src/repro/kernels/paged_attention.py:143"),
     "paged_scatter": ("PA", "scatter_launches", "paged_attention",
                       "src/repro/kernels/paged_attention.py:307"),
+    "paged_scatter_step": ("PA", "scatter_step_launches", "paged_attention",
+                           "src/repro/kernels/paged_attention.py:307"),
     "flash_attention": ("FA", "launches", "flash_attention",
                         "src/repro/kernels/flash_attention.py:68"),
     "rmsnorm": ("RN", "launches", "rmsnorm", "src/repro/kernels/rmsnorm.py:24"),
@@ -398,16 +419,18 @@ def gpu_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(torch, fn, reps: int = 50) -> float:
+def time_ms(torch, fn, reps: int = 50, sleep_ms: float = 5.0) -> float:
     """Median device time of one call.  The L2 is flushed before each call
     (the serving path reaches a layer's inputs after other layers' weights),
-    and a sleep kernel keeps the card busy while the host enqueues the call,
-    so the events bracket device work only, not the host's Python."""
+    and a sleep kernel (``sleep_ms``, at the H100's 2 GHz clock) keeps the
+    card busy while the host enqueues the call, so the events bracket
+    device work only, not the host's Python, as long as the sleep outlasts
+    the enqueue."""
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
     times = []
     for _ in range(reps + 5):
         flush.zero_()
-        torch.cuda._sleep(10_000_000)            # ~5 ms at the H100's clock
+        torch.cuda._sleep(int(sleep_ms * 2_000_000))
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
         e0.record()
@@ -427,6 +450,20 @@ def host_ms(torch, fn, reps: int = 200) -> float:
     t1 = time.perf_counter()
     torch.cuda.synchronize()
     return (t1 - t0) / reps * 1e3
+
+
+def host_call_ms(torch, fn, reps: int = 200) -> float:
+    """Median host wall time of one call (Python, checks and launches), each
+    call timed alone on an idle card and not synchronised, after 5 calls
+    untimed."""
+    times = []
+    for _ in range(reps + 5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return float(np.median(times[5:])) * 1e3
 
 
 def bound(nbytes: float, flops: float, flops_per_s: float = FP32_FLOPS_PER_S):
@@ -1143,6 +1180,241 @@ def scatter_index_put_ms(torch, case):
 
 
 # --------------------------------------------------------------------------
+# phase 1d: the data-split step's scatter
+# --------------------------------------------------------------------------
+
+SCATTER_STEP_CASES = (("llama3.2-1b", False), ("llama3.2-1b", True),
+                      ("granite-moe-3b-a800m", False))
+SCATTER_STEP_CALLS = 3          # share_new_rows calls a case on the counted path
+SCATTER_STEP_PAGES = 11         # pages a slot (176 positions), besides the scratch page
+
+
+class GatherOfRanks:
+    """The data group's all-gather of two ranks seen from the first: this
+    rank's packed rows, then the other rank's (``others``), in rank order,
+    as ``SlotSplit.gather`` returns them."""
+
+    split = True
+
+    def __init__(self, torch, others):
+        self.torch, self.others = torch, others
+
+    def gather(self, t):
+        return self.torch.cat([t, self.others])
+
+
+def scatter_step_case(torch, arch, quant):
+    """Full-width ``arch`` (bf16 pages, or int8 with fp32 scales): every
+    attention layer's pools for 8 slots of 11 pages of 16 (and the scratch
+    page), filled with random bits; two fake data ranks' new rows of 4
+    slots each, as the decode step hands them to ``share_new_rows``; the
+    whole batch's positions and tables: slots 2, 3 and 7 idle on the
+    scratch page (3 and 7 on one row), slot 6 (the second rank) at slot
+    1's place."""
+    from repro_torch.configs import get_config
+    from repro_torch.serve import kvcache as KV
+
+    cfg = dataclasses.replace(get_config(arch), kv_quant=quant)
+    slots, page, m = 8, 16, SCATTER_STEP_PAGES
+    blocks = KV.init_pool_blocks(cfg, slots * m + 1, page, slots, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+
+    def fill(t, name):
+        if t.dtype == torch.int8:
+            return t.copy_(torch.randint(-127, 128, t.shape, generator=gen, device="cuda"))
+        if "scale" in name:
+            return t.copy_(torch.rand(t.shape, generator=gen, device="cuda") * 0.02 + 0.005)
+        return t.copy_(torch.randn(t.shape, generator=gen, device="cuda"))
+
+    layers = [b for k, b in zip(cfg.layer_kinds(), blocks["layers"]) if k == "attn"]
+    for b in layers:
+        for name, t in b.items():
+            fill(t, name)
+    ranks = [[tuple(fill(b[name][0, :slots // 2].clone(), name) for name in KV.PAGE_LEAVES
+                    if name in b) for b in layers] for _ in range(2)]
+    table = torch.arange(1, slots * m + 1, dtype=torch.int32, device="cuda").reshape(slots, m)
+    pos = torch.tensor([130, 150, 0, 0, 141, 170, 150, 0], dtype=torch.int32, device="cuda")
+    table[6] = table[1]
+    table[[2, 3, 7]] = 0
+    pos[2] = 5                     # an idle slot's own table row: its row lands on page 0
+    return cfg, blocks, layers, ranks, pos, table
+
+
+def step_leaves(layers):
+    from repro_torch.serve.kvcache import PAGE_LEAVES
+
+    return [[b[n] for n in PAGE_LEAVES if n in b] for b in layers]
+
+
+def device_ops(torch, fn):
+    """The device operations of one call of ``fn`` (after one call
+    uncaptured): the nodes of a CUDA graph that captures it, by type
+    (kernel, memcpy, memset, ...), from libcuda's graph calls.  A
+    capture sees every operation the call enqueues, where
+    ``torch.profiler``'s trace of a call this short has come back empty on
+    the card."""
+    import ctypes
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    torch.cuda.synchronize()
+    cu = ctypes.CDLL("libcuda.so.1")
+    handle, n = ctypes.c_void_p(graph.raw_cuda_graph()), ctypes.c_size_t(0)
+    require(cu.cuGraphGetNodes(handle, None, ctypes.byref(n)) == 0, "cuGraphGetNodes")
+    nodes = (ctypes.c_void_p * n.value)()
+    require(cu.cuGraphGetNodes(handle, nodes, ctypes.byref(n)) == 0, "cuGraphGetNodes")
+    kinds = {0: "kernel", 1: "memcpy", 2: "memset", 3: "host", 4: "graph", 5: "empty"}
+    names = []
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        require(cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)) == 0,
+                "cuGraphNodeGetType")
+        names.append(kinds.get(kind.value, f"type {kind.value}"))
+    del graph
+    return names
+
+
+def per_layer_loop(PA, whole, leaves, page_idx, off):
+    """The data-split step's write as the port made it before the one-launch
+    kernel: each layer's rows copied out of the gathered bytes, then one
+    launch of the per-call scatter kernel a layer."""
+    for pools, rows in zip(leaves, PA.step_rows(whole, leaves)):
+        PA.paged_scatter(pools, rows, page_idx, off)
+
+
+def step_index_put(torch, whole, leaves, page_idx, off):
+    """The library yardstick: one ``index_put_`` a pool leaf, each writing its
+    layer's rows, viewed in place in the gathered bytes, to the same
+    (page, offset)s; of duplicate destinations it keeps no defined one."""
+    from repro_torch.kernels.paged_attention import step_row_bytes
+
+    index = (page_idx.long(), off.long())
+    calls, at = [], 0
+    for pools in leaves:
+        for pool, width in zip(pools, step_row_bytes(pools)):
+            rows = whole[:, at:at + width].view(pool.dtype).view((whole.shape[0],)
+                                                                 + tuple(pool.shape[2:]))
+            calls.append((pool, rows))
+            at += width
+
+    def run():
+        for pool, rows in calls:
+            pool.index_put_(index, rows)
+    return run
+
+
+def phase_scatter_step(torch, mods, card):
+    """The data-split decode step's write at full width, D = 2 fake data
+    ranks of 4 slots: llama3.2-1b (16 layers, Hkv 8, D 64) in bf16 and int8,
+    granite-moe-3b-a800m (32 layers) in bf16.  ``kvcache.share_new_rows``
+    with a stand-in for the all-gather (the second rank's packed rows after
+    the first's) is the counted path: one launch of the step scatter a call
+    and nothing else.  Then, on copies of the same pools, the per-layer loop
+    through the per-call scatter kernel (3 L device operations, 5 L int8)
+    and the plain version: every pool bit-equal; the device operations of a
+    call of each (a CUDA graph's nodes) and of the send side's pack; device
+    times (L2 flushed, median, the sleep before each call four times its
+    enqueue) of the kernel, the loop, the plain version (three runs) and
+    one ``index_put_`` a leaf, beside the byte bound; the host wall time of
+    a call of each.  Returns (counts over the counted calls, llama bf16's
+    record)."""
+    from repro_torch.serve import kvcache as KV
+
+    PA = mods["PA"]
+    total = dict.fromkeys(KERNELS, 0)
+    record = None
+    for arch, quant in SCATTER_STEP_CASES:
+        cfg, blocks, layers, ranks, pos, table = scatter_step_case(torch, arch, quant)
+        what = f"{arch} ({len(layers)} layers, {'int8' if quant else 'bf16'} pages)"
+        require(len(layers) == cfg.n_layers and layers[0]["k_pages"].dtype
+                == (torch.int8 if quant else torch.bfloat16), what)
+        leaves = step_leaves(layers)
+        loop_leaves = [[t.clone() for t in pools] for pools in leaves]
+        plain_leaves = [[t.clone() for t in pools] for pools in leaves]
+        others = KV.pack_new_rows(ranks[1])
+        torch.cuda.synchronize()
+        reset(mods)
+        for _ in range(SCATTER_STEP_CALLS):
+            KV.share_new_rows(cfg, blocks, ranks[0], pos, table, GatherOfRanks(torch, others))
+        torch.cuda.synchronize()
+        counts = counts_of(mods)
+        want = dict(dict.fromkeys(KERNELS, 0), paged_scatter_step=SCATTER_STEP_CALLS)
+        require(counts == want, f"{what}: share_new_rows launches {counts}, want {want}")
+        for k in total:
+            total[k] += counts[k]
+
+        whole = torch.cat([KV.pack_new_rows(ranks[0]), others])
+        page_idx, off = KV.write_slots(pos, table, 16)
+        reset(mods)
+        per_layer_loop(PA, whole, loop_leaves, page_idx, off)
+        loop_counts = counts_of(mods)
+        require(loop_counts == dict(dict.fromkeys(KERNELS, 0), paged_scatter=len(layers)),
+                f"{what}: the loop's launches {loop_counts}")
+        PA.paged_scatter_step_plain(whole, plain_leaves, page_idx, off)
+        torch.cuda.synchronize()
+        for got, loop, plain in zip(leaves, loop_leaves, plain_leaves):
+            for a, b, c in zip(got, loop, plain):
+                require(torch.equal(a, c) and torch.equal(b, c), f"{what}: pools differ")
+        dest = {(int(p), int(o)) for p, o in zip(page_idx.tolist(), off.tolist())}
+        require(len(dest) == 6 and (0, 0) in dest, f"{what}: destinations {sorted(dest)}")
+        require(torch.equal(leaves[0][0][int(page_idx[1]), int(off[1])], ranks[1][0][0][2]),
+                f"{what}: the last row aimed at a place did not win")
+        log(f"kernel ok: paged_scatter_step {what}, 8 rows of {whole.shape[1]} bytes from "
+            f"2 ranks: pools bit-equal to the per-layer loop and to plain; "
+            f"share_new_rows x{SCATTER_STEP_CALLS} launches {counts}")
+
+        kern = lambda: PA.paged_scatter_step(whole, leaves, page_idx, off)  # noqa: E731
+        loop = lambda: per_layer_loop(PA, whole, loop_leaves, page_idx, off)  # noqa: E731
+        plain = lambda: PA.paged_scatter_step_plain(  # noqa: E731
+            whole, plain_leaves, page_idx, off)
+        ops = {name: device_ops(torch, fn) for name, fn in (
+            ("kernel", kern), ("loop", loop),
+            ("send side", lambda: KV.pack_new_rows(ranks[0])))}
+        reset(mods)
+        require(len(ops["kernel"]) == 1, f"{what}: the kernel's device operations {ops['kernel']}")
+        per_leaf = 3 if not quant else 5
+        require(len(ops["loop"]) == per_leaf * len(layers),
+                f"{what}: the loop's device operations {len(ops['loop'])}, want "
+                f"{per_leaf} x {len(layers)}")
+        index_put = step_index_put(torch, whole, leaves, page_idx, off)
+        host = {name: host_call_ms(torch, fn) for name, fn in (
+            ("kernel", kern), ("loop", loop), ("plain", plain), ("index_put_", index_put))}
+        # the sleep covers four times a call's enqueue, so no device time
+        # below takes in the host's; plain's is taken three times, its spread
+        # shown
+        cover = {name: max(5.0, 4 * t) for name, t in host.items()}
+        plain_runs = sorted(time_ms(torch, plain, sleep_ms=cover["plain"]) for _ in range(3))
+        ms = {"kernel": time_ms(torch, kern, sleep_ms=cover["kernel"]),
+              "loop": time_ms(torch, loop, sleep_ms=cover["loop"]), "plain": plain_runs[1],
+              "index_put_": time_ms(torch, index_put, sleep_ms=cover["index_put_"])}
+        n, w = whole.shape
+        # the rows that win are read once and written once (a row a later
+        # row overwrites is not read), page_idx and off read once
+        b_ms, b_by = bound(2 * len(dest) * w + 2 * 4 * n, 0)
+        log(f"paged_scatter_step timing, {what}: one launch {ms['kernel']:.6f} ms, the per-layer "
+            f"loop ({len(ops['loop'])} device operations: {len(layers)} scatters and "
+            f"{len(ops['loop']) - len(layers)} copies) {ms['loop']:.6f} ms "
+            f"({ms['loop'] / ms['kernel']:.2f} x), plain {ms['plain']:.6f} ms (3 runs "
+            f"{', '.join(f'{t:.6f}' for t in plain_runs)}), one index_put_ a leaf "
+            f"({sum(map(len, leaves))} calls) {ms['index_put_']:.6f} ms; bound {b_ms:.7f} ms "
+            f"({b_by}: {len(dest)} of {n} rows of {w} bytes read and written); host wall time a "
+            f"call (median, not synchronised): the kernel's wrapper {host['kernel']:.4f} ms, the "
+            f"loop {host['loop']:.4f} ms, plain {host['plain']:.4f} ms, index_put_ "
+            f"{host['index_put_']:.4f} ms; the send side's pack {len(ops['send side'])} device "
+            f"operation(s) {sorted(set(ops['send side']))}; the card: {card}")
+        if (arch, quant) == SCATTER_STEP_CASES[0]:
+            record = dict(max_abs_err=0.0, ms=ms["kernel"], plain_ms=ms["plain"], bound_ms=b_ms,
+                          bound_by=b_by, library_ms=ms["index_put_"])
+        del blocks, layers, leaves, loop_leaves, plain_leaves
+        torch.cuda.empty_cache()
+    log("paged_scatter_step record, llama3.2-1b bf16: " + json.dumps(record))
+    return total, record
+
+
+# --------------------------------------------------------------------------
 # serving, step checks, reduced models
 # --------------------------------------------------------------------------
 
@@ -1178,7 +1450,7 @@ def phase_serving(torch, mods, argv, want_dims, subscribers=()):
     # nonparametric norm (musicgen, olmo) are plain PyTorch, as the reference's XLA
     norms = (sum(1 if k == "ssm" else 2 for k in kinds) + 1) if cfg.norm == "rmsnorm" else 0
     want = dict(paged_attention_scatter=steps * kinds.count("attn"),
-                paged_attention=0, paged_scatter=0,
+                paged_attention=0, paged_scatter=0, paged_scatter_step=0,
                 flash_attention=joins * kinds.count("attn"),
                 rmsnorm=(joins + steps) * norms,
                 ssd_scan=joins * kinds.count("ssm"),
@@ -2135,6 +2407,7 @@ def serve_prefix(torch, mods, cfg, params, device, stream, temperature, with_cac
     n_attn = cfg.layer_kinds().count("attn")
     if kernel == "cuda":
         want = dict(paged_attention_scatter=ds * n_attn, paged_attention=0, paged_scatter=0,
+                    paged_scatter_step=0,
                     flash_attention=dj * n_attn, rmsnorm=(dj + ds) * (2 * cfg.n_layers + 1),
                     ssd_scan=0, rglru_scan=0)
         require(counts == want, f"prefix path launches {counts}, want {want}")
@@ -2634,6 +2907,7 @@ def check_fleet_launches(engines, counts) -> None:
     joins = sum(e.n_joins for e in engines)
     steps = sum(e.n_decode_steps for e in engines)
     want = dict(paged_attention_scatter=steps * n_attn, paged_attention=0, paged_scatter=0,
+                paged_scatter_step=0,
                 flash_attention=joins * n_attn, rmsnorm=(joins + steps) * (2 * cfg.n_layers + 1),
                 ssd_scan=0, rglru_scan=0)
     require(counts == want, f"fleet launches {counts}, want {want}")
@@ -3720,6 +3994,7 @@ def main() -> int:
     ops_counts, ops_records = phase_ops(torch, mods)
     timing.update(ops_records)
     phase_sampling(torch)
+    step_counts, timing["paged_scatter_step"] = phase_scatter_step(torch, mods, card)
 
     rng = np.random.default_rng(7)
     # llama3.2-1b and recurrentgemma-2b serve at the reference's default
@@ -3779,8 +4054,9 @@ def main() -> int:
     # paged kernels, mamba2's for RMSNorm and the SSD scan, recurrentgemma's
     # for the rest
     paths = dict(paged_attention_scatter=rg_counts, paged_attention=ops_counts,
-                 paged_scatter=ops_counts, flash_attention=rg_counts, rmsnorm=mamba_counts,
-                 ssd_scan=mamba_counts, rglru_scan=rg_counts)
+                 paged_scatter=ops_counts, paged_scatter_step=step_counts,
+                 flash_attention=rg_counts, rmsnorm=mamba_counts, ssd_scan=mamba_counts,
+                 rglru_scan=rg_counts)
     require(all(paths[k][k] > 0 for k in KERNELS), paths)
     phase_collectives(torch, card)
     torch.cuda.empty_cache()
@@ -3815,6 +4091,7 @@ def main() -> int:
         + "; on the mamba2-130m path " + json.dumps(mamba_counts)
         + "; on the granite-moe-3b-a800m path " + json.dumps(granite_counts)
         + "; on the kernels.ops path " + json.dumps(ops_counts)
+        + "; on the data-split step's write (share_new_rows) " + json.dumps(step_counts)
         + "; on the fleet's (flash crowd, session reuse) "
         + json.dumps({name: run["counts"] for name, run in fleet.items()}))
     log("launches on the other families' paths " + json.dumps(family_counts))

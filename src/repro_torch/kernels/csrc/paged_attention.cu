@@ -81,6 +81,33 @@
 // is written only if no later slot has the same destination, which makes
 // the result the sequential grid's, bit for bit.
 //
+// The data-split step's scatter (`paged_scatter_step_kernel`, the redesign of
+// `paged_scatter_pallas` for the step whose slots are split over data ranks):
+// once a step every rank all-gathers every attention layer's new rows as
+// one (N, W) byte buffer, N the whole batch's slots, a row holding each
+// layer's K, V (and int8 scale) rows in turn.  One launch writes all of them
+// into every layer's pools, straight from the buffer.  A table of one entry
+// per (layer, leaf) (the pool, the leaf's byte offset in a buffer row, its
+// row width in bytes; 16 bytes an entry) goes to the kernel by value, in
+// its parameters: at most kMaxStepLeaves entries, which keeps the
+// parameters under the 4 KB every CUDA version takes and holds every
+// configuration's layers (mixtral-8x22b in int8: 56 layers of 4 leaves), so
+// nothing is uploaded or cached.  The kernel moves N * W bytes in and at most as many out, a few hundred KB at
+// full width: it is bound by its launch, so the design cuts launches (one a
+// step where the per-layer write took L scatters and 2-4 L copies of the
+// buffer's slices) and then keeps every byte in flight at once: the grid is
+// (row chunks, table entries), each thread one 16-byte vector (where the
+// addresses, offsets and widths allow; else 8, 4, 2 or 1 bytes) of one row
+// of one leaf.
+// The last of several rows with one destination wins, by a pre-pass: each
+// block first marks, for every row, whether a later row has its (page,
+// offset), and copies only the unmarked rows.  That is the per-call
+// scatter's rule, so both leave the sequential grid's bits, and it keeps
+// every row independent; the other way, one thread walking all rows of a
+// lane chunk in slot order, would put the B rows' stores of a lane one after
+// another.  The pre-pass reads page_idx and off (B ints each) and does B^2/2
+// compares, nothing beside the copy at decode batch sizes.
+//
 // The page ids and positions live on the device, where the wrapper cannot
 // check them without a synchronisation: a block that finds one out of range
 // traps (a device-side assert, as PyTorch's own indexing kernels raise)
@@ -306,6 +333,78 @@ __global__ void paged_scatter_kernel(Args a) {
   for (int later = b + 1; later < a.bsz; ++later)
     if (a.page_idx[later] == a.page_idx[b] && a.off[later] == a.off[b]) return;
   write_row<PageT, kQuant>(a, b, blockIdx.y, a.page_idx[b], a.off[b], threadIdx.x, blockDim.x);
+}
+
+// One entry of the step scatter's table: one pool leaf of one attention layer.
+struct StepLeaf {
+  unsigned long long pool;  // the (P, page, ...) pool's address; a row of `bytes` a (page, offset)
+  unsigned col;             // the leaf's byte offset in a row of the gathered buffer
+  unsigned bytes;           // the bytes of one row
+};
+
+constexpr int kMaxStepLeaves = 240;  // 3840 bytes of table: the parameters stay under 4 KB
+
+struct StepTable {
+  StepLeaf leaf[kMaxStepLeaves];
+};
+
+// The bytes a thread moves at once for a leaf: the widest of 16, 8, 4, 2, 1
+// that divides the pool's and the buffer's addresses, the buffer's row, the
+// leaf's offset in it and its width.
+__host__ __device__ __forceinline__ int step_vec(const StepLeaf& lf, const void* whole,
+                                                 long long width) {
+  const unsigned long long x = lf.pool | reinterpret_cast<unsigned long long>(whole) |
+                               static_cast<unsigned long long>(width) | lf.col | lf.bytes | 16;
+  return static_cast<int>(x & (~x + 1));
+}
+
+template <typename V>
+__device__ __forceinline__ void copy_vec(unsigned char* dst, const unsigned char* src) {
+  *reinterpret_cast<V*>(dst) = *reinterpret_cast<const V*>(src);
+}
+
+// grid (row chunks, table entries); block kScatterThreads; dynamic shared
+// memory one long long a row.  Item i of entry e is vector i % per_row of
+// row i / per_row (the launch keeps rows * per_row within an int); a row
+// whose (page, offset) a later row also has is skipped, so the last wins.
+__global__ void paged_scatter_step_kernel(const unsigned char* __restrict__ whole,
+                                          const __grid_constant__ StepTable table,
+                                          const int* __restrict__ page_idx,
+                                          const int* __restrict__ off, int rows, long long width,
+                                          int n_pages, int page) {
+  extern __shared__ long long dest[];  // a row's place in the pools' rows, or -1: a later row wins
+  for (int r = threadIdx.x; r < rows; r += blockDim.x) {
+    const int pw = page_idx[r], ow = off[r];
+    if (pw < 0 || pw >= n_pages || ow < 0 || ow >= page) __trap();
+    long long d = static_cast<long long>(pw) * page + ow;
+    for (int later = r + 1; later < rows; ++later)
+      if (page_idx[later] == pw && off[later] == ow) {
+        d = -1;
+        break;
+      }
+    dest[r] = d;
+  }
+  __syncthreads();
+  const StepLeaf& lf = table.leaf[blockIdx.y];
+  const int vec = step_vec(lf, whole, width);
+  const int per_row = static_cast<int>(lf.bytes) / vec;
+  const int items = rows * per_row;
+  unsigned char* pool = reinterpret_cast<unsigned char*>(lf.pool);
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < items; i += gridDim.x * blockDim.x) {
+    const int r = i / per_row;
+    const long long at = static_cast<long long>(i - r * per_row) * vec;
+    const long long d = dest[r];
+    if (d < 0) continue;
+    const unsigned char* src = whole + static_cast<long long>(r) * width + lf.col + at;
+    unsigned char* dst = pool + d * lf.bytes + at;
+    switch (vec) {
+      case 16: copy_vec<uint4>(dst, src); break;
+      case 8: copy_vec<uint2>(dst, src); break;
+      case 4: copy_vec<unsigned>(dst, src); break;
+      case 2: copy_vec<unsigned short>(dst, src); break;
+      default: *dst = *src;
+    }
+  }
 }
 
 __device__ __forceinline__ int table_entry(const Args& a, int b, int j) {
@@ -847,6 +946,32 @@ extern "C" int repro_paged_scatter(int page_kind, const void* k_new, const void*
   if (page_kind == 1) return launch_scatter<__nv_bfloat16, false>(a, s);
   if (page_kind == 2) return launch_scatter<int8_t, true>(a, s);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The data-split step's scatter: the (rows, width) byte buffer `whole` into
+// the pools of the `n_leaves` StepLeafs at host address `leaves`, each row
+// to (page_idx[r], off[r]); of several rows with one destination the last
+// wins.  The table is copied into the launch's parameters.
+extern "C" int repro_paged_scatter_step(const void* whole, const void* leaves, int n_leaves,
+                                        const int* page_idx, const int* off, int rows,
+                                        long long width, int n_pages, int page, void* stream) {
+  if (rows < 1 || n_leaves < 1 || n_leaves > kMaxStepLeaves ||
+      static_cast<size_t>(rows) * sizeof(long long) > kDefaultShared)
+    return static_cast<int>(cudaErrorInvalidValue);
+  StepTable table;
+  long long max_per_row = 1;
+  for (int e = 0; e < n_leaves; ++e) {
+    table.leaf[e] = static_cast<const StepLeaf*>(leaves)[e];
+    const long long per_row = table.leaf[e].bytes / step_vec(table.leaf[e], whole, width);
+    if (per_row > max_per_row) max_per_row = per_row;
+  }
+  if (rows * max_per_row >= (1LL << 31) - kScatterThreads)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int blocks = static_cast<int>((rows * max_per_row + kScatterThreads - 1) / kScatterThreads);
+  paged_scatter_step_kernel<<<dim3(blocks, n_leaves), kScatterThreads,
+                              rows * sizeof(long long), static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const unsigned char*>(whole), table, page_idx, off, rows, width, n_pages, page);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // The attention block's dynamic shared memory, in bytes, for runs of `run`

@@ -11,6 +11,11 @@ The port of the three TPU kernels of ``repro.kernels.paged_attention``:
 * :func:`paged_scatter` (``paged_scatter_pallas``): the write alone, into 2
   or 4 pools.  Of several rows with one destination the last wins, as on
   the TPU's sequential grid.
+* :func:`paged_scatter_step`: ``paged_scatter_pallas`` redesigned for the
+  decode step whose slots are split over data ranks: every attention
+  layer's gathered rows, one byte buffer, written into every layer's pools
+  in one launch (the per-layer loop, :func:`paged_scatter_step_plain`, is
+  its plain version).
 
 The reference reaches the last two through ``repro.kernels.ops`` (ported as
 :mod:`repro_torch.kernels.ops`) and holds the fused step bit-equal to
@@ -29,7 +34,8 @@ bit-equal and two launches on the same inputs give the same bits.
 Each wrapper launches its kernel for CUDA tensors (built for ``sm_90a`` on
 first use) or raises, and takes its plain version only for tensors that lie
 on the CPU; each counts its launches (:data:`launches` for the fused step,
-:data:`attention_launches`, :data:`scatter_launches`), one per call: with
+:data:`attention_launches`, :data:`scatter_launches`,
+:data:`scatter_step_launches`), one per call: with
 S > 1 an attention call is two CUDA launches on one stream, the walk and
 the combine, and counts once.  The plain versions
 are copies of the reference's XLA branch (``repro/serve/kvcache.py``:
@@ -48,6 +54,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+import struct
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -64,6 +71,7 @@ _Q_KINDS = {torch.float32: 0, torch.bfloat16: 1}
 launches = 0                  # the fused step
 attention_launches = 0
 scatter_launches = 0
+scatter_step_launches = 0
 
 
 # --------------------------------------------------------------------------
@@ -84,6 +92,50 @@ def paged_scatter_plain(pages: Sequence[torch.Tensor], new_rows: Sequence[torch.
     for pool, rows in zip(pages, new_rows):
         pool[pi, of] = rows[last]
     return tuple(pages)
+
+
+def step_row_bytes(pools: Sequence[torch.Tensor]) -> list:
+    """The bytes of one row of each (P, page, ...) pool: the row at one
+    (page, offset), which is a leaf's stretch of a gathered buffer row."""
+    return [math.prod(pool.shape[2:]) * pool.element_size() for pool in pools]
+
+
+def step_widths(whole: torch.Tensor, layers: Sequence[Sequence[torch.Tensor]]) -> list:
+    """Each layer's pools' row bytes (:func:`step_row_bytes`), checked to
+    add up to a row of the gathered buffer ``whole``."""
+    widths = [step_row_bytes(pools) for pools in layers]
+    if sum(map(sum, widths)) != whole.shape[1]:
+        _fail("paged_scatter_step", f"rows of {whole.shape[1]} bytes for pools whose rows "
+                                    f"take {sum(map(sum, widths))}")
+    return widths
+
+
+def step_rows(whole: torch.Tensor, layers: Sequence[Sequence[torch.Tensor]]) -> list:
+    """Each layer's rows, copied out of the data-split step's gathered
+    buffer.  ``whole``: (N, W) uint8, every attention layer's rows of the N
+    slots as bytes: for each layer of ``layers`` in turn, its pools' rows
+    (K, V, then the int8 pages' K and V scales), each as wide as one row of
+    its pool, W their sum.  Returns, for each layer, its (N, ...) rows in
+    the pools' dtypes."""
+    out, at = [], 0
+    for pools, row_bytes in zip(layers, step_widths(whole, layers)):
+        rows = []
+        for pool, width in zip(pools, row_bytes):
+            rows.append(whole[:, at:at + width].contiguous().view(pool.dtype)
+                        .reshape((whole.shape[0],) + tuple(pool.shape[2:])))
+            at += width
+        out.append(rows)
+    return out
+
+
+def paged_scatter_step_plain(whole: torch.Tensor, layers: Sequence[Sequence[torch.Tensor]],
+                             page_idx: torch.Tensor, off: torch.Tensor) -> None:
+    """The data-split step's write, layer by layer: each layer's rows
+    (:func:`step_rows`) written with :func:`paged_scatter_plain`.
+    page_idx/off: (N,) int32 destinations.  The pools are written in place;
+    of several rows with one destination the last wins."""
+    for pools, rows in zip(layers, step_rows(whole, layers)):
+        paged_scatter_plain(pools, rows, page_idx, off)
 
 
 def paged_attention_plain(
@@ -207,8 +259,9 @@ def build() -> ctypes.CDLL:
     lib.repro_paged_attention_scatter.argtypes = [i, i] + [p] * 15 + [i] * 10 + [f, p]
     lib.repro_paged_attention.argtypes = [i, i] + [p] * 9 + [i] * 10 + [f, p]
     lib.repro_paged_scatter.argtypes = [i] + [p] * 10 + [i] * 5 + [p]
+    lib.repro_paged_scatter_step.argtypes = [p, p, i, p, p, i, ctypes.c_longlong, i, i, p]
     for fn in (lib.repro_paged_attention_scatter, lib.repro_paged_attention,
-               lib.repro_paged_scatter):
+               lib.repro_paged_scatter, lib.repro_paged_scatter_step):
         fn.restype = i
     lib.repro_paged_attention_shared_bytes.argtypes = [i] * 5
     lib.repro_paged_attention_shared_bytes.restype = ctypes.c_size_t
@@ -444,3 +497,74 @@ def paged_scatter(pages: Sequence[torch.Tensor], new_rows: Sequence[torch.Tensor
     global scatter_launches
     scatter_launches += 1
     return tuple(pages)
+
+
+STEP_MAX_ROWS = 6144          # the step scatter keeps a row's destination in 48 KB of shared memory
+STEP_MAX_LEAVES = 240         # its table rides in the launch's parameters (csrc: kMaxStepLeaves)
+
+
+def _step_table(fn: str, whole: torch.Tensor, layers) -> bytes:
+    """The table of :func:`paged_scatter_step`, as the kernel's ``StepLeaf``
+    array: for each pool, its address, its byte offset in a buffer row and
+    its row bytes (uint64, uint32, uint32), made in one pass that also
+    checks each layer's pools (:func:`_check_pools`, on ``whole``'s device,
+    contiguous, of the first layer's pages and page size) and that their
+    rows fill a buffer row.  The C entry copies it into the launch's
+    parameters, so it is made on the host every call and never uploaded."""
+    device, (n_pages, page) = whole.device, layers[0][0].shape[:2]
+    flat, at = [], 0
+    for leaves in layers:
+        if len(leaves) not in (2, 4):
+            _fail(fn, f"a layer needs 2 or 4 pools, got {len(leaves)}")
+        _check_pools(fn, *leaves, *(None, None)[:4 - len(leaves)])
+        for pool in leaves:
+            if pool.device != device or not pool.is_contiguous():
+                _fail(fn, f"a pool on {pool.device} or not contiguous, the buffer on {device}")
+            shape = pool.shape
+            if shape[0] != n_pages or shape[1] != page:
+                _fail(fn, "the layers' pools differ in pages or page size")
+            width = pool.nbytes // (n_pages * page)
+            flat += (pool.data_ptr(), at, width)
+            at += width
+    if at != whole.shape[1]:
+        _fail(fn, f"rows of {whole.shape[1]} bytes for pools whose rows take {at}")
+    return struct.pack("<" + "QII" * (len(flat) // 3), *flat)
+
+
+def paged_scatter_step(whole: torch.Tensor, layers: Sequence[Sequence[torch.Tensor]],
+                       page_idx: torch.Tensor, off: torch.Tensor) -> None:
+    """The data-split decode step's write: every attention layer's rows of
+    the whole batch, gathered as one (N, W) uint8 buffer, into every
+    layer's pools, in place.  ``layers``: each attention layer's pools,
+    (k_pages, v_pages) or, for int8 pages, (k_pages, v_pages,
+    k_scale_pages, v_scale_pages); the buffer's layout is
+    :func:`step_rows`'s.  page_idx/off: (N,) int32 destinations; of
+    several rows with one destination the last wins.  CUDA tensors go to
+    one launch of the kernel (on the current stream, not synchronised),
+    CPU tensors to the plain version; anything else raises."""
+    fn = "paged_scatter_step"
+    if whole.device.type == "cpu":
+        return paged_scatter_step_plain(whole, layers, page_idx, off)
+    pools = [pool for leaves in layers for pool in leaves]
+    _build.refuse_autograd(fn, "paged_scatter_step_plain", *pools)
+    _on_cuda(fn, whole)
+    if not layers:
+        _fail(fn, "no attention layer")
+    if len(pools) > STEP_MAX_LEAVES:
+        _fail(fn, f"{len(pools)} pools, more than {STEP_MAX_LEAVES}")
+    _check_placed(fn, whole.device, whole=whole, page_idx=page_idx, off=off)
+    if whole.dtype != torch.uint8 or whole.dim() != 2:
+        _fail(fn, f"whole must be (N, W) uint8, got {tuple(whole.shape)} {whole.dtype}")
+    n = whole.shape[0]
+    if not 1 <= n <= STEP_MAX_ROWS:
+        _fail(fn, f"{n} rows, not in [1, {STEP_MAX_ROWS}]")
+    _check_int32(fn, n, page_idx=page_idx, off=off)
+    table = _step_table(fn, whole, layers)
+    lib = build()
+    n_pages, page = layers[0][0].shape[:2]
+    rc = lib.repro_paged_scatter_step(
+        _ptr(whole), table, len(pools), _ptr(page_idx), _ptr(off), n, whole.shape[1], n_pages,
+        page, _stream(whole))
+    _build.check(lib, rc, fn)
+    global scatter_step_launches
+    scatter_step_launches += 1

@@ -24,8 +24,9 @@ Ported from ``repro.serve.kvcache``:
   ranks (:func:`repro_torch.dist.sharding.slot_split`), each rank's decode
   step writes its own slots' new rows; once a step every rank's rows of
   every attention layer are gathered, in one collective, and written into
-  each rank's pages in slot order (:func:`repro_torch.kernels.ops.paged_scatter`),
-  so that every rank's replicated pages stay those of one engine over the
+  each rank's pages in slot order, every layer in one launch
+  (:func:`repro_torch.kernels.paged_attention.paged_scatter_step`), so
+  that every rank's replicated pages stay those of one engine over the
   whole batch: a page one rank's slot writes may later be read by another
   rank's (the prefix cache shares pages across slots).
 * :func:`make_clone_pages` — the prefix cache's copy-on-write page clone:
@@ -41,7 +42,6 @@ from typing import Any, Callable, Dict, List, Optional
 import torch
 
 from repro_torch.device import is_dtensor, resolve_device, resolve_kernel
-from repro_torch.kernels import ops
 from repro_torch.kernels import paged_attention as PA
 from repro_torch.models import layers as L
 from repro_torch.models.transformer import check_supported, init_recurrent_state
@@ -191,6 +191,15 @@ def _attend_on_shards(attend, args):
 PAGE_LEAVES = ("k_pages", "v_pages", "k_scale_pages", "v_scale_pages")
 
 
+def pack_new_rows(new_rows: List[tuple]) -> torch.Tensor:
+    """One rank's new rows of every attention layer (``new_rows`` as
+    :func:`share_new_rows` takes them) as one (b, W) uint8 buffer, a row
+    holding each layer's K, V (and scale) rows in turn as bytes: the layout
+    :func:`repro_torch.kernels.paged_attention.paged_scatter_step` reads."""
+    return torch.cat([t.reshape(t.shape[0], -1).contiguous().view(torch.uint8)
+                      for rows in new_rows for t in rows], dim=1)
+
+
 def share_new_rows(cfg, blocks, new_rows: List[tuple], pos: torch.Tensor,
                    table: torch.Tensor, split) -> Params:
     """Every data rank's new rows of one decode step into this rank's pages.
@@ -200,32 +209,21 @@ def share_new_rows(cfg, blocks, new_rows: List[tuple], pos: torch.Tensor,
     ``new_rows``); ``pos`` (B,) and ``table`` (B, M) are the whole batch's,
     as the step had them.  All layers' rows go in one all-gather over the
     data group (``split``, a :class:`~repro_torch.dist.sharding.SlotSplit`),
-    as bytes, and each layer's whole batch of rows is written in slot order
-    with :func:`repro_torch.kernels.ops.paged_scatter` (the last row aimed
-    at a place wins, as in one engine's step over the whole batch; a rank's
-    own rows land again with the same bits).  On a sharded pool the rows
-    are this rank's heads, and so are the pages written: the data group's
-    ranks share the model coordinate.  Nothing happens where the batch is
-    not split."""
+    as bytes, and every layer's whole batch of rows is written in slot
+    order straight from the gathered bytes, by one launch of
+    :func:`repro_torch.kernels.paged_attention.paged_scatter_step` on the
+    card (the last row aimed at a place wins, as in one engine's step over
+    the whole batch; a rank's own rows land again with the same bits).  On
+    a sharded pool the rows are this rank's heads, and so are the pages
+    written: the data group's ranks share the model coordinate.  Nothing
+    happens where the batch is not split."""
     if not split.split or not new_rows:
         return blocks
-    flat = [t.reshape(t.shape[0], -1).contiguous() for rows in new_rows for t in rows]
-    whole = split.gather(torch.cat([t.view(torch.uint8) for t in flat], dim=1))
+    whole = split.gather(pack_new_rows(new_rows))
     attn = [pb for kind, pb in zip(cfg.layer_kinds(), blocks["layers"]) if kind == "attn"]
     page_idx, off = write_slots(pos, table, attn[0]["k_pages"].shape[1])
-    at = 0
-    for rows, block in zip(new_rows, attn):
-        got = []
-        for t in rows:
-            width = t[0].numel() * t.element_size()
-            got.append(whole[:, at:at + width].contiguous().view(t.dtype)
-                       .reshape((whole.shape[0],) + tuple(t.shape[1:])))
-            at += width
-        pools = [_local(block[name]) for name in PAGE_LEAVES if name in block]
-        if len(pools) == 4:
-            ops.paged_scatter_quant(*pools, *got, page_idx, off)
-        else:
-            ops.paged_scatter(*pools, *got, page_idx, off)
+    PA.paged_scatter_step(whole, [[_local(block[name]) for name in PAGE_LEAVES if name in block]
+                                  for block in attn], page_idx, off)
     return blocks
 
 

@@ -4,7 +4,9 @@ Each kernel is held to its plain version on the same inputs (fp32 atol
 2e-5 / rtol 2e-4, bf16 3e-2; the SSD scan at the reference's SSD bar,
 2e-4 / 2e-3) and must refuse what it does not take.  The paged scatter is
 bit-equal to its plain version, and the fused paged step to the scatter
-kernel followed by the attention kernel.
+kernel followed by the attention kernel; the data-split step's one-launch
+scatter is bit-equal to its plain version and to the per-layer loop of
+scatter kernels, and raises, writing nothing, when it cannot build.
 
 Run them on a machine with one (an H100 for the ``sm_90a`` build):
 
@@ -529,6 +531,79 @@ def test_fused_kernel_is_scatter_then_attention_bit_for_bit(card, quant, window,
     assert torch.equal(out, want)
     for name in pool:
         assert torch.equal(fused[name], split[name]), name
+
+
+def step_scatter_case(card, page_dtype, hkv, d, n_layers=3, n_pages=9, page=4, seed=17):
+    """``n_layers`` attention layers' random pools and a gathered buffer of 6
+    rows (two ranks of 3) in ``paged_scatter_step``'s layout; rows 2 and 5
+    aim at the scratch row, row 4 at row 1's place."""
+    rng = np.random.default_rng(seed)
+    quant = page_dtype == torch.int8
+
+    def rand(*shape, scale=False):
+        if scale:
+            return torch.from_numpy(rng.uniform(0.005, 0.025, shape).astype(np.float32)).to(card)
+        if quant:
+            return torch.from_numpy(rng.integers(-127, 128, shape).astype(np.int8)).to(card)
+        return torch.from_numpy(rng.normal(0, 1, shape).astype(np.float32)).to(card, page_dtype)
+
+    layers, rows = [], []
+    for _ in range(n_layers):
+        pools = [rand(n_pages, page, hkv, d), rand(n_pages, page, hkv, d)]
+        new = [rand(6, hkv, d), rand(6, hkv, d)]
+        if quant:
+            pools += [rand(n_pages, page, hkv, scale=True), rand(n_pages, page, hkv, scale=True)]
+            new += [rand(6, hkv, scale=True), rand(6, hkv, scale=True)]
+        layers.append(pools)
+        rows += new
+    whole = torch.cat([t.reshape(6, -1).view(torch.uint8) for t in rows], dim=1)
+    page_idx = torch.tensor([2, 5, 0, 2, 5, 0], dtype=torch.int32, device=card)
+    off = torch.tensor([1, 1, 0, 2, 1, 0], dtype=torch.int32, device=card)
+    return whole, layers, rows, page_idx, off
+
+
+@pytest.mark.parametrize("page_dtype,hkv,d", [
+    (torch.bfloat16, 8, 64), (torch.int8, 8, 64), (torch.float32, 2, 3), (torch.int8, 1, 32),
+    (torch.bfloat16, 1, 3), (torch.int8, 1, 3)])
+def test_scatter_step_kernel_is_the_per_layer_loop_bit_for_bit(card, page_dtype, hkv, d):
+    """The data-split step's one-launch write against its plain version and
+    against the loop of per-layer scatter kernels, every pool bit for bit,
+    with rows that collide (the last wins) and rows of 16-, 8-, 4-, 2- and
+    1-byte vectors (llama's bf16 and int8 rows, then widths and scale rows
+    that 16 bytes do not divide)."""
+    whole, layers, rows, page_idx, off = step_scatter_case(card, page_dtype, hkv, d)
+    kern = [[t.clone() for t in pools] for pools in layers]
+    loop = [[t.clone() for t in pools] for pools in layers]
+    before = (PA.scatter_step_launches, PA.scatter_launches)
+    PA.paged_scatter_step(whole, kern, page_idx, off)
+    assert (PA.scatter_step_launches, PA.scatter_launches) == (before[0] + 1, before[1])
+    for pools, got in zip(loop, PA.step_rows(whole, loop)):
+        PA.paged_scatter(pools, got, page_idx, off)
+    assert PA.scatter_launches == before[1] + len(layers)
+    PA.paged_scatter_step_plain(whole, layers, page_idx, off)
+    torch.cuda.synchronize()
+    for k_pools, l_pools, p_pools in zip(kern, loop, layers):
+        for a, b, c in zip(k_pools, l_pools, p_pools):
+            assert torch.equal(a, c) and torch.equal(b, c)
+    assert torch.equal(kern[0][0][5, 1], rows[0][4]) and torch.equal(kern[0][0][0, 0], rows[0][5])
+
+
+def test_scatter_step_raises_when_the_kernel_cannot_build(card, monkeypatch):
+    """No fallback: where the library does not build, the data-split write
+    raises and the pools keep their bits (the per-layer loop never runs)."""
+    whole, layers, _, page_idx, off = step_scatter_case(card, torch.bfloat16, 8, 64)
+    before = [[t.clone() for t in pools] for pools in layers]
+
+    def broken():
+        raise RuntimeError("nvcc failed on csrc/paged_attention.cu")
+
+    monkeypatch.setattr(PA, "build", broken)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        PA.paged_scatter_step(whole, layers, page_idx, off)
+    torch.cuda.synchronize()
+    for pools, kept in zip(layers, before):
+        for a, b in zip(pools, kept):
+            assert torch.equal(a, b)
 
 
 def test_mamba2_engine_launches_ssd_and_rmsnorm_by_default(card):

@@ -40,4 +40,7 @@ def wrapper_calls(device, requires_grad):
         "paged_scatter": lambda: PA.paged_scatter(
             (f(5, page, hkv, d), f(5, page, hkv, d)), (f(b, hkv, d), f(b, hkv, d)),
             i32(2, 4), i32(1, 2)),
+        "paged_scatter_step": lambda: PA.paged_scatter_step(
+            torch.zeros(b, 2 * hkv * d * 4, dtype=torch.uint8, device=device),
+            [(f(5, page, hkv, d), f(5, page, hkv, d))], i32(2, 4), i32(1, 2)),
     }
