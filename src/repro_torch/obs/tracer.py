@@ -16,7 +16,9 @@ renders the Chrome trace-event flavor Perfetto loads natively:
   ("C"): ``theta_us[site]`` from tuner decisions and anything the driver
   samples onto the ``governor`` track (cumulative slack, saving %).
 * pid 3 ``serve`` — batch ``join``/``evict`` instants from the continuous
-  engine.
+  engine, and its serving loop's complete spans (``span``): the loop's on
+  thread 0 (``loop``), the requests' ``queue`` waits, which overlap, on a
+  pool of ``queue`` lanes, a lane reused once its last wait has ended.
 * pid 4 ``arbiter`` — per-job watt-grant counter tracks.
 * pid 5 ``slo`` — TTFT/TPOT percentile counter tracks.
 
@@ -45,6 +47,7 @@ run against produced artifacts.
 from __future__ import annotations
 
 import collections
+import heapq
 import json
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -219,9 +222,10 @@ class SpanTracer:
     The capture side is an :class:`~repro_torch.core.events.EventBus` subscriber
     (``on_event``/``on_phase``) plus the governor-output hooks
     (``on_actuation``/``on_theta`` — wire via :class:`GovernorTap`), the
-    serve hook (``serve_event``), and a generic counter sampler
-    (``sample``).  Everything lands in one bounded ring; ``n_dropped``
-    reports evictions exactly like the trace recorder.
+    serve hooks (``serve_event`` for instants, ``span`` for the serving
+    loop's complete spans), and a generic counter sampler (``sample``).
+    Everything lands in one bounded ring; ``n_dropped`` reports evictions
+    exactly like the trace recorder.
     """
 
     def __init__(self, capacity: int = 1_000_000,
@@ -293,6 +297,15 @@ class SpanTracer:
         self.n_seen += 1
         self._append(("serve", kind, t, rid, slot))
 
+    def span(self, name: str, t0: float, t1: float, rid: Optional[int], n: int) -> None:
+        """One complete span of the serving loop, ``t0`` to ``t1``: ``rid``
+        is the request it belongs to (None for the loop's own), ``n`` the
+        count its work is measured against (active slots for a decode step,
+        prompt tokens for a join).  A span nests in those that hold it in
+        time."""
+        self.n_seen += 1
+        self._append(("span", name, t0, t1, rid, n))
+
     def sample(self, track: str, name: str, t: float, value: float) -> None:
         """One counter sample on a named track (``governor`` | ``arbiter``
         | ``slo``): watt grants, cumulative slack, SLO percentiles, ..."""
@@ -308,7 +321,7 @@ class SpanTracer:
         t0 = None
         for rec in self._raw:
             kind = rec[0]
-            if kind == "ev" or kind == "serve":
+            if kind == "ev" or kind == "serve" or kind == "span":
                 t = rec[4] if kind == "ev" else rec[2]
             elif kind == "ph":
                 t = rec[1].t_enter
@@ -354,6 +367,23 @@ class SpanTracer:
         events: List[Dict[str, Any]] = []
         tracks_used = set()
         ranks_seen = set()
+        # the queue waits of requests due together overlap: each goes on
+        # the lowest lane free at its start (lane k is thread 1 + k)
+        lane_of: Dict[int, int] = {}
+        busy: List[Tuple[float, int]] = []     # (end, lane) of the open waits
+        free: List[int] = []
+        n_lanes = 0
+        for rec in sorted((r for r in self._raw if r[0] == "span" and r[1] == "queue"),
+                          key=lambda r: (r[2], r[3])):
+            while busy and busy[0][0] <= rec[2]:
+                heapq.heappush(free, heapq.heappop(busy)[1])
+            if free:
+                lane = heapq.heappop(free)
+            else:
+                lane, n_lanes = n_lanes, n_lanes + 1
+            lane_of[id(rec)] = lane
+            heapq.heappush(busy, (rec[3], lane))
+        serve_spans = False
 
         def span(rank: int, name: str, ts: float, te: float,
                  args: Dict[str, Any]) -> None:
@@ -474,6 +504,14 @@ class SpanTracer:
                 events.append({"ph": "i", "pid": PID_SERVE, "tid": 0,
                                "name": skind, "cat": "serve", "ts": us(t),
                                "s": "t", "args": {"rid": rid, "slot": slot}})
+            elif kind == "span":
+                _, name, ts, te, rid, n = rec
+                tracks_used.add("serve")
+                serve_spans = True
+                events.append({"ph": "X", "pid": PID_SERVE, "tid": 1 + lane_of.get(id(rec), -1),
+                               "name": name, "cat": "serve", "ts": us(ts),
+                               "dur": round(max(te - ts, 0.0) * 1e6, 3),
+                               "args": {"rid": rid, "n": n}})
             elif kind == "ctr":
                 _, track, t, name, value = rec
                 pid = TRACK_PIDS.get(track)
@@ -492,10 +530,17 @@ class SpanTracer:
             meta_events.append({"ph": "M", "pid": PID_RANKS, "tid": int(rank),
                                 "name": "thread_name",
                                 "args": {"name": f"rank {rank}"}})
+        if serve_spans:
+            for tid, name in enumerate(["loop"] + [f"queue {k}" for k in range(n_lanes)]):
+                meta_events.append({"ph": "M", "pid": PID_SERVE, "tid": tid,
+                                    "name": "thread_name", "args": {"name": name}})
         # deterministic ordering: stable sort on the event identity tuple —
-        # identical captures serialize to identical bytes (golden fixture)
+        # identical captures serialize to identical bytes (golden fixture);
+        # a serve span that starts with the span holding it follows it
+        # (longer first), so that Perfetto nests it there
         events.sort(key=lambda e: (e["ts"], e["pid"], e["tid"], e["ph"],
-                                   e["name"]))
+                                   -e["dur"] if e["pid"] == PID_SERVE and e["ph"] == "X"
+                                   else 0.0, e["name"]))
         other = dict(self.meta)
         other["n_dropped"] = self.n_dropped
         return {"displayTimeUnit": "ms",

@@ -6,8 +6,9 @@
 ``scheduler``  copied: arrival queue, page-bounded admission, Poisson traces.
 ``slack``      copied: decode underfill and idle gaps as governor phases.
 ``slo``        copied: TTFT/TPOT percentiles and the concurrency cap.
-``engine``     :class:`ContinuousEngine` (with prefix-cache joins and the
-               tracer's join/evict instants), :class:`EngineSession` and
+``engine``     :class:`ContinuousEngine` (with prefix-cache joins, the
+               tracer's join/evict instants and the serving loop's spans),
+               :class:`EngineSession` and
                the legacy :class:`ServeEngine` and :func:`make_serve_steps`.
 ``fleet``      copied: multi-replica serving, the prefix-cache-aware
                router, SLO autoscaler, watt arbitration, scenarios, the

@@ -37,7 +37,21 @@ decode step as *forced* tokens; a retiring request's pages join the trie.
 ``tracer`` (a :class:`~repro_torch.obs.tracer.SpanTracer`) receives the
 ``join`` and ``evict`` instants, stamped on ``time.monotonic`` as the
 decode phases are (the reference stamps them on the session's clock, so
-its trace puts them apart from the phases; ROADMAP.md, queue 3).
+its trace puts them apart from the phases; ROADMAP.md, queue 3).  A
+tracer with a ``span`` hook also receives the serving loop's spans, on
+the same clock: each decode ``step`` tiled by ``prepare`` (page growth),
+``dispatch`` (the host enqueues the step; the device's time too where the
+launch queue fills or the step syncs), ``device_wait`` (until the device
+is done), ``publish`` (the slack meter's bus and governor), ``sample``
+(the draw and the tokens' copy to the host) and ``bookkeep`` (the token
+loop); each ``admit`` that joins, holding a ``join`` a request
+(``join_dispatch``: until the prefill is enqueued, ``join_wait``: the
+pages' copy, which waits for the prefill, the pool scatter and the draw,
+until its first token is on the host); and each request's ``queue`` wait,
+from when it was due to its join.  Spans nest by time; the metered idle
+gaps are the slack meter's phases.  A span cut by an exception is
+dropped.  Without the hook, or without a tracer, each site costs one
+``None`` check.
 
 On a ``(data, model)`` mesh (``serve_mesh``) an engine splits its slots
 over the data ranks, as the reference's batch constraint does under XLA:
@@ -290,8 +304,9 @@ class ContinuousEngine:
     and counted in its positions; one without is refused when submitted.
     ``device`` is ``cuda`` unless the caller names another; the params
     must already be there.  ``tracer`` (duck-typed: ``.serve_event``) gets
-    each join and evict instant; ``prefix_cache`` is attached by
-    :meth:`enable_prefix_cache`.  ``serve_mesh``, a ``(data, model)``
+    each join and evict instant and, where its ``span`` hook is not None,
+    the serving loop's spans (module docstring); ``prefix_cache`` is
+    attached by :meth:`enable_prefix_cache`.  ``serve_mesh``, a ``(data, model)``
     mesh whose :func:`~repro_torch.dist.sharding.replica_mesh` holds the
     params, splits the slots over the data ranks (``split``) and gives the
     sessions its first rank's clock.
@@ -368,11 +383,14 @@ class ContinuousEngine:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
 
     # ---- request lifecycle ----------------------------------------------
-    def _join_request(self, req: Request) -> None:
+    def _join_request(self, req: Request, stamp: bool = False) -> Optional[float]:
+        """Prefill ``req`` into its slot and draw its first token.  With
+        ``stamp``, returns the ``time.monotonic`` instant at which the
+        prefill was enqueued (a prefix join's clone): before the pages'
+        copy, which waits for the device."""
         m = req.prefix_match
         if m is not None and m.n_tokens > 0:
-            self._join_via_prefix(req)
-            return
+            return self._join_via_prefix(req, stamp)
         cfg = self.cfg
         prompt = np.asarray(req.prompt, np.int32)
         total = len(prompt) + cfg.n_prefix
@@ -389,6 +407,7 @@ class ContinuousEngine:
         cache = _sharded_cache(self.mesh, init_cache(cfg, 1, lpad, self.device))
         with SH.replicating(self.mesh):
             logits, cache = _prefill(cfg, self.params, batch, cache, kernel=self.attn_kernel)
+            t_enqueued = time.monotonic() if stamp else None
             self.n_joins += 1
             req.pages = self.pool.alloc(req.rid, n_used)
             slot = req.slot
@@ -401,8 +420,9 @@ class ContinuousEngine:
         req.out.append(tok)
         self._lengths[slot] = total
         self._tokens[slot] = tok
+        return t_enqueued
 
-    def _join_via_prefix(self, req: Request) -> None:
+    def _join_via_prefix(self, req: Request, stamp: bool = False) -> Optional[float]:
         """Join without prefill: resident pages cover ``m.n_tokens`` prompt
         positions, the remaining suffix is replayed through the paged decode
         step as *forced* tokens (exact K/V, no sampling); the first sampled
@@ -427,7 +447,9 @@ class ContinuousEngine:
         rest = prompt[m.n_tokens + 1:]
         if len(rest):
             self._forced[slot] = collections.deque(int(t) for t in rest)
+        t_enqueued = time.monotonic() if stamp else None
         _sync(self.device)
+        return t_enqueued
 
     def _select_one(self, logits: torch.Tensor, req: Request) -> int:
         """A join's first token from its (V,) logits, drawn as a step draws."""
@@ -536,8 +558,9 @@ class ContinuousEngine:
 
 class EngineSession:
     """One engine's serving loop, exposed a step at a time.  All timestamps
-    are relative to ``t_start``.  ``step_seconds`` keeps every decode
-    step's synchronised duration."""
+    are relative to ``t_start``, except the spans' (``time.monotonic``).
+    ``step_seconds`` keeps every decode step's synchronised duration.  The
+    engine's tracer's ``span`` hook is resolved once, here."""
 
     def __init__(self, engine: ContinuousEngine, governor=None, slo=None,
                  t_start: Optional[float] = None):
@@ -552,6 +575,8 @@ class EngineSession:
         self.t_start = time.monotonic() if t_start is None else t_start
         self.steps = 0
         self.step_seconds: List[float] = []
+        # getattr-not-None: a tracer may carry the attribute and disown it
+        self._span = getattr(engine.tracer, "span", None)
 
     # ---- clock -----------------------------------------------------------
     def now(self) -> float:
@@ -599,10 +624,22 @@ class EngineSession:
     def admit(self, now: Optional[float] = None) -> List[Request]:
         """Join every arrived request that fits; returns the joins."""
         eng = self.engine
+        span = self._span
+        if span is not None:
+            t_pop = time.monotonic()
         joins = self.sched.admit(self.now() if now is None else now)
         for req in joins:
-            eng._join_request(req)
+            if span is not None:
+                t_join = time.monotonic()
+            t_enqueued = eng._join_request(req, span is not None)
             tnow = self.now()
+            if span is not None:
+                t_first = self.t_start + tnow
+                n = len(req.prompt) if req.out else 0     # a prefix join prefills none
+                span("queue", self.t_start + req.arrival, t_join, req.rid, n)
+                span("join", t_join, t_first, req.rid, n)
+                span("join_dispatch", t_join, t_enqueued, req.rid, n)
+                span("join_wait", t_enqueued, t_first, req.rid, n)
             if eng.tracer is not None:
                 # on the phases' clock (time.monotonic), not the session's
                 eng.tracer.serve_event("join", self.t_start + tnow, req.rid, req.slot)
@@ -616,6 +653,8 @@ class EngineSession:
             if not req.wants_more():
                 eng._retire(req, self.sched, self.slo, tnow)
                 self.finished.append(req)
+        if span is not None and joins:
+            span("admit", t_pop, t_first, None, len(joins))
         return joins
 
     def sleep_until_next(self) -> bool:
@@ -642,6 +681,9 @@ class EngineSession:
         batch's tokens."""
         eng = self.engine
         sched = self.sched
+        span = self._span
+        if span is not None:
+            t_step = time.monotonic()
         for req in sched.active.values():
             eng._grow_pages(req)
         # clamp the table to the live pages: no request's K/V extends past
@@ -656,13 +698,18 @@ class EngineSession:
             eng._to_device(eng._table[:, :m_live]),
             eng.pool.blocks,
         )
+        if span is not None:
+            t_enqueued = time.monotonic()
         _sync(eng.device)                      # t1 is when the device is done
         t1 = time.monotonic()
         eng.pool.blocks = blocks
         eng.n_decode_steps += 1
         self.step_seconds.append(t1 - t0)
+        t_published = t1
         if self.meter is not None:
             self.meter.step(t0, t1, sched.n_active, eng.n_slots)
+            if span is not None:
+                t_published = time.monotonic()
         active = list(sched.active.items())
         split = eng.split
         if not eng._fused_sample:
@@ -699,3 +746,15 @@ class EngineSession:
                 eng._retire(req, sched, self.slo, tnow)
                 self.finished.append(req)
         self.steps += 1
+        if span is not None:
+            t_end = time.monotonic()
+            t_host = self.t_start + tnow
+            n = len(active)
+            span("step", t_step, t_end, None, n)
+            span("prepare", t_step, t0, None, n)
+            span("dispatch", t0, t_enqueued, None, n)
+            span("device_wait", t_enqueued, t1, None, n)
+            if self.meter is not None:
+                span("publish", t1, t_published, None, n)
+            span("sample", t_published, t_host, None, n)
+            span("bookkeep", t_host, t_end, None, n)

@@ -54,7 +54,6 @@ class Request:
     pages: List[int] = field(default_factory=list)
     prefix_match: Optional[Any] = None       # PrefixMatch committed at admit
     out: List[int] = field(default_factory=list)
-    t_admit: float = -1.0
     t_first: float = -1.0                    # first-token completion (TTFT end)
     t_prev: float = -1.0                     # last token completion (TPOT base)
     t_done: float = -1.0
@@ -84,7 +83,6 @@ class Scheduler:
         self._heap: List = []                # (arrival, rid, Request)
         self._free_slots: List[int] = list(range(n_slots))
         self.active: Dict[int, Request] = {}  # slot -> request
-        self.peak_active = 0
 
     # ---- queue -----------------------------------------------------------
     def submit(self, req: Request) -> None:
@@ -157,10 +155,8 @@ class Scheduler:
                 req.prefix_match = match
             heapq.heappop(self._heap)
             req.slot = self._free_slots.pop()
-            req.t_admit = now
             self.active[req.slot] = req
             joins.append(req)
-        self.peak_active = max(self.peak_active, len(self.active))
         return joins
 
     # ---- completion (evict-on-EOS) --------------------------------------

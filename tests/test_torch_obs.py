@@ -1,9 +1,10 @@
 """The port's observability stack (``repro_torch.obs``) and the launchers'
 telemetry flags against the JAX package's, on the CPU.
 
-``obs/metrics.py``, ``obs/tracer.py`` and ``obs/export.py`` are copies
-pinned to the originals' text, and ``repro_torch.obs`` exports the
-reference's names lazily.  The same canned governor streams
+``obs/metrics.py`` and ``obs/export.py`` are copies pinned to the
+originals' text; ``obs/tracer.py`` is one with a ``span`` hook added for
+the port's serving loop.  ``repro_torch.obs`` exports the reference's
+names lazily.  The same canned governor streams
 (``tests/golden_common.py``) through both packages' governor, tap, bus
 metrics, span tracer and collector give the same metrics snapshots,
 JSONL lines, Prometheus text, dashboard frame and Perfetto JSON (the
@@ -48,7 +49,10 @@ PORT_SIDE = dict(events=TE, governor=TG, policies=TP, timeout=TT, metrics=tmetri
                  tracer=ttracer, export=texport)
 
 
-@pytest.mark.parametrize("name", ["metrics", "tracer", "export", "__init__"])
+# ``tracer`` is no longer a copy: the port's serving loop writes spans the
+# reference's does not; its behaviour on the reference's streams stays
+# pinned by the golden bytes and the canned streams below
+@pytest.mark.parametrize("name", ["metrics", "export", "__init__"])
 def test_copied_module_text_equals_the_original(name):
     mine = open(os.path.join(ROOT, "src", "repro_torch", "obs", f"{name}.py")).read()
     theirs = open(os.path.join(ROOT, "src", "repro", "obs", f"{name}.py")).read()
@@ -184,7 +188,7 @@ def test_serve_cli_telemetry_passes_the_references_validators(tmp_path, capsys):
     assert jtracer.validate_trace(trace, require_tracks=("ranks", "serve")) == []
     assert res["perfetto_dropped"] == 0 and res["dashboard_frames"] == 1
     events = trace["traceEvents"]
-    spans = [e for e in events if e["ph"] == "X"]
+    spans = [e for e in events if e["ph"] == "X" and e["pid"] == ttracer.PID_RANKS]
     serve = [e for e in events if e["ph"] == "i" and e["name"] in ("join", "evict")]
     assert sum(e["name"] == "join" for e in serve) == sum(
         e["name"] == "evict" for e in serve) == 6 + 1 - 1    # the warm-up ran untraced
@@ -199,6 +203,30 @@ def test_serve_cli_telemetry_passes_the_references_validators(tmp_path, capsys):
     assert jrep.to_dict() == rep
     _, trep = ttrace.replay(ttrace.load(res["trace_out"])[1])
     assert trep.to_dict() == rep
+
+
+def test_serve_cli_perfetto_out_writes_the_loops_spans(tmp_path):
+    """``--continuous --perfetto-out``: the serve track holds the loop's
+    spans, each decode ``step`` with its ``dispatch`` on the loop's thread
+    and a ``queue`` wait a request, on named lanes where no two overlap."""
+    res = lserve.main(["--reduced", "--continuous", "--device", "cpu", "--n-requests", "3",
+                       "--steps", "3", "--prompt-len", "8",
+                       "--perfetto-out", str(tmp_path / "serve.json")])
+    trace = json.load(open(res["perfetto_out"]))
+    assert ttracer.validate_trace(trace, require_tracks=("serve",)) == []
+    spans = [e for e in trace["traceEvents"]
+             if e["ph"] == "X" and e["pid"] == ttracer.PID_SERVE]
+    names = {e["name"] for e in spans}
+    assert {"step", "dispatch", "queue"} <= names, names
+    steps = [e for e in spans if e["name"] == "step"]
+    assert len(steps) == res["decode_steps"] and all(e["tid"] == 0 for e in steps)
+    queues = sorted((e for e in spans if e["name"] == "queue"), key=lambda e: e["ts"])
+    assert len(queues) == 3 and all(e["tid"] >= 1 for e in queues)
+    for a, b in zip(queues, queues[1:]):
+        assert a["tid"] != b["tid"] or a["ts"] + a["dur"] <= b["ts"]
+    names = {e["tid"]: e["args"]["name"] for e in trace["traceEvents"]
+             if e["ph"] == "M" and e["pid"] == ttracer.PID_SERVE and e["name"] == "thread_name"}
+    assert names[0] == "loop" and all(names[e["tid"]].startswith("queue ") for e in queues)
 
 
 def test_serve_cli_batched_ingest_and_tpot_target(tmp_path):
